@@ -3,8 +3,9 @@
 The package mirrors the JAX package's layout (``ops``, ``models``,
 ``coupling``, ``physics``, ``parallel``, ``utils``) so that each module's
 counterpart is found under the same name. It imports ``torch`` and ``numpy``
-only. Ported so far: the member-batched dynamics-only (``physics_on=False``)
-model; see the README's "PyTorch/CUDA port" section for what waits.
+only. Ported so far: the member-batched model with its column physics
+(``physics_on=True``, the default) or without; see the README's "PyTorch/CUDA
+port" section for what waits.
 """
 
 from __future__ import annotations

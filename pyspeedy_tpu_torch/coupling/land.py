@@ -4,8 +4,9 @@ land_model_init runs host-side (numpy) at initialization and produces
 constant fields; couple_land_atm runs on tensors inside the step (it is
 called every step in the reference, speedy.f90:72). Fields the step carries
 (stl_lm, land_temp) may have a leading member axis; the climatologies and the
-surface fluxes read here (hfluxn, with physics off) are shared by all members
-and broadcast."""
+surface fluxes read here (hfluxn: (3, il, ix) shared by all members while the
+physics is off, (B, 3, il, ix) once it writes them) are indexed from the
+right, so the same code serves both."""
 
 from __future__ import annotations
 
@@ -91,7 +92,7 @@ def couple_land_atm(consts, state, day0: bool, imont1, tmonth):
         # off -> land_temp from climatology, stl_lm untouched).
         tanom = state["stl_lm"] - stlcl
         tanom = state["cdland"] * (
-            tanom + state["rhcapl"] * state["hfluxn"][0])
+            tanom + state["rhcapl"] * state["hfluxn"][..., 0, :, :])
         stl_lm_new = tanom + stlcl
         flag = state["land_coupling_flag"]
         state["stl_lm"] = torch.where(flag, stl_lm_new, state["stl_lm"])

@@ -4,8 +4,10 @@ sea_model_init runs host-side at initialization; couple_sea_atm runs on
 tensors inside the step. Coupling configuration matches the reference's
 supported modes: sea_coupling_flag = 0 (prescribed SST), ice_coupling_flag = 1.
 Fields the step carries may have a leading member axis; climatologies and,
-with physics off, the surface fluxes (shf, evap, hfluxn: (3, il, ix), read
-with a leading aux index) are shared by all members and broadcast.
+with physics off, the surface fluxes (shf, evap, hfluxn: (3, il, ix)) are
+shared by all members and broadcast; the physics writes them member-batched,
+(B, 3, il, ix). Their land/sea/average axis is indexed from the right, so the
+same code serves both.
 """
 
 from __future__ import annotations
@@ -124,12 +126,13 @@ def sea_model_init(params, host, radang):
 def _run_sea_model(consts, state):
     """Slab mixed-layer ocean + sea-ice integration (sea_model.f90:313-383)."""
     ssrd = state["ssrd"]
+    sea = lambda flux: flux[..., 1, :, :]    # the sea row of (..., 3, il, ix)
 
     difice = ((pc.ALBSEA - pc.ALBICE) * ssrd
               + pc.EMISFC * pc.SBC * (SSTFR**4 - state["tice_am"] ** 4)
-              + state["shf"][1] + state["evap"][1] * pc.ALHC)
-    hflux_i = state["hfluxn"][1] + difice * (1.0 - state["sice_am"])
-    hflux = (state["hfluxn"][1] - state["hfseacl"]
+              + sea(state["shf"]) + sea(state["evap"]) * pc.ALHC)
+    hflux_i = sea(state["hfluxn"]) + difice * (1.0 - state["sice_am"])
+    hflux = (sea(state["hfluxn"]) - state["hfseacl"]
              - state["sicecl_ob"] * (hflux_i + BETA * (SSTFR - state["tice_om"])))
 
     tanom = state["sst_om"] - state["sstcl_ob"]

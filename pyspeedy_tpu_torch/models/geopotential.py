@@ -12,7 +12,9 @@ from .. import constants as pc
 from ..ops.geometry import Geometry
 from ..params import ModelParams
 
-__all__ = ["GeopotTables", "build_geopot", "get_geopotential"]
+__all__ = ["GeopotTables", "build_geopot", "get_geopotential",
+           "get_geopotential_grid", "hydrostatic_grid_levels",
+           "hydrostatic_m0corr"]
 
 
 class GeopotTables(NamedTuple):
@@ -75,3 +77,50 @@ def get_geopotential(gp: GeopotTables, t: torch.Tensor,
     dtk = t[..., 2:, 0, :] - t[..., :-2, 0, :]
     phi[..., 1:-1, 0, :] += gp.corf[1:-1, None] * dtk
     return phi
+
+
+def hydrostatic_grid_levels(gp: GeopotTables, tg: torch.Tensor,
+                            phisg: torch.Tensor) -> torch.Tensor:
+    """The hydrostatic recursion of `get_geopotential` on grid fields, without
+    the m=0 correction: tg (B, kx, il, ix), phisg (il, ix)."""
+    kx = tg.shape[1]
+    x1, x2 = gp.xgeop1_host, gp.xgeop2_host
+    levels = [None] * kx
+    levels[kx - 1] = phisg + x1[kx - 1] * tg[:, kx - 1]
+    for k in range(kx - 2, -1, -1):
+        levels[k] = levels[k + 1] + x2[k + 1] * tg[:, k + 1] + x1[k] * tg[:, k]
+    return torch.stack(levels, dim=1)
+
+
+def hydrostatic_m0corr(gp: GeopotTables, sp, t_spec: torch.Tensor):
+    """The zonally-uniform m=0 lapse-rate correction of the hydrostatic
+    geopotential on the grid (geopotential.f90:73-76), from the m=0 column of
+    the spectral temperature (one (nx -> il) product; the m=0 inverse DFT is
+    the identity on the real plane, fourier.f90:72-76): corr(k, j) = corf[k]
+    * sum_n (t[k+1] - t[k-1])_re[m=0, n] * P(j, 0, n). t_spec:
+    (B, 2, kx, mx, nx). Returns (B, kx, il, 1)."""
+    t0 = t_spec[:, 0, :, 0, :]                        # (B, kx, nx) real m=0
+    tpad = torch.nn.functional.pad(t0, (0, 0, 1, 1))
+    dtk = tpad[:, 2:] - tpad[:, :-2]
+    leg0 = sp.cpol_inv_full[:, 0, :]                  # (il, nx)
+    corr = torch.einsum("bkn,jn->bkj", gp.corf[:, None] * dtk, leg0)
+    return corr.unsqueeze(-1)
+
+
+def get_geopotential_grid(gp: GeopotTables, sp, tg: torch.Tensor,
+                          t_spec: torch.Tensor,
+                          phisg: torch.Tensor) -> torch.Tensor:
+    """Grid-space hydrostatic integration: phig == spec2grid(phi) without
+    transforming the phi stack.
+
+    The spectral recursion (geopotential.f90:49-77) is level-wise linear, so
+    it commutes with the (linear) inverse transform: integrating the already
+    transformed temperature tg against the same coefficients reproduces
+    spec2grid(get_geopotential(...)) to rounding.
+
+    tg: (B, kx, il, ix) grid temperature (= spec2grid of t_spec);
+    t_spec: (B, 2, kx, mx, nx) the spectral pair tg came from;
+    phisg: (il, ix) grid surface geopotential (spec2grid of state["phis"],
+    loop-invariant, computed at initialization)."""
+    return (hydrostatic_grid_levels(gp, tg, phisg)
+            + hydrostatic_m0corr(gp, sp, t_spec))

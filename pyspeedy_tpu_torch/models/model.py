@@ -24,9 +24,11 @@ from ..coupling.forcing import set_forcing
 from ..coupling.land import land_model_init
 from ..coupling.sea import sea_model_init
 from ..ops import spectral as S
-from ..ops.column_kernels import ColumnTables, build_column_tables
+from ..ops.column_kernels import (ColumnTables, PhysicsTables,
+                                  build_column_tables, build_physics_tables)
 from ..ops.geometry import Geometry, build_geometry
 from ..params import ModelParams
+from ..physics.driver import get_physical_tendencies
 from ..physics.longwave_radiation import radset
 from ..physics.surface_fluxes import set_orog_land_sfc_drag
 from ..registry import MODEL_STATE_VARS, internal_shape, is_tlev
@@ -60,11 +62,19 @@ class Consts:
     implicit: Any           # ImplicitTables for the current dt
     fband: Any              # (301, 4)
     col: ColumnTables       # level/latitude tables of the grid-dynamics kernel
+    phys: PhysicsTables     # level/latitude tables of the physics kernel
     # NB: increase_co2 / land_coupling_flag / sst_anomaly_coupling_flag are
     # NOT consts: they are runtime-settable state scalars (0-d device
     # tensors), matching the reference registry. See allocate_state.
     sea_coupling_flag: int = 0  # compile-time in the reference (sea_model.f90:14-20)
     physics_on: bool = True
+    # Reconstruct the physics-path geopotential by grid-space hydrostatic
+    # integration of the already-transformed temperature (inside the physics
+    # kernel on the card) instead of inverse-transforming the phi stack:
+    # exact commutation of two linear operators, kx field-levels of synthesis
+    # saved per step. Differs from the reference-ordered spectral path only
+    # in summation order, so the CPU parity path keeps it off.
+    grid_phi: bool = False
 
     def with_implicit(self, im) -> "Consts":
         return dataclasses.replace(self, implicit=im)
@@ -75,19 +85,23 @@ class Consts:
 
 
 def build_consts(params: ModelParams, device="cuda", physics_on: bool = True,
-                 sea_coupling_flag: int = 0) -> tuple[Consts, Geometry]:
+                 sea_coupling_flag: int = 0, grid_phi: bool | None = None,
+                 bf16_tendencies: bool = False) -> tuple[Consts, Geometry]:
     """Build all static tables on `device`. Returns (consts, numpy geometry).
 
-    Only the dynamics-only model is ported: physics_on=True (the default, as
-    in the JAX package) and params.sppt_on=True raise NotImplementedError.
-    The zonal transform path follows params.fft_mode; "auto" takes the dense
-    matmul path on CUDA and torch.fft on the CPU."""
+    physics_on defaults to True, as in the JAX package. grid_phi (see Consts)
+    defaults to on for a CUDA device and off on the CPU. Not ported yet, and
+    refused by name: params.sppt_on=True (the SPPT pattern generator) and
+    bf16_tendencies=True (the bfloat16 outputs of both kernels). The zonal
+    transform path follows params.fft_mode; "auto" takes the dense matmul
+    path on CUDA and torch.fft on the CPU."""
     device = resolve_device(device)
-    if physics_on:
+    if grid_phi is None:
+        grid_phi = device.type == "cuda"
+    if bf16_tendencies:
         raise NotImplementedError(
-            "physics_on=True: the column physics (the modules of the physics "
-            "package and the physics kernel) is not ported yet; build the "
-            "dynamics-only model with physics_on=False")
+            "bf16_tendencies=True: the bfloat16-output modes of the "
+            "grid-dynamics and physics kernels are not ported yet")
     if params.sppt_on:
         raise NotImplementedError(
             "sppt_on=True: stochastic physics (physics/sppt.py) is not "
@@ -114,10 +128,11 @@ def build_consts(params: ModelParams, device="cuda", physics_on: bool = True,
     col = build_column_tables(geom_np, _tref_profile(geom_np),
                               params.np_dtype, device)
     geom = Geometry(*(np.asarray(a, dtype=params.np_dtype) for a in geom_np))
+    phys = build_physics_tables(geom, gp, device)
     consts = Consts(params=params, sp=sp, geom=geom, hd=hd, gp=gp,
-                    implicit=im, fband=fband, col=col,
+                    implicit=im, fband=fband, col=col, phys=phys,
                     sea_coupling_flag=sea_coupling_flag,
-                    physics_on=physics_on)
+                    physics_on=physics_on, grid_phi=grid_phi)
     return consts, geom_np
 
 
@@ -184,9 +199,11 @@ DYNAMIC_FIELDS = frozenset({
 
 
 # Subset of DYNAMIC_FIELDS that the physics recomputes from scratch every
-# step BEFORE any consumer reads them. With physics off nothing writes them:
-# they stay single-member (no member axis) and the coupler reads them as
-# zero fluxes shared by all members.
+# step BEFORE any consumer reads them (the land/sea coupler consumes hfluxn,
+# shf and evap of the SAME step). With physics off nothing writes them: they
+# stay single-member (no member axis) and the coupler reads them as zero
+# fluxes shared by all members. With physics on every step writes them
+# member-batched, whatever layout they had on the way in.
 EPHEMERAL_FIELDS = frozenset({
     "rad_flux", "rad_st4a", "slrd", "slr", "olr", "precnv", "precls",
     "cbmf", "ustr", "vstr", "shf", "evap", "slru", "hfluxn",
@@ -248,10 +265,16 @@ def ensure_member_axis(state: dict, n_members: int) -> dict:
     return out
 
 
-def _drop_member_axis(state: dict) -> dict:
-    """Member-batched state with B = 1 -> single-member layout."""
+def _physics_fn(consts):
+    return get_physical_tendencies if consts.physics_on else None
+
+
+def _drop_member_axis(state: dict, physics_on: bool = False) -> dict:
+    """Member-batched state with B = 1 -> single-member layout. With the
+    physics on the ephemeral diagnostics are member-batched too."""
     first = lambda a: a[0]
-    return {k: (_map_levels(first, v) if k in CARRY_FIELDS else v)
+    batched = DYNAMIC_FIELDS if physics_on else CARRY_FIELDS
+    return {k: (_map_levels(first, v) if k in batched else v)
             for k, v in state.items()}
 
 
@@ -312,13 +335,18 @@ def initialize(consts: Consts, state: dict, host_bc: dict,
     st["error_flag"] = st["error_flag"] | bad0
 
     # First-step bootstrap: dt/2, dt (time_stepping.f90:13-27), each with
-    # its own implicit tables.
+    # its own implicit tables. The reference's compute_shortwave flag
+    # defaults to .true. (model_state.f90:780), so both bootstrap steps run
+    # the shortwave.
     im_half = build_implicit(params, geom_np, consts.hd, 0.5 * params.delt,
                              device)
     im_full = build_implicit(params, geom_np, consts.hd, params.delt, device)
-    st = step(consts.with_implicit(im_half), st, 1, 1, 0.5 * params.delt)
-    st = step(consts.with_implicit(im_full), st, 1, 2, params.delt)
-    state = _drop_member_axis(st)
+    pf = _physics_fn(consts)
+    st = step(consts.with_implicit(im_half), st, 1, 1, 0.5 * params.delt,
+              pf, {"compute_shortwave": True, "stepno": 0})
+    st = step(consts.with_implicit(im_full), st, 1, 2, params.delt,
+              pf, {"compute_shortwave": True, "stepno": 1})
+    state = _drop_member_axis(st, consts.physics_on)
 
     if bool(bad0.any()):
         raise SpeedyError("Initial state failed the diagnostics check")
@@ -373,11 +401,11 @@ def build_step_ctx(cal: ModelCalendar, current_step: int, n_steps: int):
 def make_single_step(consts: Consts):
     """The full per-step update (the body of do_single_step,
     speedy.f90:20-74) as a state -> state function on the member-batched
-    state; ctx_i carries the step's calendar scalars as Python values."""
+    state; ctx_i carries the step's calendar scalars as Python values. The
+    shortwave flag is one of them: every step is specialised on it on the
+    host, and the physics kernel is launched in the matching variant."""
     params = consts.params
-    if consts.physics_on:
-        raise NotImplementedError(
-            "physics_on=True: the column physics is not ported yet")
+    pf = _physics_fn(consts)
 
     def single_step(state, ctx_i):
         nmem = state["vor"][0].shape[0]
@@ -392,7 +420,11 @@ def make_single_step(consts: Consts):
 
         state["compute_shortwave"] = state["compute_shortwave"].new_full(
             (nmem,), bool(ctx_i["compute_shortwave"]))
-        state = step(consts, state, 2, 2, 2.0 * params.delt)
+        pctx = {"compute_shortwave": bool(ctx_i["compute_shortwave"]),
+                "stepno": int(ctx_i["stepno"])}
+        if "sppt_pattern" in ctx_i:
+            pctx["sppt_pattern"] = ctx_i["sppt_pattern"]
+        state = step(consts, state, 2, 2, 2.0 * params.delt, pf, pctx)
 
         bad = check_diagnostics(consts, state, 1)
         state["error_flag"] = state["error_flag"] | bad

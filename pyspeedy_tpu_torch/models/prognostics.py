@@ -31,6 +31,12 @@ def initialize_from_rest_state(consts, state):
     state = dict(state)
     phis = S.grid2spec_p(sp, state["phis0"])
     state["phis"] = phis
+    # Loop-invariant grid synthesis of phis for the grid_phi physics path
+    # (models/geopotential.get_geopotential_grid). NOT phis0: the reference
+    # transform pair is non-orthogonal (~5e-4, ops/geometry.py), so
+    # spec2grid(phis) and phis0 differ by a small static field; exact
+    # commutation with the spectral recursion requires the former.
+    state["phisg"] = S.spec2grid_p(sp, phis, 1)
 
     zeros3 = torch.zeros((2, kx, params.mx, params.nx), dtype=rdtype,
                          device=device)

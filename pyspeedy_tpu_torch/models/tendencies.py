@@ -136,15 +136,18 @@ def grid_dynamics_core(tab: ColumnTables, vorg, divg, tg, trg_flat, ug0, vg0,
             flux_qu, flux_qv, ke)
 
 
-def grid_tendency_specs(consts, state, j2: int):
+def grid_tendency_specs(consts, state, j2: int, physics_fn=None, ctx=None):
     """The transform-and-grid-kernel part of a step: inverse transforms ->
     grid dynamics (the CUDA kernel on the card, the plain version on the CPU)
-    -> direct transforms, one transform call per field. Returns
+    -> physics (physics_fn, when given, adds its tendencies at time level 0
+    and writes its diagnostics into the state) -> direct transforms, one
+    transform call per field. Returns
     (specs, psdt, state) where specs is the list of direct-transform outputs
     (wind/flux pairs then ke, ttend, tracer tendencies) still awaiting the
     spectral-side combination (tendencies.f90:238-268 second half), and psdt
     is the spectral log-ps tendency (grid part, already mean-masked).
-    `state` comes back with the geopotential updated."""
+    `state` comes back with the geopotential updated (and what the physics
+    wrote)."""
     sp = consts.sp
     kx = consts.params.kx
 
@@ -176,7 +179,11 @@ def grid_tendency_specs(consts, state, j2: int):
     psdt[..., 0, 0] = 0.0
 
     state = dict(state)
+    # --- physics (tendencies.f90:229-232) ---
     state["phi"] = get_geopotential(consts.gp, state["t"][0], state["phis"])
+    if physics_fn is not None:
+        utend, vtend, ttend, trtend_flat, state = physics_fn(
+            consts, state, ctx, utend, vtend, ttend, trtend_flat)
 
     # --- back to spectral (tendencies.f90:238-268) ---
     # Direct transforms of every outgoing field: the wind/flux pairs (scaled

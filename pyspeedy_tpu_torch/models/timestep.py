@@ -39,12 +39,15 @@ def sdrag_mask(kx: int, mx: int, dtype, device):
     return m00
 
 
-def step(consts, state, j1: int, j2: int, dt: float):
+def step(consts, state, j1: int, j2: int, dt: float, physics_fn=None,
+         ctx=None):
     """One (half/full/leapfrog) step (time_stepping.f90:38-147) of the
     member-batched state.
 
     j1/j2 are the reference's 1-based time-level selectors; dt the step
-    length. consts.implicit must hold the tables for this dt.
+    length. consts.implicit must hold the tables for this dt. physics_fn
+    (physics.driver.get_physical_tendencies, or None with the physics off)
+    and its ctx go through to grid_tendency_specs.
 
     Only the default semi-implicit configuration (alph >= 0.5) is ported:
     the whole spectral side (flux combination, linear tendencies, implicit
@@ -59,5 +62,6 @@ def step(consts, state, j1: int, j2: int, dt: float):
     from .spectral_glue import apply_spectral_update
     from .tendencies import grid_tendency_specs
 
-    specs, psdt, state = grid_tendency_specs(consts, state, j2 - 1)
+    specs, psdt, state = grid_tendency_specs(consts, state, j2 - 1,
+                                             physics_fn, ctx)
     return apply_spectral_update(consts, state, specs, psdt, j1, dt)

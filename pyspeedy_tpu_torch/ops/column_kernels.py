@@ -5,13 +5,16 @@ Counterpart of the JAX package's ``ops/pallas_tiling.py``. The sources live in
 at first use into a shared library with a plain C interface, which is loaded
 with ``ctypes``. Nothing is built or imported when this module is imported.
 
-Dispatch rule (:func:`grid_dynamics`): a CPU tensor goes to the plain PyTorch
-version it is given; a CUDA tensor launches the kernel or raises. There is no
-fallback from the kernel to the plain version on the card.
+Dispatch rule (:func:`grid_dynamics`, :func:`grid_physics`): a CPU tensor goes
+to the plain PyTorch version it is given; a CUDA tensor launches the kernel or
+raises. There is no fallback from the kernel to the plain version on the card.
 
-``launch_counts`` holds, per kernel, the number of launches made since the
-last :func:`reset_launch_counts`; a wrapper adds one exactly where it
-launches its kernel.
+``KERNELS`` is the table of kernels: one entry names a source, its C symbol
+and argument types, its extra nvcc flags and its launch counters; building and
+loading are generic over it. ``launch_counts`` holds, per counter, the number
+of launches made since the last :func:`reset_launch_counts`; a wrapper adds
+one exactly where it launches its kernel. The physics kernel counts its two
+variants apart (``grid_physics_sw``: a shortwave step, ``grid_physics_nosw``).
 """
 
 from __future__ import annotations
@@ -30,20 +33,56 @@ import torch
 from .. import constants as pc
 
 __all__ = ["ColumnTables", "build_column_tables", "grid_dynamics",
-           "grid_dynamics_cuda", "build_kernels", "launch_counts",
-           "reset_launch_counts", "find_nvcc", "KERNEL_SOURCES", "NVCC_FLAGS"]
+           "grid_dynamics_cuda", "PhysicsTables", "build_physics_tables",
+           "grid_physics", "grid_physics_cuda", "build_kernels",
+           "build_command", "build_logs", "launch_counts",
+           "reset_launch_counts", "find_nvcc", "KernelSpec", "KERNELS",
+           "KERNEL_SOURCES", "NVCC_FLAGS"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # Build outputs go beside the package (the repository root in a checkout).
 _BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 
-KERNEL_SOURCES = {"grid_dynamics": _CSRC / "grid_dynamics.cu"}
+# Flags every source is compiled with; -Xptxas -v makes nvcc report each
+# instantiation's registers and spill bytes (kept in `build_logs`).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _SUPPORTED_KX = (5, 7, 8)
 
-launch_counts = {name: 0 for name in KERNEL_SOURCES}
-_libs: dict = {}
+
+class KernelSpec(NamedTuple):
+    """One hand-written kernel: its source, the C function the library
+    exports with its ctypes argument types, the nvcc flags it needs besides
+    NVCC_FLAGS, and the names under which its launches are counted."""
+
+    source: Path
+    symbol: str
+    argtypes: tuple
+    extra_flags: tuple = ()
+    counters: tuple = ()
+
+
+_P, _I, _L, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_double)
+KERNELS = {
+    "grid_dynamics": KernelSpec(
+        source=_CSRC / "grid_dynamics.cu", symbol="pyspeedy_grid_dynamics",
+        argtypes=(_I, _I, _I, _L, _I, _I, _P, _P, _P, _D, _D, _P),
+        counters=("grid_dynamics",)),
+    # -fmad=false: the plain version's separate elementwise passes cannot
+    # contract a*b+c, and the physics is full of thresholds that turn a
+    # last-bit difference into another branch.
+    "grid_physics": KernelSpec(
+        source=_CSRC / "grid_physics.cu", symbol="pyspeedy_grid_physics",
+        argtypes=(_I, _I, _I, _I, _L, _I, _I, _P, _P, _P, _P),
+        extra_flags=("-fmad=false",),
+        counters=("grid_physics_sw", "grid_physics_nosw")),
+}
+KERNEL_SOURCES = {name: spec.source for name, spec in KERNELS.items()}
+
+launch_counts = {c: 0 for spec in KERNELS.values() for c in spec.counters}
+build_logs: dict = {}    # kernel name -> what nvcc printed when it was built
+_fns: dict = {}
 
 
 def reset_launch_counts() -> None:
@@ -103,9 +142,18 @@ def find_nvcc() -> str:
         "the CUDA kernels of pyspeedy_tpu_torch are compiled at first use")
 
 
+def build_command(name: str, nvcc: str, out) -> list:
+    """The nvcc command line that builds kernel `name` into `out`."""
+    spec = KERNELS[name]
+    return [nvcc, *NVCC_FLAGS, *spec.extra_flags, "-o", str(out),
+            str(spec.source)]
+
+
 def _library_path(name: str) -> Path:
-    digest = hashlib.sha1(KERNEL_SOURCES[name].read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    spec = KERNELS[name]
+    flags = " ".join(NVCC_FLAGS + spec.extra_flags)
+    digest = hashlib.sha1(spec.source.read_bytes()
+                          + flags.encode()).hexdigest()[:12]
     return _BUILD_DIR / f"lib{name}_{digest}.so"
 
 
@@ -114,7 +162,7 @@ def build_kernels(names=None) -> dict:
     all started together. Returns {name: library path}. A library whose name
     carries the hash of its source and flags is reused if it exists. A failed
     build raises."""
-    names = list(KERNEL_SOURCES) if names is None else list(names)
+    names = list(KERNELS) if names is None else list(names)
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     paths, procs = {}, {}
@@ -125,11 +173,12 @@ def build_kernels(names=None) -> dict:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         procs[name] = (tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(KERNEL_SOURCES[name])],
+            build_command(name, nvcc, tmp),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failures = []
     for name, (tmp, proc) in procs.items():
         log, _ = proc.communicate()
+        build_logs[name] = log
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             failures.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
@@ -141,17 +190,16 @@ def build_kernels(names=None) -> dict:
 
 
 def _load(name: str):
-    lib = _libs.get(name)
-    if lib is None:
+    """The C function of kernel `name`, built and loaded at first use."""
+    fn = _fns.get(name)
+    if fn is None:
+        spec = KERNELS[name]
         lib = ctypes.CDLL(str(build_kernels([name])[name]))
-        fn = lib.pyspeedy_grid_dynamics
+        fn = getattr(lib, spec.symbol)
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_double, ctypes.c_double, ctypes.c_void_p]
-        _libs[name] = lib
-    return lib
+        fn.argtypes = list(spec.argtypes)
+        _fns[name] = fn
+    return fn
 
 
 # ---------------------------------------------------------------------------
@@ -216,7 +264,7 @@ def grid_dynamics_cuda(tab: ColumnTables, vorg, divg, tg, trg_flat, ug, vg,
     if vorg.device.type != "cuda":
         raise ValueError(f"grid_dynamics_cuda needs CUDA tensors, got "
                          f"{vorg.device}")
-    lib = _load("grid_dynamics")
+    fn = _load("grid_dynamics")
 
     full = lambda: torch.empty_like(vorg)
     trac = lambda: torch.empty_like(trg_flat)
@@ -235,7 +283,7 @@ def grid_dynamics_cuda(tab: ColumnTables, vorg, divg, tg, trg_flat, ug, vg,
     levels = np.ascontiguousarray(tab.levels_host, dtype=np.float64)
     with torch.cuda.device(vorg.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.pyspeedy_grid_dynamics(
+        rc = fn(
             vorg.element_size(), kx, ntr, nmem, il, ix,
             ctypes.cast(in_ptrs, ctypes.c_void_p),
             ctypes.cast(out_ptrs, ctypes.c_void_p),
@@ -258,3 +306,234 @@ def grid_dynamics(plain_fn, tab: ColumnTables, vorg, divg, tg, trg_flat, ug,
     if vorg.device.type == "cpu":
         return plain_fn(tab, vorg, divg, tg, trg_flat, ug, vg, pxy)
     return grid_dynamics_cuda(tab, vorg, divg, tg, trg_flat, ug, vg, pxy)
+
+
+
+# ---------------------------------------------------------------------------
+# The physics kernel
+# ---------------------------------------------------------------------------
+
+_N_BC = 16      # physics.driver.BC_FIELDS
+_N_CACHE = 7    # physics.driver.CACHE_FIELDS
+
+
+class PhysicsTables(NamedTuple):
+    """What the physics kernel needs besides its fields: the per-level tables
+    and derived scalars on the host, in the order of the kernel's argument
+    struct, and sqrt(cos(lat)) on the device."""
+
+    levels_host: np.ndarray   # (17*kx + 8,) float64
+    sqrtcoa: torch.Tensor     # (il,)
+    kx: int
+
+
+def build_physics_tables(geom, gp, device) -> PhysicsTables:
+    """geom: numpy Geometry in the model dtype; gp: GeopotTables. Every entry
+    comes from the expression the plain PyTorch schemes use on the same
+    geometry, so kernel and plain version see the same constants."""
+    from ..physics import convection as conv
+    from ..physics import large_scale_condensation as lsc
+    from ..physics import shortwave_radiation as sw
+    from ..physics import vertical_diffusion as vdif
+
+    f64 = lambda x: np.asarray(x, dtype=np.float64)
+    kx = np.asarray(geom.fsg).shape[0]
+    rhref, dqmax, wcol = lsc.lsc_level_tables(geom)
+    rsig, rsig1, drh0k, fvdiq2k, gate = vdif.vdiff_level_tables(geom)
+    fshcq, fshcse, fvdiq, fvdise = vdif.vdiff_constants(geom)
+    rows = [geom.fsg, geom.dhs, geom.grdsig, geom.grdscp,
+            np.asarray(geom.wvi)[:, 1], conv.entrainment_profile(geom),
+            rhref, dqmax, wcol, sw.sw_abs1(geom), rsig, rsig1, drh0k,
+            fvdiq2k, gate, gp.xgeop1_host, gp.xgeop2_host]
+    dhs = f64(geom.dhs)
+    scalars = [
+        pc.P0 * dhs[kx - 1] / (pc.GRAV * conv.TRCNV * 3600.0),    # fm0
+        pc.RGAS * 288.0 * float(geom.sigl[kx - 1]),                # sigl_b_den
+        fshcq, fshcse, fvdise,
+        float(vdif.RHGRAD * (geom.fsg[kx - 1] - geom.fsg[kx - 2])),  # drh0
+        float(fvdiq * geom.sigh[kx - 1]),                          # fvdiq2
+        pc.EPSLW / (dhs[0] + dhs[1]),                              # eps1_strat
+    ]
+    levels = np.concatenate([f64(r) for r in rows] + [f64(scalars)])
+    assert levels.shape == (17 * kx + 8,)
+    coa = torch.as_tensor(f64(geom.coa), device=device).to(
+        torch.float64 if np.asarray(geom.coa).dtype == np.float64
+        else torch.float32)
+    return PhysicsTables(levels_host=np.ascontiguousarray(levels),
+                         sqrtcoa=torch.sqrt(coa).contiguous(), kx=kx)
+
+
+def _plane_strides(name, x, nmem, il, ix):
+    """(member, latitude, longitude) element strides of a boundary field:
+    shared (il, ix), zonal (il, 1), or either with a leading member axis,
+    each contiguous or an expanded view of such (stride 0 on a broadcast
+    axis). Anything else raises."""
+    shape = tuple(x.shape)
+    if x.dim() == 2:
+        shape3, strides = (1,) + shape, (0,) + tuple(x.stride())
+    elif x.dim() == 3:
+        shape3, strides = shape, tuple(x.stride())
+    else:
+        raise ValueError(f"{name}: shape {shape}, expected (il, ix), "
+                         f"(il, 1) or those behind a member axis")
+    if (shape3[0] not in (1, nmem) or shape3[1] != il
+            or shape3[2] not in (1, ix)):
+        raise ValueError(
+            f"{name}: shape {shape} does not broadcast to "
+            f"({nmem}, {il}, {ix}) from (il, ix) or (il, 1) planes")
+    eff = [0 if n == 1 else s for n, s in zip(shape3, strides)]
+    # The axes that are not broadcast must be laid out contiguously.
+    want, run = [0, 0, 0], 1
+    for d in (2, 1, 0):
+        if eff[d] != 0:
+            want[d] = run
+            run *= shape3[d]
+    if eff != want:
+        raise ValueError(
+            f"{name}: strides {tuple(x.stride())} for shape {shape}: neither "
+            f"contiguous nor an expanded view of a contiguous field")
+    return eff
+
+
+def _check_physics_inputs(phys, sw_flag, ug, vg, tg, qg, phig, pslg, bc, cache,
+                          ablco2, phisg, m0corr, sppt_pattern):
+    """Validate what the physics kernel is given; returns (B, kx, il, ix,
+    strides) with the 1 + 3*16 element strides it takes. Raises on what the
+    kernel does not take."""
+    if tg.dim() != 4:
+        raise ValueError(
+            f"tg must be (members, kx, il, ix), got {tuple(tg.shape)}")
+    nmem, kx, il, ix = tg.shape
+    if kx != phys.kx or kx not in _SUPPORTED_KX:
+        raise ValueError(
+            f"kx={kx}: the tables hold {phys.kx} levels and the kernel is "
+            f"built for kx in {_SUPPORTED_KX}")
+    if tg.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"unsupported dtype {tg.dtype}: float32 or float64")
+
+    def same(name, x):
+        if x.dtype != tg.dtype or x.device != tg.device:
+            raise TypeError(f"{name}: {x.dtype} on {x.device}, expected "
+                            f"{tg.dtype} on {tg.device}")
+
+    def dense(name, x, shape):
+        if tuple(x.shape) != shape:
+            raise ValueError(
+                f"{name}: shape {tuple(x.shape)}, expected {shape}")
+        same(name, x)
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+    full = (nmem, kx, il, ix)
+    for name, x in (("ug", ug), ("vg", vg), ("tg", tg), ("qg", qg)):
+        dense(name, x, full)
+    dense("pslg", pslg, (nmem, il, ix))
+    if phig is not None:
+        dense("phig", phig, full)
+    else:
+        if phisg is None or m0corr is None:
+            raise ValueError("without phig the kernel needs phisg and m0corr")
+        dense("phisg", phisg, (il, ix))
+        dense("m0corr", m0corr, (nmem, kx, il, 1))
+    if sppt_pattern is not None:
+        dense("sppt_pattern", sppt_pattern, full)
+    if phys.sqrtcoa.numel() != il:
+        raise ValueError(f"tables hold {phys.sqrtcoa.numel()} latitudes, "
+                         f"fields {il}")
+    same("tables.sqrtcoa", phys.sqrtcoa)
+
+    if len(bc) != _N_BC:
+        raise ValueError(f"expected {_N_BC} boundary fields, got {len(bc)}")
+    strides = []
+    if ablco2.dim() == 0:
+        strides.append(0)
+    elif tuple(ablco2.shape) == (nmem,):
+        strides.append(ablco2.stride(0) if nmem > 1 else 0)
+    else:
+        raise ValueError(f"ablco2: shape {tuple(ablco2.shape)}, expected () "
+                         f"or ({nmem},)")
+    same("ablco2", ablco2)
+    for n, x in enumerate(bc):
+        same(f"bc[{n}]", x)
+        strides += _plane_strides(f"bc[{n}]", x, nmem, il, ix)
+
+    if not sw_flag:
+        if len(cache) != _N_CACHE:
+            raise ValueError(
+                "a step without shortwave needs the 7 cache fields")
+        shapes = (full, (nmem, 4, kx, il, ix), (nmem, 2, il, ix),
+                  (nmem, il, ix), (nmem, il, ix), (nmem, il, ix),
+                  (nmem, il, ix))
+        for n, (x, shape) in enumerate(zip(cache, shapes)):
+            dense(f"cache[{n}]", x, shape)
+    return nmem, kx, il, ix, strides
+
+
+def grid_physics_cuda(consts, sw_flag, ug, vg, tg, qg, phig, pslg, bc, cache,
+                      ablco2, phisg=None, m0corr=None, sppt_pattern=None):
+    """Launch the CUDA physics kernel on PyTorch's current stream. Same
+    arguments and results as ``physics.driver.grid_physics``: (utend, vtend,
+    ttend, qtend, diag, new_cache). On a step without shortwave the cache
+    tensors are read in place and come back as new_cache. Raises if the
+    inputs are not what the kernel takes, if the build fails or if the launch
+    is refused; does not synchronise."""
+    sw_flag = bool(sw_flag)
+    phys = consts.phys
+    nmem, kx, il, ix, strides = _check_physics_inputs(
+        phys, sw_flag, ug, vg, tg, qg, phig, pslg, bc, cache, ablco2, phisg,
+        m0corr, sppt_pattern)
+    if tg.device.type != "cuda":
+        raise ValueError(f"grid_physics_cuda needs CUDA tensors, got "
+                         f"{tg.device}")
+    fn = _load("grid_physics")
+
+    new = lambda *shape: torch.empty(shape, dtype=tg.dtype, device=tg.device)
+    plane = lambda: new(nmem, il, ix)
+    if sw_flag:
+        new_cache = (new(nmem, kx, il, ix), new(nmem, 4, kx, il, ix),
+                     new(nmem, 2, il, ix), plane(), plane(), plane(),
+                     plane())
+    else:
+        new_cache = tuple(cache)
+    tends = tuple(new(nmem, kx, il, ix) for _ in range(4))
+    diag = (plane(), plane(), plane(), plane(), plane(), plane(),
+            new(nmem, 3, il, ix), new(nmem, 3, il, ix), new(nmem, 3, il, ix),
+            new(nmem, 3, il, ix), new(nmem, 3, il, ix), new(nmem, 3, il, ix),
+            new(nmem, 4, il, ix), new(nmem, 2, kx, il, ix))
+
+    ptr = lambda x: 0 if x is None else x.data_ptr()
+    ptrs = [ptr(x) for x in (ug, vg, tg, qg, phig, pslg, phisg, m0corr,
+                             sppt_pattern, phys.sqrtcoa, ablco2)]
+    ptrs += [ptr(x) for x in (*bc, *new_cache, *tends, *diag)]
+    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    c_strides = (ctypes.c_longlong * len(strides))(*strides)
+    levels = phys.levels_host
+    with torch.cuda.device(tg.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(tg.element_size(), kx, int(sw_flag),
+                int(consts.sea_coupling_flag > 0), nmem, il, ix,
+                ctypes.cast(c_ptrs, ctypes.c_void_p),
+                ctypes.cast(c_strides, ctypes.c_void_p),
+                levels.ctypes.data_as(ctypes.c_void_p),
+                ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(
+            f"grid_physics kernel launch failed with code {rc} "
+            f"(members={nmem}, kx={kx}, il={il}, ix={ix}, {tg.dtype}, "
+            f"shortwave={sw_flag})")
+    launch_counts["grid_physics_sw" if sw_flag else "grid_physics_nosw"] += 1
+    return (*tends, diag, new_cache)
+
+
+def grid_physics(plain_fn, consts, sw_flag, ug, vg, tg, qg, phig, pslg, bc,
+                 cache, ablco2, phisg=None, m0corr=None, sppt_pattern=None):
+    """The dispatch rule: CPU tensors take `plain_fn` (the plain PyTorch
+    version, ``physics.driver.grid_physics``); CUDA tensors launch the
+    kernel or raise."""
+    if tg.device.type == "cpu":
+        return plain_fn(consts, sw_flag, ug, vg, tg, qg, phig, pslg, bc,
+                        cache, ablco2, phisg=phisg, m0corr=m0corr,
+                        sppt_pattern=sppt_pattern)
+    return grid_physics_cuda(consts, sw_flag, ug, vg, tg, qg, phig, pslg, bc,
+                             cache, ablco2, phisg=phisg, m0corr=m0corr,
+                             sppt_pattern=sppt_pattern)

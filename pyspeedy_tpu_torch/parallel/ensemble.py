@@ -3,9 +3,13 @@
 
 Members form a leading batch axis on every carried state tensor; one step
 advances all members at once (the transforms become bigger matrix products,
-the grid-dynamics kernel one launch over all columns of all members). Only
-the physics-off runner is ported; the shortwave-aligned runner, meshes and
-sharding are not.
+the grid-dynamics and physics kernels one launch each over all columns of all
+members). The JAX package's shortwave-aligned scan (prefix, scan of
+shortwave-first step triples, tail) exists to keep the radiation cache out of
+a scan carry and the per-step diagnostics out of a jitted signature; an eager
+Python loop has neither problem, so the runner here is that loop, for any
+number of steps from any phase of the shortwave cadence. Meshes and sharding
+are not ported.
 """
 
 from __future__ import annotations
@@ -31,9 +35,11 @@ def broadcast_state(state: dict, n_members: int) -> dict:
     """Member-batch a single-member state: only the carried fields
     (DYNAMIC_FIELDS - EPHEMERAL_FIELDS) get a leading member axis;
     loop-invariant fields (climatologies, masks, orography...) stay shared
-    across members, and so do the per-step physics diagnostics, which
-    nothing writes while the physics is off. The member axis is an expanded
-    view, so unperturbed members cost no memory until the first step."""
+    across members, and so do the per-step physics diagnostics
+    (EPHEMERAL_FIELDS): with the physics off nothing writes them, with the
+    physics on every step rewrites them member-batched before anything reads
+    them. The member axis is an expanded view, so unperturbed members cost
+    no memory until the first step."""
     return M.add_member_axis(state, n_members)
 
 
@@ -44,6 +50,14 @@ def make_run_steps_batched(consts, device="cuda"):
     reads a device value back, so the host runs ahead of the card.
     state["error_flag"] accumulates per member on the device; read it once
     after the run.
+
+    With the physics on, each step runs in this order: the daily forcing
+    when the step starts a day, the step itself with the shortwave variant
+    of the physics on steps with stepno % 3 == 0, the coupler. The 7
+    radiation cache fields live member-batched in the state between steps;
+    the per-step diagnostics (EPHEMERAL_FIELDS) come back member-batched and
+    current, whether they came in shared (from broadcast_state) or batched
+    (from an earlier run).
 
     `device` must be the one the consts were built on."""
     device = resolve_device(device)

@@ -1,15 +1,15 @@
 """Humidity conversions (reference: speedy.f90/humidity.f90).
 
 q is in g/kg throughout the physics; pressure is normalized by 1000 hPa.
-Only ``get_qsat`` is here so far: the daily forcing needs it; the rest of the
-module belongs to the column physics.
+Level-stacked fields carry the level axis third from the end: (..., kx, il,
+ix), with or without a leading member axis.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["get_qsat"]
+__all__ = ["get_qsat", "spec_hum_to_rel_hum", "rel_hum_to_spec_hum"]
 
 _E0 = 6.108e-3
 _C1 = 17.269
@@ -37,3 +37,15 @@ def get_qsat(ta: torch.Tensor, ps: torch.Tensor, sig) -> torch.Tensor:
     else:
         p = sig * ps
     return 622.0 * e / (p - 0.378 * e)
+
+
+def spec_hum_to_rel_hum(ta, ps, sig, qa):
+    """Returns (rh, qsat) (humidity.f90:17-27)."""
+    qsat = get_qsat(ta, ps, sig)
+    return qa / qsat, qsat
+
+
+def rel_hum_to_spec_hum(ta, ps, sig, rh):
+    """Returns (qa, qsat) (humidity.f90:31-41)."""
+    qsat = get_qsat(ta, ps, sig)
+    return rh * qsat, qsat

@@ -27,6 +27,11 @@ from pyspeedy_tpu_torch.models import model as TM
 from pyspeedy_tpu_torch.models.tendencies import grid_dynamics_core as t_core
 from pyspeedy_tpu_torch.ops import column_kernels as ck
 
+# One thread for PyTorch's CPU kernels: at these sizes more threads gain
+# nothing, and several test processes side by side (each with its own pool,
+# next to JAX's) would fight for the cores.
+torch.set_num_threads(1)
+
 TOL = 1e-12
 NMEM = 3
 OUT_NAMES = ("utend", "vtend", "ttend", "trtend", "psdt_g", "flux_ut",

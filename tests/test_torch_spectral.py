@@ -20,6 +20,11 @@ from pyspeedy_tpu_torch.ops import geometry as tgeom
 from pyspeedy_tpu_torch.ops import spectral as TS
 from pyspeedy_tpu_torch.params import T30L8 as T_T30L8, T47L8 as T_T47L8
 
+# One thread for PyTorch's CPU kernels: at these sizes more threads gain
+# nothing, and several test processes side by side (each with its own pool,
+# next to JAX's) would fight for the cores.
+torch.set_num_threads(1)
+
 TOL = 1e-12
 # name -> (JAX params, port params, use_matmul_fft). T30 + matmul takes the
 # dense Legendre operator; T47 + matmul is too large for it and takes the

@@ -1,6 +1,7 @@
 """The ported model as a whole: the member-batched dynamics-only T30L8 model
 of ``pyspeedy_tpu_torch`` against the JAX package, in float64 on the CPU
 (where the port's grid-dynamics dispatch takes the plain PyTorch version).
+The full-physics model is held against JAX in test_torch_physics_step.py.
 
 Tolerances are relative to each field's largest absolute value. Both packages
 run the same formulation; what differs is the order of sums inside matrix
@@ -31,6 +32,11 @@ from pyspeedy_tpu_torch.parallel import ensemble as TE
 from pyspeedy_tpu_torch.params import T30L8 as T_T30L8
 from pyspeedy_tpu_torch.testing import make_demo_model, synthetic_host_bc
 
+# One thread for PyTorch's CPU kernels: at these sizes more threads gain
+# nothing, and several test processes side by side (each with its own pool,
+# next to JAX's) would fight for the cores.
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 PROGNOSTICS = ("vor", "div", "t", "ps", "tr")
 _cache = {}
@@ -55,7 +61,8 @@ def jax_model():
 
 def torch_model():
     if "torch" not in _cache:
-        _cache["torch"] = make_demo_model(T_T30L8, device="cpu")
+        _cache["torch"] = make_demo_model(T_T30L8, device="cpu",
+                                          physics_on=False)
     return _cache["torch"]
 
 
@@ -104,10 +111,9 @@ def test_initialization_matches_jax():
     _, tstate, _ = torch_model()
     jnp_state = jax.tree.map(np.asarray, jstate)
     tnp_state = interop.state_to_numpy(tstate)
-    # phisg serves the grid-space geopotential of the physics path, which is
-    # not ported; everything else the JAX state holds must be there.
-    assert set(jnp_state) - set(tnp_state) <= {"phisg"}
-    assert set(tnp_state) <= set(jnp_state)
+    # Everything the JAX state holds must be there (phisg, which serves the
+    # grid-space geopotential of the physics path, included).
+    assert set(jnp_state) == set(tnp_state)
     checked = 0
     for name, want in jnp_state.items():
         if name not in tnp_state:
@@ -283,16 +289,17 @@ def test_interop_round_trip():
     assert t32["error_flag"].dtype == torch.bool
 
 
-@pytest.mark.parametrize("what", ["physics_on", "sppt_on", "alph",
-                                  "physics_default"])
+@pytest.mark.parametrize("what", ["bf16_tendencies", "sppt_on", "alph",
+                                  "sppt_on_with_physics"])
 def test_unported_paths_raise(what):
     """What is not ported yet is refused by name, never silently ignored."""
-    if what == "physics_on":
-        with pytest.raises(NotImplementedError, match="physics"):
-            TM.build_consts(T_T30L8, device="cpu", physics_on=True)
-    elif what == "physics_default":
-        with pytest.raises(NotImplementedError, match="physics"):
-            TM.build_consts(T_T30L8, device="cpu")
+    if what == "bf16_tendencies":
+        with pytest.raises(NotImplementedError, match="bf16"):
+            TM.build_consts(T_T30L8, device="cpu", bf16_tendencies=True)
+    elif what == "sppt_on_with_physics":
+        with pytest.raises(NotImplementedError, match="sppt"):
+            TM.build_consts(dataclasses.replace(T_T30L8, sppt_on=True),
+                            device="cpu")
     elif what == "sppt_on":
         with pytest.raises(NotImplementedError, match="sppt"):
             TM.build_consts(dataclasses.replace(T_T30L8, sppt_on=True),

@@ -7,6 +7,7 @@ order in the host-side rounding of products)."""
 
 import numpy as np
 import pytest
+import torch
 
 import pyspeedy_tpu.params as jparams
 import pyspeedy_tpu_torch.params as tparams
@@ -21,6 +22,11 @@ from pyspeedy_tpu_torch.models import model as TM
 from pyspeedy_tpu_torch.ops import geometry as tgeom
 from pyspeedy_tpu_torch.ops import spectral as tspec
 from pyspeedy_tpu_torch.physics.longwave_radiation import radset as tradset
+
+# One thread for PyTorch's CPU kernels: at these sizes more threads gain
+# nothing, and several test processes side by side (each with its own pool,
+# next to JAX's) would fight for the cores.
+torch.set_num_threads(1)
 
 PRESETS = ["T30L8", "T30L5", "T47L8"]
 TOL = 1e-14
