@@ -31,11 +31,17 @@
 // on an H100 at 128 members and was no faster in float or double, so the
 // scalar form stays.
 //
+// Output types: the model's scalar type, or (float only, `out_bf16`) all ten
+// outputs rounded to bfloat16, to nearest even, from the float value at the
+// store: the 2-byte operands of the bf16_tendencies configuration, whose
+// direct transforms read them as they are.
+//
 // Interface: plain C, loaded with ctypes. The launch goes to the stream it is
 // given, allocates nothing and does not synchronise; the function returns
 // cudaGetLastError() (0 on success), or a negative code for arguments the
 // kernel was not built for.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -55,7 +61,16 @@ struct ColumnTables {
   double akap;
 };
 
-template <typename T, int KX>
+// Store one output value: as it is, or rounded to bfloat16 (float only).
+template <bool BF16, typename T>
+__device__ __forceinline__ void put(void* __restrict__ p, long long o, T v) {
+  if constexpr (BF16)
+    static_cast<__nv_bfloat16*>(p)[o] = __float2bfloat16_rn(static_cast<float>(v));
+  else
+    static_cast<T*>(p)[o] = v;
+}
+
+template <typename T, int KX, bool BF16>
 __global__ void __launch_bounds__(kThreads)
 grid_dynamics_kernel(
     long long ncol, int ntr, int il, int ix,
@@ -64,10 +79,10 @@ grid_dynamics_kernel(
     const T* __restrict__ ug0, const T* __restrict__ vg0,
     const T* __restrict__ pxy,
     const T* __restrict__ rcos, const T* __restrict__ coriol,
-    T* __restrict__ utend, T* __restrict__ vtend, T* __restrict__ ttend,
-    T* __restrict__ trtend, T* __restrict__ psdt_g,
-    T* __restrict__ flux_ut, T* __restrict__ flux_vt,
-    T* __restrict__ flux_qu, T* __restrict__ flux_qv, T* __restrict__ ke,
+    void* __restrict__ utend, void* __restrict__ vtend, void* __restrict__ ttend,
+    void* __restrict__ trtend, void* __restrict__ psdt_g,
+    void* __restrict__ flux_ut, void* __restrict__ flux_vt,
+    void* __restrict__ flux_qu, void* __restrict__ flux_qv, void* __restrict__ ke,
     ColumnTables tab) {
   const long long col = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
   if (col >= ncol) return;
@@ -111,7 +126,7 @@ grid_dynamics_kernel(
   }
 
   // Log-ps tendency, grid part.
-  psdt_g[off1] = -umean * px - vmean * py;
+  put<BF16, T>(psdt_g, off1, -umean * px - vmean * py);
 
   // Sigma-dot on half levels 0..KX. The recursion runs through k = KX, so
   // the bottom half level carries the accumulated sum: it is not zero.
@@ -150,15 +165,15 @@ grid_dynamics_kernel(
   for (int k = 0; k < KX; ++k) {
     const long long o = off3 + k * plane;
     const T vor = vorg[o] + cor;
-    utend[o] = v[k] * vor - tgg[k] * rgas * px - (fu[k + 1] + fu[k]) * dhsr[k];
-    vtend[o] = -u[k] * vor - tgg[k] * rgas * py - (fv[k + 1] + fv[k]) * dhsr[k];
-    ttend[o] = tgg[k] * d[k] - (ft[k + 1] + ft[k]) * dhsr[k]
+    put<BF16, T>(utend, o, v[k] * vor - tgg[k] * rgas * px - (fu[k + 1] + fu[k]) * dhsr[k]);
+    put<BF16, T>(vtend, o, -u[k] * vor - tgg[k] * rgas * py - (fv[k + 1] + fv[k]) * dhsr[k]);
+    put<BF16, T>(ttend, o, tgg[k] * d[k] - (ft[k + 1] + ft[k]) * dhsr[k]
              + static_cast<T>(tab.fsgr[k]) * tgg[k] * (sigdt[k + 1] + sigdt[k])
              + static_cast<T>(tab.tref3[k]) * (sigm[k + 1] + sigm[k])
-             + akap * (t[k] * puv[k] - tgg[k] * dmean);
-    flux_ut[o] = -u[k] * tgg[k] * rc;
-    flux_vt[o] = -v[k] * tgg[k] * rc;
-    ke[o] = static_cast<T>(0.5) * (u[k] * u[k] + v[k] * v[k]);
+             + akap * (t[k] * puv[k] - tgg[k] * dmean));
+    put<BF16, T>(flux_ut, o, -u[k] * tgg[k] * rc);
+    put<BF16, T>(flux_vt, o, -v[k] * tgg[k] * rc);
+    put<BF16, T>(ke, o, static_cast<T>(0.5) * (u[k] * u[k] + v[k] * v[k]));
   }
 
   // Tracers: the reference zeroes the vertical flux at half levels 1 and 2.
@@ -174,42 +189,40 @@ grid_dynamics_kernel(
 #pragma unroll
     for (int k = 0; k < KX; ++k) {
       const long long o = oq + k * plane;
-      trtend[o] = q[k] * d[k] - (fq[k + 1] + fq[k]) * dhsr[k];
-      flux_qu[o] = -u[k] * q[k] * rc;
-      flux_qv[o] = -v[k] * q[k] * rc;
+      put<BF16, T>(trtend, o, q[k] * d[k] - (fq[k + 1] + fq[k]) * dhsr[k]);
+      put<BF16, T>(flux_qu, o, -u[k] * q[k] * rc);
+      put<BF16, T>(flux_qv, o, -v[k] * q[k] * rc);
     }
   }
 }
 
-template <typename T, int KX>
+template <typename T, int KX, bool BF16>
 int launch(long long nmem, int ntr, int il, int ix, const void* const* in,
            void* const* out, const ColumnTables& tab, cudaStream_t stream) {
   const long long ncol = nmem * il * ix;
   if (ncol <= 0) return 0;
   const long long nblocks = (ncol + kThreads - 1) / kThreads;
   if (nblocks > 2147483647LL) return -3;
-  grid_dynamics_kernel<T, KX><<<static_cast<unsigned>(nblocks), kThreads, 0, stream>>>(
+  grid_dynamics_kernel<T, KX, BF16><<<static_cast<unsigned>(nblocks), kThreads, 0, stream>>>(
       ncol, ntr, il, ix,
       static_cast<const T*>(in[0]), static_cast<const T*>(in[1]),
       static_cast<const T*>(in[2]), static_cast<const T*>(in[3]),
       static_cast<const T*>(in[4]), static_cast<const T*>(in[5]),
       static_cast<const T*>(in[6]), static_cast<const T*>(in[7]),
       static_cast<const T*>(in[8]),
-      static_cast<T*>(out[0]), static_cast<T*>(out[1]), static_cast<T*>(out[2]),
-      static_cast<T*>(out[3]), static_cast<T*>(out[4]), static_cast<T*>(out[5]),
-      static_cast<T*>(out[6]), static_cast<T*>(out[7]), static_cast<T*>(out[8]),
-      static_cast<T*>(out[9]), tab);
+      out[0], out[1], out[2], out[3], out[4], out[5], out[6], out[7], out[8],
+      out[9], tab);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool BF16>
 int launch_kx(int kx, long long nmem, int ntr, int il, int ix,
               const void* const* in, void* const* out,
               const ColumnTables& tab, cudaStream_t stream) {
   switch (kx) {
-    case 5: return launch<T, 5>(nmem, ntr, il, ix, in, out, tab, stream);
-    case 7: return launch<T, 7>(nmem, ntr, il, ix, in, out, tab, stream);
-    case 8: return launch<T, 8>(nmem, ntr, il, ix, in, out, tab, stream);
+    case 5: return launch<T, 5, BF16>(nmem, ntr, il, ix, in, out, tab, stream);
+    case 7: return launch<T, 7, BF16>(nmem, ntr, il, ix, in, out, tab, stream);
+    case 8: return launch<T, 8, BF16>(nmem, ntr, il, ix, in, out, tab, stream);
     default: return -2;
   }
 }
@@ -220,9 +233,10 @@ int launch_kx(int kx, long long nmem, int ntr, int il, int ix,
 // out: utend, vtend, ttend, trtend, psdt_g, flux_ut, flux_vt,
 //      flux_qu, flux_qv, ke                                       (10 pointers)
 // levels: 5*kx doubles on the host: dhs, dhsr, fsgr, tref, tref3.
-// elem_size: 4 (float) or 8 (double).
+// elem_size: 4 (float) or 8 (double), the type of the inputs. out_bf16: the
+// ten outputs are bfloat16 buffers (float inputs only).
 extern "C" int pyspeedy_grid_dynamics(
-    int elem_size, int kx, int ntr, long long nmem, int il, int ix,
+    int elem_size, int out_bf16, int kx, int ntr, long long nmem, int il, int ix,
     const void* const* in, void* const* out, const double* levels,
     double rgas, double akap, void* stream) {
   if (kx < 1 || kx > kMaxLevels) return -2;
@@ -237,9 +251,11 @@ extern "C" int pyspeedy_grid_dynamics(
   tab.rgas = rgas;
   tab.akap = akap;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (elem_size == 4 && out_bf16)
+    return launch_kx<float, true>(kx, nmem, ntr, il, ix, in, out, tab, s);
   if (elem_size == 4)
-    return launch_kx<float>(kx, nmem, ntr, il, ix, in, out, tab, s);
-  if (elem_size == 8)
-    return launch_kx<double>(kx, nmem, ntr, il, ix, in, out, tab, s);
+    return launch_kx<float, false>(kx, nmem, ntr, il, ix, in, out, tab, s);
+  if (elem_size == 8 && !out_bf16)
+    return launch_kx<double, false>(kx, nmem, ntr, il, ix, in, out, tab, s);
   return -1;
 }

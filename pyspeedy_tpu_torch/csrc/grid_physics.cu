@@ -34,7 +34,11 @@
 //   parameter and every level loop is unrolled, so the level arrays live in
 //   registers. What the TPU kernel does with level-parallel masks, one-hot
 //   selections and shift-add prefix sums is here the sequential column loop
-//   that those stand for; data-dependent level indices (cloud top, convection
+//   that those stand for, with one exception: the updraft's entrained mass,
+//   static energy and moisture are summed by the plain version's shift-add
+//   passes, because the convective heating is a difference of fluxes four
+//   orders of magnitude larger and a running sum moved it by 1e-5 of the
+//   largest tendency in float. Data-dependent level indices (cloud top, convection
 //   top) are predicates inside unrolled loops, never array subscripts, so no
 //   array goes to local memory for that reason. Level indices are ints with
 //   the reference's 1-based meaning (kx+1: none).
@@ -60,6 +64,7 @@
 // cudaGetLastError() (0 on success), or a negative code for arguments the
 // kernel was not built for.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -166,7 +171,19 @@ __device__ __forceinline__ T stability_factor(T tsurf, T t2) {
   return static_cast<T>(1.0) + dth * static_cast<T>(0.67 / 3.0);
 }
 
-template <typename T, int KX, bool SW>
+// Store one tendency value: as it is, or rounded to bfloat16 (float only).
+template <bool BF16, typename T>
+__device__ __forceinline__ void put_tend(void* p, long long o, T v) {
+  if constexpr (BF16)
+    static_cast<__nv_bfloat16*>(p)[o] = __float2bfloat16_rn(static_cast<float>(v));
+  else
+    static_cast<T*>(p)[o] = v;
+}
+
+// BF16: the four tendencies leave as bfloat16, rounded to nearest even from
+// the float value after the SPPT multiply (the bf16_tendencies configuration);
+// the diagnostics and the radiation cache keep the scalar type.
+template <typename T, int KX, bool SW, bool BF16>
 __global__ void __launch_bounds__(kThreads)
 grid_physics_kernel(long long ncol, int il, int ix, PhysArgs a, PhysTables tab) {
   const long long col = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
@@ -272,8 +289,8 @@ grid_physics_kernel(long long ncol, int il, int ix, PhysArgs a, PhysTables tab) 
     const T qb_b = tmin(q[KA] + C(tab.wvi1[KA]) * (q[KB] - q[KA]), q[KB]);
     const T fpsa = psa * tmin((psa - C(0.8)) * C(2.0 / (1.0 - 0.8)), C(1.0));
     cbmf = C(tab.fm0) * fpsa * tmin(qdif / (qmax - qb_b), C(5.0));
-    T fmass = cbmf;
-    T fus = cbmf * se_b, fuq = cbmf * qmax;
+    const T fus_bb = cbmf * se_b, fuq_bb = cbmf * qmax;
+    T fus = fus_bb, fuq = fuq_bb;
     T fds = cbmf * sb_b, fdq = cbmf * qb_b;
     T dfse[KX], dfqa[KX];
 #pragma unroll
@@ -281,16 +298,43 @@ grid_physics_kernel(long long ncol, int il, int ix, PhysArgs a, PhysTables tab) 
     dfse[KB] = fds - fus;
     T sec_total = C(0.0);
     const T bot_q = fdq - fuq;
-    // Intermediate layers, 1-based k1 = kx-1 .. itop+1.
+    // Entrained mass, static energy and moisture of the intermediate layers
+    // (1-based k1 = kx-1 .. itop+1), summed from each level down to the
+    // boundary layer. The updraft fluxes are differences of numbers four
+    // orders of magnitude larger than the tendency they leave, so the sums
+    // are taken in the plain version's order of additions: log-depth
+    // shift-adds over the whole column, zeros where a level does not entrain.
+    T s_m[KX], s_s[KX], s_q[KX];
+#pragma unroll
+    for (int k = 0; k < KX; ++k) {
+      const int k1 = k + 1;
+      const bool m = (k1 >= 3) && (k1 <= KX - 1) && (k1 > itop);
+      const T enmass = m ? C(tab.entr[k]) * psa * cbmf : C(0.0);
+      s_m[k] = enmass;
+      s_s[k] = enmass * SE(k);
+      s_q[k] = enmass * q[k];
+    }
+    static_assert(KX <= 8, "three shift-add passes cover eight levels");
+#pragma unroll
+    for (int pass = 0; pass < 3; ++pass) {
+      const int shift = 1 << pass;
+#pragma unroll
+      for (int k = 0; k < KX; ++k) {
+        if (k + shift < KX) {
+          s_m[k] = s_m[k] + s_m[k + shift];
+          s_s[k] = s_s[k] + s_s[k + shift];
+          s_q[k] = s_q[k] + s_q[k + shift];
+        }
+      }
+    }
 #pragma unroll
     for (int k1 = KX - 1; k1 >= 3; --k1) {
       const int k = k1 - 1;
       if (k1 > itop) {
         const T se_k = SE(k), se_km = SE(k - 1);
-        const T enmass = C(tab.entr[k]) * psa * cbmf;
-        const T fmass_n = fmass + enmass;
-        const T fus_n = fus + enmass * se_k;
-        const T fuq_n = fuq + enmass * q[k];
+        const T fmass_n = cbmf + s_m[k];
+        const T fus_n = fus_bb + s_s[k];
+        const T fuq_n = fuq_bb + s_q[k];
         const T sb = se_km + C(tab.wvi1[k - 1]) * (se_k - se_km);
         const T qb = q[k - 1] + C(tab.wvi1[k - 1]) * (q[k] - q[k - 1]);
         const T fds_n = fmass_n * sb;
@@ -303,19 +347,23 @@ grid_physics_kernel(long long ncol, int il, int ix, PhysArgs a, PhysTables tab) 
           dfqa[k] = dfqa[k] + fsq;
           sec_total = sec_total + fsq;
         }
-        fmass = fmass_n; fus = fus_n; fuq = fuq_n; fds = fds_n; fdq = fdq_n;
+        fus = fus_n; fuq = fuq_n; fds = fds_n; fdq = fdq_n;
       }
     }
-    // Top layer: condensation and detrainment.
+    // Top layer: condensation and detrainment, from the updraft's final
+    // fluxes (the sums of the whole column).
+    const T fmass_fin = cbmf + s_m[0];
+    const T fus_fin = fus_bb + s_s[0];
+    const T fuq_fin = fuq_bb + s_q[0];
 #pragma unroll
     for (int k1 = KX - 1; k1 >= 3; --k1) {
       const int k = k1 - 1;
       if (k1 == itop) {
         const T qsatb = qsat[k] + C(tab.wvi1[k]) * (qsat[k + 1] - qsat[k]);
-        const T pr = tmax(fuq - fmass * qsatb, C(0.0));
+        const T pr = tmax(fuq_fin - fmass_fin * qsatb, C(0.0));
         precnv = pr;
-        dfse[k] = (fus - fds) + alhc * pr;
-        dfqa[k] = (fuq - fdq) - pr;
+        dfse[k] = (fus_fin - fds) + alhc * pr;
+        dfqa[k] = (fuq_fin - fdq) - pr;
       }
     }
     dfqa[KB] = bot_q - sec_total;
@@ -785,17 +833,17 @@ grid_physics_kernel(long long ncol, int il, int ix, PhysArgs a, PhysTables tab) 
       const T f = C(1.0) + static_cast<const T*>(a.sppt)[o];
       ut = f * ut; vt = f * vt; tt_k = f * tt_k; qt_k = f * qt_k;
     }
-    static_cast<T*>(a.utend)[o] = ut;
-    static_cast<T*>(a.vtend)[o] = vt;
-    static_cast<T*>(a.ttend)[o] = tt_k;
-    static_cast<T*>(a.qtend)[o] = qt_k;
+    put_tend<BF16, T>(a.utend, o, ut);
+    put_tend<BF16, T>(a.vtend, o, vt);
+    put_tend<BF16, T>(a.ttend, o, tt_k);
+    put_tend<BF16, T>(a.qtend, o, qt_k);
   }
 #undef C
 #undef SE
 #undef RH
 }
 
-template <typename T, int KX>
+template <typename T, int KX, bool BF16>
 int launch(bool sw, long long nmem, int il, int ix, const PhysArgs& a,
            const PhysTables& tab, cudaStream_t stream) {
   const long long ncol = nmem * il * ix;
@@ -804,19 +852,19 @@ int launch(bool sw, long long nmem, int il, int ix, const PhysArgs& a,
   if (nblocks > 2147483647LL) return -3;
   const unsigned nb = static_cast<unsigned>(nblocks);
   if (sw)
-    grid_physics_kernel<T, KX, true><<<nb, kThreads, 0, stream>>>(ncol, il, ix, a, tab);
+    grid_physics_kernel<T, KX, true, BF16><<<nb, kThreads, 0, stream>>>(ncol, il, ix, a, tab);
   else
-    grid_physics_kernel<T, KX, false><<<nb, kThreads, 0, stream>>>(ncol, il, ix, a, tab);
+    grid_physics_kernel<T, KX, false, BF16><<<nb, kThreads, 0, stream>>>(ncol, il, ix, a, tab);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool BF16>
 int launch_kx(int kx, bool sw, long long nmem, int il, int ix, const PhysArgs& a,
               const PhysTables& tab, cudaStream_t stream) {
   switch (kx) {
-    case 5: return launch<T, 5>(sw, nmem, il, ix, a, tab, stream);
-    case 7: return launch<T, 7>(sw, nmem, il, ix, a, tab, stream);
-    case 8: return launch<T, 8>(sw, nmem, il, ix, a, tab, stream);
+    case 5: return launch<T, 5, BF16>(sw, nmem, il, ix, a, tab, stream);
+    case 7: return launch<T, 7, BF16>(sw, nmem, il, ix, a, tab, stream);
+    case 8: return launch<T, 8, BF16>(sw, nmem, il, ix, a, tab, stream);
     default: return -2;
   }
 }
@@ -835,9 +883,10 @@ int launch_kx(int kx, bool sw, long long nmem, int il, int ix, const PhysArgs& a
 //   boundary field its member, latitude and longitude stride.
 // levels: 17 rows of kx doubles (the arrays of PhysTables in order) followed
 //   by its 8 scalars.
-// elem_size: 4 (float) or 8 (double).
+// elem_size: 4 (float) or 8 (double). tend_bf16: utend, vtend, ttend and qtend
+// are bfloat16 buffers (float only).
 extern "C" int pyspeedy_grid_physics(
-    int elem_size, int kx, int sw_flag, int sea_coupled, long long nmem, int il,
+    int elem_size, int tend_bf16, int kx, int sw_flag, int sea_coupled, long long nmem, int il,
     int ix, const void* const* ptrs, const long long* strides,
     const double* levels, void* stream) {
   if (kx < 1 || kx > kMaxLevels) return -2;
@@ -875,7 +924,10 @@ extern "C" int pyspeedy_grid_physics(
 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool sw = sw_flag != 0;
-  if (elem_size == 4) return launch_kx<float>(kx, sw, nmem, il, ix, a, tab, s);
-  if (elem_size == 8) return launch_kx<double>(kx, sw, nmem, il, ix, a, tab, s);
+  if (elem_size == 4 && tend_bf16)
+    return launch_kx<float, true>(kx, sw, nmem, il, ix, a, tab, s);
+  if (elem_size == 4) return launch_kx<float, false>(kx, sw, nmem, il, ix, a, tab, s);
+  if (elem_size == 8 && !tend_bf16)
+    return launch_kx<double, false>(kx, sw, nmem, il, ix, a, tab, s);
   return -1;
 }

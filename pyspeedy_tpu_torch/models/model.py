@@ -75,6 +75,17 @@ class Consts:
     # saved per step. Differs from the reference-ordered spectral path only
     # in summation order, so the CPU parity path keeps it off.
     grid_phi: bool = False
+    # Emit the TENDENCY-class grid outputs (dynamics tendencies, flux-form
+    # products, kinetic energy, physics tendencies) in bfloat16 from inside
+    # the two column kernels, so that the direct transforms read 2-byte
+    # operands (bfloat16 tables, float32 accumulation; spectral results stay
+    # float32). Rounds each per-step increment at about 2^-9 relative; the
+    # prognostic state and the synthesis stay full precision. float32 on the
+    # dense transform route only. Off by default on every device: its effect
+    # on the climate has not been measured with this package. Kept by the
+    # batched runner, stripped by the initialization (both bootstrap steps
+    # run at full precision), as in the JAX package.
+    bf16_tendencies: bool = False
 
     def with_implicit(self, im) -> "Consts":
         return dataclasses.replace(self, implicit=im)
@@ -90,18 +101,16 @@ def build_consts(params: ModelParams, device="cuda", physics_on: bool = True,
     """Build all static tables on `device`. Returns (consts, numpy geometry).
 
     physics_on defaults to True, as in the JAX package. grid_phi (see Consts)
-    defaults to on for a CUDA device and off on the CPU. Not ported yet, and
-    refused by name: params.sppt_on=True (the SPPT pattern generator) and
-    bf16_tendencies=True (the bfloat16 outputs of both kernels). The zonal
-    transform path follows params.fft_mode; "auto" takes the dense matmul
-    path on CUDA and torch.fft on the CPU."""
+    defaults to on for a CUDA device and off on the CPU. bf16_tendencies
+    (see Consts) is taken for precision="f32" on the dense transform route
+    and refused by name otherwise: the JAX package silently widens the
+    bfloat16 operands there, which rounds for nothing. Not ported yet, and
+    refused by name: params.sppt_on=True (the SPPT pattern generator). The
+    zonal transform path follows params.fft_mode; "auto" takes the dense
+    matmul path on CUDA and torch.fft on the CPU."""
     device = resolve_device(device)
     if grid_phi is None:
         grid_phi = device.type == "cuda"
-    if bf16_tendencies:
-        raise NotImplementedError(
-            "bf16_tendencies=True: the bfloat16-output modes of the "
-            "grid-dynamics and physics kernels are not ported yet")
     if params.sppt_on:
         raise NotImplementedError(
             "sppt_on=True: stochastic physics (physics/sppt.py) is not "
@@ -121,6 +130,19 @@ def build_consts(params: ModelParams, device="cuda", physics_on: bool = True,
     geom_np = build_geometry(params)
     sp = S.build_spectral(params, geom_np, use_matmul_fft=use_matmul,
                           device=device)
+    if bf16_tendencies and params.precision != "f32":
+        raise ValueError(
+            f"bf16_tendencies=True needs precision='f32', got "
+            f"{params.precision!r}: the bfloat16 outputs and the 2-byte "
+            f"transform operands exist for float32 only")
+    if bf16_tendencies and not sp.use_dense_legendre:
+        raise ValueError(
+            f"bf16_tendencies=True needs the dense transform route "
+            f"(fft_mode 'matmul', or 'auto' on a CUDA device, at a "
+            f"truncation whose dense Legendre table passes the size gate); "
+            f"fft_mode={params.fft_mode!r} at T{params.trunc} on "
+            f"{device.type} takes another route, which has no bfloat16 "
+            f"operand branch")
     hd = build_hordif(params, geom_np, device)
     gp = build_geopot(params, geom_np, device)
     im = build_implicit(params, geom_np, hd, 2.0 * params.delt, device)
@@ -132,7 +154,8 @@ def build_consts(params: ModelParams, device="cuda", physics_on: bool = True,
     consts = Consts(params=params, sp=sp, geom=geom, hd=hd, gp=gp,
                     implicit=im, fband=fband, col=col, phys=phys,
                     sea_coupling_flag=sea_coupling_flag,
-                    physics_on=physics_on, grid_phi=grid_phi)
+                    physics_on=physics_on, grid_phi=grid_phi,
+                    bf16_tendencies=bool(bf16_tendencies))
     return consts, geom_np
 
 
@@ -285,7 +308,9 @@ def initialize(consts: Consts, state: dict, host_bc: dict,
     first_step bootstrap. host_bc holds the numpy BC fields in internal
     (month/lat/lon-leading) layouts. Takes and returns a single-member
     state; the coupler, the forcing and the two bootstrap steps run through
-    the member-batched step at B = 1 (on the card, through the CUDA kernel)."""
+    the member-batched step at B = 1 (on the card, through the CUDA kernels),
+    at full precision: consts.bf16_tendencies is stripped here."""
+    consts = dataclasses.replace(consts, bf16_tendencies=False)
     params = consts.params
     sp = consts.sp
     device = consts.device

@@ -1,6 +1,13 @@
-"""Prognostic-variable initialization (reference:
-speedy.f90/prognostics.f90). The grid/spectral conversions of the public API
-are not part of this package yet."""
+"""Prognostic-variable initialization and the conversions between the
+spectral prognostics and their grid-space mirrors (reference:
+speedy.f90/prognostics.f90).
+
+`spectral2grid`, `grid2spectral` and `grid_filter_prognostics` work on the
+single-member state (spectral pairs (2, ..., mx, nx), pdim=0: the default) and
+on the member-batched state (pairs (B, 2, ..., mx, nx) and grid mirrors
+(B, ..., il, ix): pass pdim=1). All their transforms go through
+``ops.spectral.grid2spec_p`` / ``spec2grid_p``, so on the card and the dense
+route through the fused transform kernels."""
 
 from __future__ import annotations
 
@@ -11,7 +18,10 @@ import torch
 from .. import constants as pc
 from ..ops import spectral as S
 
-__all__ = ["initialize_from_rest_state"]
+__all__ = ["initialize_from_rest_state", "spectral2grid", "grid2spectral",
+           "grid_filter_prognostics", "GRID_MIRRORS"]
+
+GRID_MIRRORS = ("u_grid", "v_grid", "t_grid", "q_grid", "phi_grid", "ps_grid")
 
 
 def initialize_from_rest_state(consts, state):
@@ -88,4 +98,51 @@ def initialize_from_rest_state(consts, state):
     state["tr"] = (tr0, torch.zeros_like(tr0))
 
     state["phi"] = torch.zeros_like(t1)
+    return state
+
+
+def spectral2grid(consts, state, pdim: int = 0):
+    """Fill the grid-space mirrors with unit conversions
+    (prognostics.f90:125-154)."""
+    sp = consts.sp
+    state = dict(state)
+    to_grid = lambda f, kcos=1: S.spec2grid_p(sp, f, kcos, pdim)
+    ucos, vcos = S.vort2vel_p(sp, state["vor"][0], state["div"][0], pdim)
+    state["u_grid"] = to_grid(ucos, 2)
+    state["v_grid"] = to_grid(vcos, 2)
+    state["t_grid"] = to_grid(state["t"][0])
+    state["q_grid"] = to_grid(state["tr"][0].select(pdim + 1, 0)) * 1.0e-3  # kg/kg
+    state["phi_grid"] = to_grid(state["phi"]) / pc.GRAV                    # m
+    state["ps_grid"] = pc.P0 * torch.exp(to_grid(state["ps"][0]))         # Pa
+    return state
+
+
+def grid2spectral(consts, state, pdim: int = 0):
+    """Push the grid-space mirrors back into the spectral prognostics
+    (prognostics.f90:157-179)."""
+    sp = consts.sp
+    state = dict(state)
+    to_spec = lambda g: S.grid2spec_p(sp, g, pdim)
+    vor1, div1 = S.grid_vel2vort_p(sp, state["u_grid"], state["v_grid"], 2,
+                                   pdim)
+    state["vor"] = (vor1, state["vor"][1])
+    state["div"] = (div1, state["div"][1])
+    state["t"] = (to_spec(state["t_grid"]), state["t"][1])
+    tr0 = state["tr"][0].clone()
+    tr0.select(pdim + 1, 0).copy_(to_spec(state["q_grid"]) / 1.0e-3)
+    state["tr"] = (tr0, state["tr"][1])
+    state["phi"] = to_spec(state["phi_grid"]) * pc.GRAV
+    state["ps"] = (to_spec(torch.log(state["ps_grid"] / pc.P0)),
+                   state["ps"][1])
+    return state
+
+
+def grid_filter_prognostics(consts, state, pdim: int = 0):
+    """Spectrally filter the grid-space mirrors (prognostics.f90:183-219)."""
+    sp = consts.sp
+    state = dict(state)
+    for name in GRID_MIRRORS:
+        g = state[name]
+        state[name] = S.spec2grid_p(
+            sp, S.truncate(sp, S.grid2spec_p(sp, g, pdim)), 1, pdim)
     return state

@@ -54,7 +54,7 @@ def _prefix_cumsum(x, dim: int = _LEV):
 
 
 def grid_dynamics_core(tab: ColumnTables, vorg, divg, tg, trg_flat, ug0, vg0,
-                       pxy):
+                       pxy, bf16_out: bool = False):
     """Grid-point dynamical algebra (tendencies.f90:132-224): everything
     between the inverse and direct transforms, column-local by construction
     (vertical means, sigma-dot recursions, advection/energy products).
@@ -66,7 +66,11 @@ def grid_dynamics_core(tab: ColumnTables, vorg, divg, tg, trg_flat, ug0, vg0,
 
     Returns (utend, vtend, ttend, trtend, psdt_g, flux_ut, flux_vt,
     flux_qu, flux_qv, ke): the dynamics-only tendencies, the grid-space
-    log-ps tendency, and the direct-transform input products.
+    log-ps tendency, and the direct-transform input products. With
+    `bf16_out` (the bf16_tendencies configuration) all ten are cast to
+    bfloat16 at the end, where the kernel rounds at its stores: every output
+    is tendency-class (a per-step increment or a flux-form product), and the
+    direct transforms downstream read them as 2-byte operands.
     """
     dhs, dhsr, fsgr = tab.dhs, tab.dhsr, tab.fsgr
     tref, tref3 = tab.tref, tab.tref3
@@ -132,8 +136,11 @@ def grid_dynamics_core(tab: ColumnTables, vorg, divg, tg, trg_flat, ug0, vg0,
     flux_qv = torch.cat([-vg * q * rcos for q in trg_list], dim=_LEV)
     ke = 0.5 * (ug**2 + vg**2)
 
-    return (utend, vtend, ttend, trtend, psdt_g, flux_ut, flux_vt,
-            flux_qu, flux_qv, ke)
+    out = (utend, vtend, ttend, trtend, psdt_g, flux_ut, flux_vt,
+           flux_qu, flux_qv, ke)
+    if bf16_out:
+        out = tuple(x.to(torch.bfloat16) for x in out)
+    return out
 
 
 def grid_tendency_specs(consts, state, j2: int, physics_fn=None, ctx=None):
@@ -161,6 +168,9 @@ def grid_tendency_specs(consts, state, j2: int, physics_fn=None, ctx=None):
     # --- prognostics to grid space (tendencies.f90:109-130) ---
     # The cos-lat scaling of the reference's kcos=2 variant commutes with the
     # linear transform and is applied after, in the grid-dynamics function.
+    # The grid-dynamics kernel takes dense tensors: the fused transform
+    # kernel and the fft route return one (contiguous() is then a no-op), an
+    # einsum of the third route may return a permuted view.
     ucos, vcos = S.vort2vel_p(sp, vor, div, PDIM)
     psdx, psdy = S.gradient_p(sp, ps, PDIM)
     to_grid = lambda f: S.spec2grid_p(sp, f, 1, PDIM).contiguous()
@@ -171,7 +181,8 @@ def grid_tendency_specs(consts, state, j2: int, physics_fn=None, ctx=None):
 
     (utend, vtend, ttend, trtend_flat, psdt_g, flux_ut, flux_vt,
      flux_qu, flux_qv, ke) = grid_dynamics(
-        grid_dynamics_core, consts.col, vorg, divg, tg, trg_flat, ug, vg, pxy)
+        grid_dynamics_core, consts.col, vorg, divg, tg, trg_flat, ug, vg, pxy,
+        bf16_out=consts.bf16_tendencies)
 
     # --- log-ps tendency (tendencies.f90:144-149): the (0,0) spectral mean
     # is zeroed in place on the fresh tensor.
@@ -187,8 +198,10 @@ def grid_tendency_specs(consts, state, j2: int, physics_fn=None, ctx=None):
 
     # --- back to spectral (tendencies.f90:238-268) ---
     # Direct transforms of every outgoing field: the wind/flux pairs (scaled
-    # by 1/cos as in grid_vel2vort's kcos=2) plus the scalar tendencies.
-    rcos = consts.col.rcos
+    # by 1/cos as in grid_vel2vort's kcos=2) plus the scalar tendencies. With
+    # bf16_tendencies the operands arrive in bfloat16 from the kernels; the
+    # 1/cos scaling stays in their type so that nothing widens them again.
+    rcos = consts.col.rcos.to(utend.dtype)
     inputs = [utend * rcos, vtend * rcos, flux_ut, flux_vt]
     for i in range(ntr):
         inputs += [flux_qu[:, i * kx:(i + 1) * kx],

@@ -14,7 +14,11 @@ and argument types, its extra nvcc flags and its launch counters; building and
 loading are generic over it. ``launch_counts`` holds, per counter, the number
 of launches made since the last :func:`reset_launch_counts`; a wrapper adds
 one exactly where it launches its kernel. The physics kernel counts its two
-variants apart (``grid_physics_sw``: a shortwave step, ``grid_physics_nosw``).
+variants apart (``grid_physics_sw``: a shortwave step, ``grid_physics_nosw``),
+and every kernel counts the launches of its bfloat16 instantiation apart
+(``*_bf16``: the ``bf16_tendencies`` configuration). The fused spectral
+transforms (``csrc/fused_transform.cu``) are in the table too; their wrappers
+live in ``ops/transform_kernels.py``.
 """
 
 from __future__ import annotations
@@ -67,16 +71,24 @@ _P, _I, _L, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 KERNELS = {
     "grid_dynamics": KernelSpec(
         source=_CSRC / "grid_dynamics.cu", symbol="pyspeedy_grid_dynamics",
-        argtypes=(_I, _I, _I, _L, _I, _I, _P, _P, _P, _D, _D, _P),
-        counters=("grid_dynamics",)),
+        argtypes=(_I, _I, _I, _I, _L, _I, _I, _P, _P, _P, _D, _D, _P),
+        counters=("grid_dynamics", "grid_dynamics_bf16")),
     # -fmad=false: the plain version's separate elementwise passes cannot
     # contract a*b+c, and the physics is full of thresholds that turn a
     # last-bit difference into another branch.
     "grid_physics": KernelSpec(
         source=_CSRC / "grid_physics.cu", symbol="pyspeedy_grid_physics",
-        argtypes=(_I, _I, _I, _I, _L, _I, _I, _P, _P, _P, _P),
+        argtypes=(_I, _I, _I, _I, _I, _L, _I, _I, _P, _P, _P, _P),
         extra_flags=("-fmad=false",),
-        counters=("grid_physics_sw", "grid_physics_nosw")),
+        counters=("grid_physics_sw", "grid_physics_nosw",
+                  "grid_physics_sw_bf16", "grid_physics_nosw_bf16")),
+    # One entry point with a `kind` argument: direct, inverse, four probes.
+    "fused_transform": KernelSpec(
+        source=_CSRC / "fused_transform.cu",
+        symbol="pyspeedy_fused_transform",
+        argtypes=(_I, _I, _L, _I, _I, _I, _I, _I, _P, _P, _P),
+        counters=("fused_grid2spec", "fused_grid2spec_bf16",
+                  "fused_spec2grid", "fused_probe")),
 }
 KERNEL_SOURCES = {name: spec.source for name, spec in KERNELS.items()}
 
@@ -254,23 +266,28 @@ def _check_inputs(tab: ColumnTables, fields):
 
 
 def grid_dynamics_cuda(tab: ColumnTables, vorg, divg, tg, trg_flat, ug, vg,
-                       pxy):
+                       pxy, bf16_out: bool = False):
     """Launch the CUDA grid-dynamics kernel on PyTorch's current stream.
-    Returns the ten outputs in the order of ``grid_dynamics_core``. Raises if
-    the inputs are not what the kernel takes, if the build fails or if the
-    launch is refused; does not synchronise."""
+    Returns the ten outputs in the order of ``grid_dynamics_core``; with
+    `bf16_out` (float32 inputs only) all ten are bfloat16, rounded at the
+    store. Raises if the inputs are not what the kernel takes, if the build
+    fails or if the launch is refused; does not synchronise."""
     fields = (vorg, divg, tg, trg_flat, ug, vg, pxy)
     nmem, kx, ntr, il, ix = _check_inputs(tab, fields)
     if vorg.device.type != "cuda":
         raise ValueError(f"grid_dynamics_cuda needs CUDA tensors, got "
                          f"{vorg.device}")
+    if bf16_out and vorg.dtype != torch.float32:
+        raise TypeError(f"bfloat16 outputs need float32 inputs, got "
+                        f"{vorg.dtype}")
     fn = _load("grid_dynamics")
 
-    full = lambda: torch.empty_like(vorg)
-    trac = lambda: torch.empty_like(trg_flat)
+    out_dtype = torch.bfloat16 if bf16_out else vorg.dtype
+    full = lambda: torch.empty_like(vorg, dtype=out_dtype)
+    trac = lambda: torch.empty_like(trg_flat, dtype=out_dtype)
     utend, vtend, ttend = full(), full(), full()
     trtend = trac()
-    psdt_g = torch.empty((nmem, il, ix), dtype=vorg.dtype, device=vorg.device)
+    psdt_g = torch.empty((nmem, il, ix), dtype=out_dtype, device=vorg.device)
     flux_ut, flux_vt = full(), full()
     flux_qu, flux_qv = trac(), trac()
     ke = full()
@@ -284,7 +301,7 @@ def grid_dynamics_cuda(tab: ColumnTables, vorg, divg, tg, trg_flat, ug, vg,
     with torch.cuda.device(vorg.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(
-            vorg.element_size(), kx, ntr, nmem, il, ix,
+            vorg.element_size(), int(bf16_out), kx, ntr, nmem, il, ix,
             ctypes.cast(in_ptrs, ctypes.c_void_p),
             ctypes.cast(out_ptrs, ctypes.c_void_p),
             levels.ctypes.data_as(ctypes.c_void_p),
@@ -293,20 +310,21 @@ def grid_dynamics_cuda(tab: ColumnTables, vorg, divg, tg, trg_flat, ug, vg,
         raise RuntimeError(
             f"grid_dynamics kernel launch failed with code {rc} "
             f"(members={nmem}, kx={kx}, ntr={ntr}, il={il}, ix={ix}, "
-            f"{vorg.dtype})")
-    launch_counts["grid_dynamics"] += 1
+            f"{vorg.dtype}, bf16_out={bool(bf16_out)})")
+    launch_counts["grid_dynamics_bf16" if bf16_out else "grid_dynamics"] += 1
     return outs
 
 
 def grid_dynamics(plain_fn, tab: ColumnTables, vorg, divg, tg, trg_flat, ug,
-                  vg, pxy):
+                  vg, pxy, bf16_out: bool = False):
     """The dispatch rule: CPU tensors take `plain_fn` (the plain PyTorch
     version, ``models.tendencies.grid_dynamics_core``); CUDA tensors launch
     the kernel or raise."""
     if vorg.device.type == "cpu":
-        return plain_fn(tab, vorg, divg, tg, trg_flat, ug, vg, pxy)
-    return grid_dynamics_cuda(tab, vorg, divg, tg, trg_flat, ug, vg, pxy)
-
+        return plain_fn(tab, vorg, divg, tg, trg_flat, ug, vg, pxy,
+                        bf16_out=bf16_out)
+    return grid_dynamics_cuda(tab, vorg, divg, tg, trg_flat, ug, vg, pxy,
+                              bf16_out=bf16_out)
 
 
 # ---------------------------------------------------------------------------
@@ -474,11 +492,17 @@ def grid_physics_cuda(consts, sw_flag, ug, vg, tg, qg, phig, pslg, bc, cache,
     """Launch the CUDA physics kernel on PyTorch's current stream. Same
     arguments and results as ``physics.driver.grid_physics``: (utend, vtend,
     ttend, qtend, diag, new_cache). On a step without shortwave the cache
-    tensors are read in place and come back as new_cache. Raises if the
-    inputs are not what the kernel takes, if the build fails or if the launch
-    is refused; does not synchronise."""
+    tensors are read in place and come back as new_cache. With
+    consts.bf16_tendencies (float32 only) the four tendencies come back in
+    bfloat16, rounded at the store. Raises if the inputs are not what the
+    kernel takes, if the build fails or if the launch is refused; does not
+    synchronise."""
     sw_flag = bool(sw_flag)
     phys = consts.phys
+    bf16 = bool(consts.bf16_tendencies)
+    if bf16 and tg.dtype != torch.float32:
+        raise TypeError(f"bfloat16 tendencies need float32 inputs, got "
+                        f"{tg.dtype}")
     nmem, kx, il, ix, strides = _check_physics_inputs(
         phys, sw_flag, ug, vg, tg, qg, phig, pslg, bc, cache, ablco2, phisg,
         m0corr, sppt_pattern)
@@ -495,7 +519,9 @@ def grid_physics_cuda(consts, sw_flag, ug, vg, tg, qg, phig, pslg, bc, cache,
                      plane())
     else:
         new_cache = tuple(cache)
-    tends = tuple(new(nmem, kx, il, ix) for _ in range(4))
+    tends = tuple(torch.empty((nmem, kx, il, ix), device=tg.device,
+                              dtype=torch.bfloat16 if bf16 else tg.dtype)
+                  for _ in range(4))
     diag = (plane(), plane(), plane(), plane(), plane(), plane(),
             new(nmem, 3, il, ix), new(nmem, 3, il, ix), new(nmem, 3, il, ix),
             new(nmem, 3, il, ix), new(nmem, 3, il, ix), new(nmem, 3, il, ix),
@@ -510,7 +536,7 @@ def grid_physics_cuda(consts, sw_flag, ug, vg, tg, qg, phig, pslg, bc, cache,
     levels = phys.levels_host
     with torch.cuda.device(tg.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(tg.element_size(), kx, int(sw_flag),
+        rc = fn(tg.element_size(), int(bf16), kx, int(sw_flag),
                 int(consts.sea_coupling_flag > 0), nmem, il, ix,
                 ctypes.cast(c_ptrs, ctypes.c_void_p),
                 ctypes.cast(c_strides, ctypes.c_void_p),
@@ -520,8 +546,9 @@ def grid_physics_cuda(consts, sw_flag, ug, vg, tg, qg, phig, pslg, bc, cache,
         raise RuntimeError(
             f"grid_physics kernel launch failed with code {rc} "
             f"(members={nmem}, kx={kx}, il={il}, ix={ix}, {tg.dtype}, "
-            f"shortwave={sw_flag})")
-    launch_counts["grid_physics_sw" if sw_flag else "grid_physics_nosw"] += 1
+            f"shortwave={sw_flag}, bf16_tendencies={bf16})")
+    launch_counts[("grid_physics_sw" if sw_flag else "grid_physics_nosw")
+                  + ("_bf16" if bf16 else "")] += 1
     return (*tends, diag, new_cache)
 
 

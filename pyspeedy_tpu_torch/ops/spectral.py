@@ -24,9 +24,28 @@ Conventions (mirroring the reference):
   unbatched field, 1 when a member axis leads.
 * A constant field c has spec[0, 0] = sqrt(2) * c.
 
-The matrix products here lie outside any hand-written kernel and go to
-``torch.matmul`` / ``torch.einsum``. The complex-dtype API and the bf16
-operand branch of the JAX package are not part of this package yet.
+Three transform routes, chosen when the tables are built:
+
+* the **dense route** (``use_matmul_fft and use_dense_legendre``: the DFT as
+  a matrix product and a dense-table size that passes the gate in
+  ``build_spectral``, i.e. ``fft_mode`` "matmul", or "auto" on a CUDA
+  device, at T30). ``grid2spec_p`` / ``spec2grid_p`` hand it to
+  ``ops.transform_kernels``: a CUDA tensor launches the hand-written fused
+  kernel (``csrc/fused_transform.cu``) or the call raises; a CPU tensor takes
+  the kernel's plain version, the chain of four ``torch.matmul`` against the
+  DFT matrices and the ``leg_*_dense`` tables. A CUDA tensor never reaches
+  that chain through these functions.
+* the **fft route** (``fft_mode="fft"``, and "auto" on the CPU):
+  ``torch.fft`` and a Legendre einsum, on either device.
+* the **einsum route** (matmul DFT, dense table over the size gate: T47, T63):
+  two einsums, on either device. The gate is the JAX package's: it decided
+  which truncations its fused kernel could serve, and decides the same here.
+
+The last two are routes of their own, not plain versions of the kernels; their
+products go to ``torch.fft`` / ``torch.einsum`` as the JAX package left them
+to XLA. A bfloat16 grid (the ``bf16_tendencies`` configuration) takes the
+2-byte operand mode on the dense route and is widened to the tables' type on
+the other two, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -38,11 +57,14 @@ import torch
 
 from .. import constants as pc
 from ..params import ModelParams
+from . import transform_kernels as TK
 from .geometry import Geometry
 
 __all__ = [
     "SpectralTransform", "build_spectral", "gaussian_nodes_and_weights",
     "grid2spec_p", "spec2grid_p", "gradient_p", "vel2vort_p", "vort2vel_p",
+    "grid_vel2vort_p", "pair", "unpair", "grid2spec", "spec2grid", "gradient",
+    "vel2vort", "vort2vel", "grid_vel2vort",
     "truncate", "grid_filter", "laplacian", "laplacian_inv",
 ]
 
@@ -158,8 +180,18 @@ class SpectralTransform(NamedTuple):
     # ONE dense matrix (zeros off the m-diagonal) turns the whole Legendre
     # stage into a plain (..., il*mx) @ (il*mx, mx*nx) product with no batch
     # dimension. The mx-fold redundancy in operations buys one large GEMM.
+    # They serve the plain matmul chain of the dense route only (CPU tensors,
+    # and the kernels' yardstick on the card): the fused kernels read the
+    # (il, mx, nx) operators.
     leg_dir_dense: torch.Tensor  # (il*mx, mx*nx) or (1,1) placeholder
     leg_inv_dense: torch.Tensor  # (mx*nx, il*mx) or (1,1) placeholder
+    # What the fused kernels read besides the tables above: the inverse
+    # Legendre operator transposed so that m is the fastest axis, and the
+    # direct tables rounded to bfloat16 for the 2-byte operand mode (that
+    # mode's plain chain rounds leg_dir_dense where it is called).
+    cpol_inv_t: torch.Tensor          # (il, nx, mx)
+    dft_fwd_ri_bf16: torch.Tensor     # (2, ix, mx) bfloat16
+    cpol_dir_full_bf16: torch.Tensor  # (il, mx, nx) bfloat16
     use_matmul_fft: bool = False
     use_dense_legendre: bool = False
 
@@ -291,6 +323,10 @@ def build_spectral(params: ModelParams, geom: Geometry,
 
     a = lambda x: torch.from_numpy(
         np.ascontiguousarray(np.asarray(x, dtype=params.np_dtype))).to(device)
+    # Rounded to bfloat16 from the float32 value, as a cast of the float32
+    # table would.
+    bf = lambda x: torch.from_numpy(np.ascontiguousarray(
+        np.asarray(x, dtype=np.float32))).to(device).to(torch.bfloat16)
     return SpectralTransform(
         cpol_even=a(cpol_even), cpol_odd=a(cpol_odd), wt=a(wt),
         cosgr=a(geom.cosgr), cosgr2=a(geom.cosgr2),
@@ -304,6 +340,9 @@ def build_spectral(params: ModelParams, geom: Geometry,
         dft_fwd_ri=a(np.stack([dft_fwd_re, dft_fwd_im])),
         dft_inv_ri=a(np.stack([dft_inv_re, dft_inv_im])),
         leg_dir_dense=a(leg_dir_dense), leg_inv_dense=a(leg_inv_dense),
+        cpol_inv_t=a(cpol_inv_full.transpose(0, 2, 1)),
+        dft_fwd_ri_bf16=bf(np.stack([dft_fwd_re, dft_fwd_im])),
+        cpol_dir_full_bf16=bf(cpol_dir_full),
         use_matmul_fft=use_matmul_fft,
         use_dense_legendre=use_dense,
     )
@@ -321,34 +360,24 @@ def build_spectral(params: ModelParams, geom: Geometry,
 # pairs, wherever the pair axis sits.
 
 
-def _leg_dir_dense(sp: SpectralTransform, F: torch.Tensor) -> torch.Tensor:
-    """Fourier (..., il, mx) -> spectral (..., mx, nx) as ONE flat matmul
-    against the block-diagonal dense operator (see SpectralTransform)."""
-    x = F.reshape(*F.shape[:-2], sp.il * sp.mx)
-    return (x @ sp.leg_dir_dense).reshape(*F.shape[:-2], sp.mx, sp.nx)
-
-
-def _leg_inv_dense(sp: SpectralTransform, S: torch.Tensor) -> torch.Tensor:
-    """Spectral (..., mx, nx) -> Fourier (..., il, mx) as ONE flat matmul."""
-    x = S.reshape(*S.shape[:-2], sp.mx * sp.nx)
-    return (x @ sp.leg_inv_dense).reshape(*S.shape[:-2], sp.il, sp.mx)
-
-
 def grid2spec_p(sp: SpectralTransform, grid: torch.Tensor,
                 pdim: int = 0) -> torch.Tensor:
     """Grid (..., il, ix) -> spectral pair (spectral.f90:263-273), the pair
     axis inserted at `pdim` of the result: (2, ..., mx, nx) for pdim=0,
-    (B, 2, ..., mx, nx) for pdim=1."""
+    (B, 2, ..., mx, nx) for pdim=1. On the dense route a CUDA tensor goes
+    through the fused kernel and a CPU tensor through its plain chain (see
+    the module docstring); a bfloat16 grid takes the 2-byte operand mode
+    there and is widened on the other routes."""
+    if sp.use_matmul_fft and sp.use_dense_legendre:
+        return TK.fused_grid2spec(sp, grid, pdim)
+    if grid.dtype == torch.bfloat16:
+        grid = grid.to(sp.rdtype)
     if not sp.use_matmul_fft:
         # numpy's/torch's rfft convention (C - iS packing) coincides with
         # FFTPACK's rfftf; 1/ix normalized (fourier.f90:96-123).
         F = torch.fft.rfft(grid, dim=-1)[..., : sp.mx] / grid.shape[-1]
         F2 = torch.view_as_real(F).movedim(-1, pdim)      # pair axis at pdim
         return torch.einsum("jmn,...jm->...mn", sp.cpol_dir_full, F2)
-    if sp.use_dense_legendre:
-        return torch.stack([_leg_dir_dense(sp, grid @ sp.dft_fwd_re),
-                            _leg_dir_dense(sp, grid @ sp.dft_fwd_im)],
-                           dim=pdim)
     F2 = torch.einsum("...ji,cim->c...jm", grid, sp.dft_fwd_ri)
     S2 = torch.einsum("jmn,c...jm->c...mn", sp.cpol_dir_full, F2)
     return S2.movedim(0, pdim)
@@ -362,7 +391,11 @@ def spec2grid_p(sp: SpectralTransform, p: torch.Tensor, kcos: int = 1,
 
     The reference's "discard the m=0 imaginary part" rule (fourier.f90:72-76)
     is inherent in dft_inv_ri[1, 0, :] == 0 on the matmul paths and explicit
-    on the fft path."""
+    on the fft path. On the dense route a CUDA tensor goes through the fused
+    kernel (the 1/cos scaling folded into its store) and a CPU tensor through
+    its plain chain."""
+    if sp.use_matmul_fft and sp.use_dense_legendre:
+        return TK.fused_spec2grid(sp, p, kcos, pdim)
     if not sp.use_matmul_fft:
         ix = 2 * sp.il  # ix == 2*il for the supported grids (96 = 2*48)
         F2 = torch.einsum("jmn,...mn->...jm", sp.cpol_inv_full, p)
@@ -371,10 +404,6 @@ def spec2grid_p(sp: SpectralTransform, p: torch.Tensor, kcos: int = 1,
         F = torch.view_as_complex(Fr)
         Fp = torch.nn.functional.pad(F, (0, ix // 2 + 1 - sp.mx))
         g = torch.fft.irfft(Fp, n=ix, dim=-1) * ix
-    elif sp.use_dense_legendre:
-        re, im = p.unbind(pdim)
-        g = (_leg_inv_dense(sp, re) @ sp.dft_inv_re
-             + _leg_inv_dense(sp, im) @ sp.dft_inv_im)
     else:
         F2 = torch.einsum("jmn,c...mn->c...jm", sp.cpol_inv_full,
                           p.movedim(pdim, 0))
@@ -441,6 +470,70 @@ def vort2vel_p(sp: SpectralTransform, vorm: torch.Tensor,
     ucosm = sp.uvdym * _shift_dn(vorm) - sp.uvdyp * _shift_up(vorm) + zc
     vcosm = -sp.uvdym * _shift_dn(divm) + sp.uvdyp * _shift_up(divm) + zp
     return ucosm, vcosm
+
+
+def grid_vel2vort_p(sp: SpectralTransform, ug: torch.Tensor,
+                    vg: torch.Tensor, kcos: int = 2, pdim: int = 0):
+    """Grid (u, v) -> spectral (vor, div) on real pairs (spectral.f90:218-248).
+    kcos=2 scales the input by 1/cos(lat), otherwise by 1/cos^2(lat)."""
+    scale = (sp.cosgr if kcos == 2 else sp.cosgr2)[:, None]
+    specu = grid2spec_p(sp, ug * scale, pdim)
+    specv = grid2spec_p(sp, vg * scale, pdim)
+    return vel2vort_p(sp, specu, specv, pdim)
+
+
+# ---------------------------------------------------------------------------
+# The complex-dtype API: the same operators on complex (..., mx, nx) tensors.
+# Every function converts at its boundary and runs the real-pair code, so the
+# transforms take the same routes (and the same kernels) as above.
+# ---------------------------------------------------------------------------
+
+def pair(spec: torch.Tensor) -> torch.Tensor:
+    """Complex (..., mx, nx) -> real pair (2, ..., mx, nx)."""
+    return torch.stack([spec.real, spec.imag])
+
+
+def unpair(p: torch.Tensor) -> torch.Tensor:
+    """Real pair (2, ..., mx, nx) -> complex (..., mx, nx)."""
+    return torch.complex(p[0], p[1])
+
+
+def grid2spec(sp: SpectralTransform, grid: torch.Tensor) -> torch.Tensor:
+    """Grid (..., il, ix) -> complex spectral (..., mx, nx)
+    (spectral.f90:263-273)."""
+    return unpair(grid2spec_p(sp, grid))
+
+
+def spec2grid(sp: SpectralTransform, spec: torch.Tensor,
+              kcos: int = 1) -> torch.Tensor:
+    """Complex spectral (..., mx, nx) -> grid (..., il, ix)
+    (spectral.f90:251-261)."""
+    return spec2grid_p(sp, pair(spec), kcos)
+
+
+def _on_pairs(fn, sp, *specs):
+    return tuple(unpair(x) for x in fn(sp, *(pair(s) for s in specs)))
+
+
+def gradient(sp: SpectralTransform, psi: torch.Tensor):
+    """Spectral zonal/meridional gradient (spectral.f90:275-296)."""
+    return _on_pairs(gradient_p, sp, psi)
+
+
+def vel2vort(sp: SpectralTransform, ucosm: torch.Tensor, vcosm: torch.Tensor):
+    """Spectral (U, V)=(u,v)*cos(lat) -> (vor, div) (spectral.f90:160-186)."""
+    return _on_pairs(vel2vort_p, sp, ucosm, vcosm)
+
+
+def vort2vel(sp: SpectralTransform, vorm: torch.Tensor, divm: torch.Tensor):
+    """Spectral (vor, div) -> (U, V)=(u,v)*cos(lat) (spectral.f90:190-214)."""
+    return _on_pairs(vort2vel_p, sp, vorm, divm)
+
+
+def grid_vel2vort(sp: SpectralTransform, ug: torch.Tensor, vg: torch.Tensor,
+                  kcos: int = 2):
+    """Grid (u, v) -> complex spectral (vor, div) (spectral.f90:218-248)."""
+    return tuple(unpair(x) for x in grid_vel2vort_p(sp, ug, vg, kcos))
 
 
 def truncate(sp: SpectralTransform, spec: torch.Tensor) -> torch.Tensor:

@@ -59,6 +59,10 @@ def make_run_steps_batched(consts, device="cuda"):
     current, whether they came in shared (from broadcast_state) or batched
     (from an earlier run).
 
+    The runner keeps the consts' flags: with consts.bf16_tendencies every
+    step here runs the bfloat16 instantiations of the kernels (the
+    initialization, which made the state, did not).
+
     `device` must be the one the consts were built on."""
     device = resolve_device(device)
     if device.type != consts.device.type:

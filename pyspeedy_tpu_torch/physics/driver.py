@@ -75,6 +75,10 @@ def grid_physics(consts, sw_flag: bool, ug, vg, tg, qg, phig, pslg, bc, cache,
 
     sppt_pattern, when given, is the (B, kx, il, ix) SPPT field: the four
     tendencies are multiplied by 1 + pattern.
+
+    With consts.bf16_tendencies the four tendencies are cast to bfloat16 at
+    the end, after the SPPT multiply (the kernel rounds at its stores); the
+    diagnostics and the radiation cache keep full precision.
     """
     geom = consts.geom
     kx = consts.params.kx
@@ -200,6 +204,9 @@ def grid_physics(consts, sw_flag: bool, ug, vg, tg, qg, phig, pslg, bc, cache,
         vtend = f * vtend
         ttend = f * ttend
         qtend = f * qtend
+    if consts.bf16_tendencies:
+        utend, vtend, ttend, qtend = (
+            x.to(torch.bfloat16) for x in (utend, vtend, ttend, qtend))
     return utend, vtend, ttend, qtend, diag, new_cache
 
 
@@ -214,12 +221,15 @@ def physics_grid_inputs(consts, state, sw_flag: bool):
     small zonally-uniform m=0 lapse-rate correction is synthesized here."""
     sp = consts.sp
     pdim = 1
-    to_grid = lambda f: S.spec2grid_p(sp, f, 1, pdim).contiguous()
+    # kcos=2 scales the winds by 1/cos(lat) (inside the fused transform
+    # kernel on the card). The physics kernel takes dense tensors: the fused
+    # kernel and the fft route return one (contiguous() is then a no-op), an
+    # einsum of the third route may return a permuted view.
+    to_grid = lambda f, kcos=1: S.spec2grid_p(sp, f, kcos, pdim).contiguous()
     ucos, vcos = S.vort2vel_p(sp, state["vor"][0], state["div"][0], pdim)
     t_spec = state["t"][0]
-    rcos = sp.cosgr[:, None]
-    ug = to_grid(ucos) * rcos
-    vg = to_grid(vcos) * rcos
+    ug = to_grid(ucos, 2)
+    vg = to_grid(vcos, 2)
     tg = to_grid(t_spec)
     qg = to_grid(state["tr"][0][:, :, 0])
     pslg = to_grid(state["ps"][0])
@@ -250,7 +260,9 @@ def get_physical_tendencies(consts, state, ctx, utend, vtend, ttend,
     ctx["compute_shortwave"] (a Python bool) selects the fresh or the cached
     shortwave branch; ctx may carry "sppt_pattern" (B, kx, il, ix). Returns
     (utend, vtend, ttend, trtend_flat, state); the state comes back with the
-    DIAG_FIELDS and CACHE_FIELDS written, all member-batched."""
+    DIAG_FIELDS and CACHE_FIELDS written, all member-batched. With
+    consts.bf16_tendencies both sets of tendencies are bfloat16 and the adds
+    below stay in that type (one rounding per add), as in the JAX package."""
     kx = consts.params.kx
     sw_flag = bool(ctx["compute_shortwave"])
     args, kwargs = physics_grid_inputs(consts, state, sw_flag)

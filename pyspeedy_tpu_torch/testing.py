@@ -53,16 +53,18 @@ def synthetic_host_bc(params: ModelParams, geom_np) -> dict:
 
 def make_demo_model(params: ModelParams = T30L8, device="cuda",
                     physics_on: bool = True,
-                    grid_phi: bool | None = None, **overrides):
+                    grid_phi: bool | None = None,
+                    bf16_tendencies: bool = False, **overrides):
     """(consts, state, calendar) fully initialized from synthetic BCs, the
-    single-member state on `device`. physics_on and grid_phi go to
-    build_consts; `overrides` replace fields of `params`
-    (precision="f32", fft_mode="matmul", ...)."""
+    single-member state on `device`. physics_on, grid_phi and
+    bf16_tendencies go to build_consts; `overrides` replace fields of
+    `params` (precision="f32", fft_mode="matmul", ...)."""
     if overrides:
         params = dataclasses.replace(params, **overrides)
     consts, geom_np = M.build_consts(params, device=device,
                                      physics_on=physics_on,
-                                     grid_phi=grid_phi)
+                                     grid_phi=grid_phi,
+                                     bf16_tendencies=bf16_tendencies)
     host_bc = synthetic_host_bc(params, geom_np)
     host_bc["_geom_np"] = geom_np
     state = M.allocate_state(params, n_months=1, device=device)

@@ -379,8 +379,11 @@ def test_cpu_dispatch_never_touches_the_build(monkeypatch):
     want = flat(TD.grid_physics(tconsts, True, *args, **kw))
     assert all(torch.equal(a, b) for a, b in zip(out, want))
     assert ck.launch_counts == before
-    assert set(before) == {"grid_dynamics", "grid_physics_sw",
-                           "grid_physics_nosw"}
+    assert set(before) == {
+        "grid_dynamics", "grid_dynamics_bf16", "grid_physics_sw",
+        "grid_physics_nosw", "grid_physics_sw_bf16", "grid_physics_nosw_bf16",
+        "fused_grid2spec", "fused_grid2spec_bf16", "fused_spec2grid",
+        "fused_probe"}
 
 
 def _bad_inputs():
@@ -512,9 +515,41 @@ def test_kernel_source_and_build_command():
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert cmd[cmd.index("-o") + 1] == "out.so"
     assert "-fmad=false" not in ck.build_command("grid_dynamics", "nvcc", "x")
-    assert set(ck.KERNEL_SOURCES) == set(ck.KERNELS) == {"grid_dynamics",
-                                                        "grid_physics"}
-    assert len(spec.argtypes) == 11
+    assert set(ck.KERNEL_SOURCES) == set(ck.KERNELS) == {
+        "grid_dynamics", "grid_physics", "fused_transform"}
+    assert len(spec.argtypes) == 12
+
+
+@pytest.mark.parametrize("kx", [5, 7, 8])
+def test_convective_sums_are_taken_in_the_kernels_order(kx):
+    """The updraft's entrained sums feed differences of numbers four orders
+    of magnitude above the tendency they leave, so the kernel takes them in
+    the plain version's order of additions: three in-place shift-add passes
+    (shifts 1, 2, 4) over the column. This transcribes the kernel's loop in
+    float32 and holds the plain version's suffix sums to it bitwise; a
+    running sum from the lowest level up, which the kernel used before,
+    differs in the last bit."""
+    from pyspeedy_tpu_torch.physics.convection import _rev_cumsum
+    rng = np.random.default_rng(kx)
+    x = (rng.uniform(1e3, 4e4, (kx, 6, 16))
+         * (rng.uniform(size=(kx, 6, 16)) > 0.3)).astype(np.float32)
+    s = x.copy()
+    for shift in (1, 2, 4):
+        for k in range(kx):
+            if k + shift < kx:
+                s[k] = s[k] + s[k + shift]
+    got = _rev_cumsum(torch.from_numpy(x)).numpy()
+    assert got.dtype == np.float32 and np.array_equal(got, s)
+    running = np.zeros_like(x)
+    acc = np.zeros_like(x[0])
+    for k in range(kx - 1, -1, -1):
+        acc = acc + x[k]
+        running[k] = acc
+    assert not np.array_equal(running, s)
+    np.testing.assert_allclose(running, s, rtol=1e-6)
+    text = ck.KERNELS["grid_physics"].source.read_text()
+    assert "s_s[k] = s_s[k] + s_s[k + shift];" in text
+    assert "fus_n = fus_bb + s_s[k]" in text
 
 
 @pytest.mark.gpu
@@ -535,3 +570,25 @@ def test_kernel_matches_plain_version_on_the_card():
         got = flat(ck.grid_physics_cuda(consts, True, *args, **kw))
         for name, g, w in zip(NAMES, got, want):
             assert float((g - w).abs().max() / w.abs().max()) <= TOL, name
+
+
+@pytest.mark.gpu
+def test_convective_tendency_follows_the_plain_order_on_the_card():
+    """On columns with deep convection the kernel's float32 temperature
+    tendency follows the plain version's to a few units in the last place
+    of the largest value: both take the updraft's sums in one order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
+    consts, _ = TM.build_consts(tparams.T30L8, device="cuda")
+    ms = phisg_shared([random_member(tparams.T30L8, s) for s in (22, 23)])
+    args, kw = torch_args(ms, True, "grid_phi")
+    cuda = lambda x: (tuple(cuda(a) for a in x) if isinstance(x, tuple)
+                      else None if x is None else x.cuda())
+    args = tuple(cuda(a) for a in args)
+    kw = {k: cuda(v) for k, v in kw.items()}
+    want = TD.grid_physics(consts, True, *args, **kw)
+    got = ck.grid_physics_cuda(consts, True, *args, **kw)
+    convective = want[4][0] > 0                       # cbmf
+    assert bool(convective.any())
+    err = (got[2] - want[2]).abs().amax(dim=1) / want[2].abs().max()
+    assert float(err[convective].max()) <= 2e-6

@@ -150,6 +150,64 @@ def test_grid_filter(path):
                    JS.grid_filter(jsp, jnp.asarray(g))) <= TOL
 
 
+def _cplx(x):
+    return x[0] + 1j * x[1]
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+@pytest.mark.parametrize("op", ["grid2spec", "spec2grid", "gradient",
+                                "vel2vort", "vort2vel", "grid_vel2vort",
+                                "grid_vel2vort_p", "pair_unpair"])
+def test_complex_api(op, path):
+    """The complex-dtype API and grid_vel2vort_p against the JAX package's on
+    all three transform routes. The port runs them through its real-pair
+    code; JAX has complex code of its own for most of them. Limit 1e-13 of
+    each result's largest value."""
+    jp, jsp, tsp = transforms(path)
+    rng = np.random.default_rng(21)
+    lead = (3,)
+    a, b = _cplx(random_spec(rng, jp, lead)), _cplx(random_spec(rng, jp, lead))
+    ga = rng.standard_normal(lead + (jp.il, jp.ix))
+    gb = rng.standard_normal(lead + (jp.il, jp.ix))
+    J, T = jnp.asarray, torch.from_numpy
+    if op == "pair_unpair":
+        assert np.array_equal(TS.pair(T(a)).numpy(), np.asarray(JS.pair(J(a))))
+        assert np.array_equal(TS.unpair(TS.pair(T(a))).numpy(), a)
+        return
+    if op == "grid2spec":
+        got, want = [TS.grid2spec(tsp, T(ga))], [JS.grid2spec(jsp, J(ga))]
+        assert got[0].dtype == torch.complex128
+    elif op == "spec2grid":
+        got = [TS.spec2grid(tsp, T(a), k) for k in (1, 2)]
+        want = [JS.spec2grid(jsp, J(a), k) for k in (1, 2)]
+    elif op == "gradient":
+        got, want = TS.gradient(tsp, T(a)), JS.gradient(jsp, J(a))
+    elif op in ("vel2vort", "vort2vel"):
+        got = getattr(TS, op)(tsp, T(a), T(b))
+        want = getattr(JS, op)(jsp, J(a), J(b))
+    else:
+        got, want = [], []
+        for kcos in (2, 1):
+            got += getattr(TS, op)(tsp, T(ga), T(gb), kcos)
+            want += getattr(JS, op)(jsp, J(ga), J(gb), kcos)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert rel_err(g, w) <= 1e-13
+
+
+def test_grid_vel2vort_p_batched():
+    """pdim=1: a member axis in front equals the members one by one."""
+    _, _, tsp = transforms("dense")
+    rng = np.random.default_rng(23)
+    u = torch.from_numpy(rng.standard_normal((2, 3, tsp.il, tsp.ix)))
+    v = torch.from_numpy(rng.standard_normal((2, 3, tsp.il, tsp.ix)))
+    vor, div = TS.grid_vel2vort_p(tsp, u, v, 2, pdim=1)
+    for m in range(2):
+        vor1, div1 = TS.grid_vel2vort_p(tsp, u[m], v[m], 2)
+        assert rel_err(vor[m], vor1) <= 1e-14
+        assert rel_err(div[m], div1) <= 1e-14
+
+
 def test_float32_tables_round_like_jax():
     jp = dataclasses.replace(J_T30L8, precision="f32")
     tp = dataclasses.replace(T_T30L8, precision="f32")

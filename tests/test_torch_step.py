@@ -22,12 +22,14 @@ import torch
 import jax
 
 from pyspeedy_tpu.models import model as JM
+from pyspeedy_tpu.models import prognostics as JP
 from pyspeedy_tpu.parallel import ensemble as JE
 from pyspeedy_tpu.params import T30L8 as J_T30L8
 from pyspeedy_tpu.testing import synthetic_host_bc as j_synthetic_host_bc
 from pyspeedy_tpu.utils.calendar import ModelCalendar as JCalendar
 from pyspeedy_tpu_torch import interop
 from pyspeedy_tpu_torch.models import model as TM
+from pyspeedy_tpu_torch.models import prognostics as TP
 from pyspeedy_tpu_torch.parallel import ensemble as TE
 from pyspeedy_tpu_torch.params import T30L8 as T_T30L8
 from pyspeedy_tpu_torch.testing import make_demo_model, synthetic_host_bc
@@ -289,12 +291,78 @@ def test_interop_round_trip():
     assert t32["error_flag"].dtype == torch.bool
 
 
+@pytest.mark.parametrize("route", ["fft", "matmul"])
+def test_grid_mirrors_of_a_carried_over_state_match_jax(route):
+    """A JAX state converted by interop and pushed through the port's
+    prognostics.spectral2grid gives the JAX grid mirrors; grid2spectral and
+    grid_filter_prognostics follow. Limit 1e-12: the same transforms on both
+    sides, sums in another order. "matmul" is the dense route, whose CPU
+    side is the plain version of the fused transform kernels."""
+    jp = dataclasses.replace(J_T30L8, fft_mode=route)
+    tp = dataclasses.replace(T_T30L8, fft_mode=route)
+    jconsts, _ = JM.build_consts(jp, physics_on=False)
+    tconsts, _ = TM.build_consts(tp, device="cpu", physics_on=False)
+    assert tconsts.sp.use_dense_legendre == (route == "matmul")
+    _, jstate, _ = jax_model()
+    tstate = carried_over()
+
+    jg = JP.spectral2grid(jconsts, jstate)
+    tg = TP.spectral2grid(tconsts, tstate)
+    for name in TP.GRID_MIRRORS:
+        assert rel_err(tg[name].numpy(), jg[name]) <= 1e-12, name
+
+    js = JP.grid2spectral(jconsts, jg)
+    ts = TP.grid2spectral(tconsts, tg)
+    for name in ("vor", "div", "t", "ps", "tr"):
+        assert rel_err(ts[name][0].numpy(), js[name][0]) <= 1e-12, name
+        assert torch.equal(ts[name][1], tstate[name][1]), name
+    assert rel_err(ts["phi"].numpy(), js["phi"]) <= 1e-12
+    assert torch.equal(tstate["tr"][0], carried_over()["tr"][0])  # not aliased
+
+    jf = JP.grid_filter_prognostics(jconsts, jg)
+    tf = TP.grid_filter_prognostics(tconsts, tg)
+    for name in TP.GRID_MIRRORS:
+        assert rel_err(tf[name].numpy(), jf[name]) <= 1e-12, name
+
+
+@pytest.mark.parametrize("route", ["fft", "matmul"])
+def test_grid_mirrors_batched_equal_the_members_one_by_one(route):
+    """pdim=1 on a member-batched state with B=3 perturbed members."""
+    tp = dataclasses.replace(T_T30L8, fft_mode=route)
+    tconsts, _ = TM.build_consts(tp, device="cpu", physics_on=False)
+    nmem = 3
+    state = TE.broadcast_state(carried_over(), nmem)
+    noise = torch.from_numpy(perturbation(nmem))
+    state["t"] = (state["t"][0] + noise, state["t"][1])
+    state["phi"] = state["phi"] + 9.81 * noise
+    both = TP.grid_filter_prognostics(
+        tconsts, TP.spectral2grid(tconsts, state, pdim=1), pdim=1)
+    back = TP.grid2spectral(tconsts, both, pdim=1)
+    assert both["t_grid"].shape == (nmem, 8, 48, 96)
+    assert both["ps_grid"].shape == (nmem, 48, 96)
+    assert back["tr"][0].shape == state["tr"][0].shape
+    for m in range(nmem):
+        one = {k: (tuple(a[m] for a in v) if isinstance(v, tuple) else v[m])
+               if k in TM.CARRY_FIELDS else v for k, v in state.items()}
+        g1 = TP.grid_filter_prognostics(tconsts,
+                                        TP.spectral2grid(tconsts, one))
+        s1 = TP.grid2spectral(tconsts, g1)
+        for name in TP.GRID_MIRRORS:
+            assert rel_err(both[name][m].numpy(), g1[name].numpy()) <= 1e-14, \
+                name
+        for name in ("vor", "div", "t", "ps", "tr"):
+            assert rel_err(back[name][0][m].numpy(),
+                           s1[name][0].numpy()) <= 1e-13, name
+
+
 @pytest.mark.parametrize("what", ["bf16_tendencies", "sppt_on", "alph",
                                   "sppt_on_with_physics"])
 def test_unported_paths_raise(what):
-    """What is not ported yet is refused by name, never silently ignored."""
+    """What is not ported yet, or does not exist (bfloat16 tendencies in
+    float64), is refused by name, never silently ignored."""
     if what == "bf16_tendencies":
-        with pytest.raises(NotImplementedError, match="bf16"):
+        assert T_T30L8.precision == "f64"
+        with pytest.raises(ValueError, match="bf16_tendencies.*precision"):
             TM.build_consts(T_T30L8, device="cpu", bf16_tendencies=True)
     elif what == "sppt_on_with_physics":
         with pytest.raises(NotImplementedError, match="sppt"):
@@ -357,6 +425,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "pyspeedy_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 25
+    assert REPO / "pyspeedy_tpu_torch/ops/transform_kernels.py" in files
     for path in files:
         for mod in _imports(path):
             root = mod.split(".")[0]
