@@ -9,12 +9,15 @@ It builds the CUDA kernels from ``pyspeedy_tpu_torch/csrc`` with nvcc, holds
 each kernel against its plain PyTorch version on the card at the shapes the
 model gives it (the two column kernels, their bfloat16-output instantiations,
 the fused spectral transforms in float32, float64 and the 2-byte operand
-mode, the four probe stages), drives the port's paths through the public
-entry points (the member-batched dynamics-only T30L8 model at a reduced
-depth; the main path: the full-physics T30L8 model, initialization and one
-model day of 128 members; the bf16_tendencies configuration at a reduced
-depth; the probe stages on the model's own fields), checks the results and
-the exact launch counts of every path, and prints what it measured. It needs a CUDA
+mode, the four probe stages, the spectral update in float32 and float64 on
+random inputs and on the model's own state, the DFT chain at the JAX tool's
+shapes), drives the port's paths through the public entry points (the
+member-batched dynamics-only T30L8 model at a reduced depth; the main path:
+the full-physics T30L8 model, initialization and one model day of 128
+members; the bf16_tendencies configuration at a reduced depth; the probe
+stages on the model's own fields; the DFT chain through its entry point),
+checks the results and the exact launch counts of every path (and that no
+plain version ran on the card), and prints what it measured. It needs a CUDA
 device and exits non-zero without one; there is no CPU fallback. Every phase
 that fails raises, so the run exits non-zero.
 
@@ -40,8 +43,13 @@ if not torch.cuda.is_available():
              "is False")
 
 from pyspeedy_tpu_torch.models import model as M
-from pyspeedy_tpu_torch.models.tendencies import grid_dynamics_core
+from pyspeedy_tpu_torch.models import spectral_glue as SG
+from pyspeedy_tpu_torch.models.implicit import build_implicit
+from pyspeedy_tpu_torch.models.tendencies import (grid_dynamics_core,
+                                                  grid_tendency_specs)
 from pyspeedy_tpu_torch.ops import column_kernels as ck
+from pyspeedy_tpu_torch.ops import dft_chain as DC
+from pyspeedy_tpu_torch.ops import glue_kernels as GK
 from pyspeedy_tpu_torch.ops import spectral as S
 from pyspeedy_tpu_torch.ops import transform_kernels as tk
 from pyspeedy_tpu_torch.parallel.ensemble import (broadcast_state,
@@ -62,6 +70,7 @@ N_STEPS = 36            # one model day at T30
 N_STEPS_DYN = 12        # depth of the dynamics-only path
 N_STEPS_BF16 = 12       # depth of the bf16_tendencies path
 N_PROBE_ROWS = 256      # rows of the probe stages' comparison
+N_DFT_MEMBERS = 256     # members of the DFT chain (the JAX tool's default)
 PHYS_NAMES = (("utend", "vtend", "ttend", "qtend") + PD.DIAG_FIELDS
               + PD.CACHE_FIELDS)
 # Columns of a float32 comparison that may sit on a threshold of the physics
@@ -109,15 +118,24 @@ def kernel_device_ms(fn, kernel_name: str, reps: int = 20) -> float:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and kernel_name in e.key]
-    count = sum(e.count for e in hits)
     # The tracer may drop a record now and then: the mean is over the
-    # launches it did record; none at all, or more than were made, is wrong.
+    # launches it did record. On an H100 it has also returned windows without
+    # any record, several in a row, and recorded every launch again a second
+    # later: such a window is profiled again a second later, five windows at
+    # most. More records than launches is wrong.
+    for attempt in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and kernel_name in e.key]
+        count = sum(e.count for e in hits)
+        if count > 0:
+            break
+        print(f"  (profiler window {attempt + 1} held no record of "
+              f"{kernel_name}; profiling again in a second)")
+        time.sleep(1.0)
     if not 0 < count <= reps:
         raise RuntimeError(
             f"profiler recorded {count} launches of {kernel_name}, "
@@ -832,6 +850,197 @@ def check_bf16_outputs(params, card: str):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The spectral-update kernel against its plain version
+# ---------------------------------------------------------------------------
+
+GLUE_OUTS = ("ps0", "ps1", "vor0", "vor1", "div0", "div1", "t0", "t1",
+             "trf0", "trf1")
+
+
+def glue_inputs(params, n_members: int, seed: int, shared: bool):
+    """Seeded arguments of the spectral update at the step's shapes: the
+    6 + 3*ntr flux spectra and psdt, then the state, each of plausible
+    magnitude. tcorh arrives as the forcing leaves it (one plane expanded
+    over the members); with `shared` the whole state does, as from
+    broadcast_state before the first step (a stride-0 member axis)."""
+    rng = np.random.default_rng(seed)
+    kx, mx, nx, ntr = params.kx, params.mx, params.nx, params.ntr
+
+    def mk(shape, scale, one=False):
+        x = torch.from_numpy(scale * rng.standard_normal(
+            (1 if one else n_members,) + shape)).to("cuda", params.dtype)
+        return x.expand(n_members, *shape)
+
+    lev, plane, trac = (2, kx, mx, nx), (2, mx, nx), (2, ntr * kx, mx, nx)
+    specs = [mk(lev, 1e-5) for _ in range(6 + 3 * ntr)]
+    st = lambda shape, scale: mk(shape, scale, one=shared)
+    state = (mk(plane, 1e-5), st(lev, 1e-5), st(lev, 1e-5), st(lev, 1e-6),
+             st(lev, 1e-6), st(lev, 10.0), st(lev, 10.0), st(plane, 1e-2),
+             st(plane, 1e-2), st(trac, 1e-3), st(trac, 1e-3), st(lev, 1e3),
+             mk(plane, 1.0, one=True), st(plane, 1e-3))
+    return specs, state
+
+
+def glue_bound(params, n_members: int, ins, outs):
+    """Least time the card could take for one spectral update: the larger
+    of bytes over the memory rate (each distinct input element read once,
+    each output written once) and operations over the peak rate of the
+    scalar type (per (member, part, m, n) point about 116 + 6*kx + 25*ntr
+    per level, counted from the kernel, and 20 for log-ps)."""
+    nbytes = sum(unique_bytes(x) for x in (*ins, *outs))
+    kx, ntr = params.kx, params.ntr
+    ops = (n_members * 2 * params.mx * params.nx
+           * (kx * (116 + 6 * kx + 25 * ntr) + 20))
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = ops / PEAK_FLOPS[params.dtype]
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return 1e3 * max(t_bytes, t_ops), by, nbytes
+
+
+def compare_glue(consts, j1, dt, specs, state, limit, tag):
+    """One launch of the kernel against the plain version on the same
+    inputs: (worst relative error over the ten outputs, each relative to
+    its largest value; worst absolute error; the ten errors)."""
+    eps = 0.0 if j1 == 1 else consts.params.rob
+    got = GK.spectral_update_cuda(consts, j1, dt, eps, specs, *state)
+    torch.cuda.synchronize()
+    want = SG.spectral_update_plain(consts, j1, dt, eps, specs, *state)
+    errs = []
+    for name, a, b in zip(GLUE_OUTS, got, want):
+        if (a.shape != b.shape or not a.is_contiguous()
+                or not bool(torch.isfinite(a).all())):
+            raise RuntimeError(f"spectral_update {tag} {name}: bad shape, "
+                               f"layout or values")
+        errs.append(_rel(a, b))
+    if not max(errs) <= limit:
+        raise RuntimeError(
+            f"spectral_update {tag}: kernel vs plain "
+            + ", ".join(f"{n} {e:.3e}" for n, e in zip(GLUE_OUTS, errs))
+            + f" (limit {limit:g})")
+    max_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    return max(errs), max_abs, errs
+
+
+def check_spectral_update(params, limit: float, card: str):
+    """The spectral-update kernel against its plain version at B=128 on
+    seeded inputs: the three time steps of the start-up sequence with their
+    implicit tables (j1=1 with dt/2 and dt, j1=2 with 2 dt), each with a
+    dense state and with a stride-0 member axis; timed on the dense j1=2
+    case."""
+    consts, geom = M.build_consts(params, device="cuda", physics_on=False)
+    p = params
+    worst, max_abs, lines = 0.0, 0.0, []
+    for shared in (False, True):
+        for j1, f in ((1, 0.5), (1, 1.0), (2, 2.0)):
+            c = consts.with_implicit(build_implicit(
+                p, geom, consts.hd, f * p.delt, device="cuda"))
+            specs, state = glue_inputs(p, N_MEMBERS, int(4 * f) + shared,
+                                       shared)
+            tag = (f"T30L{p.kx} {p.precision} B={N_MEMBERS} j1={j1} "
+                   f"dt={f}*delt {'stride-0 members' if shared else 'dense'}")
+            w, a, errs = compare_glue(c, j1, f * p.delt, specs, state, limit,
+                                      tag)
+            worst, max_abs = max(worst, w), max(max_abs, a)
+            lines.append(f"  {tag}: " + " ".join(
+                f"{n} {e:.1e}" for n, e in zip(GLUE_OUTS, errs)))
+    specs, state = glue_inputs(p, N_MEMBERS, 9, False)
+    dt, eps = 2.0 * p.delt, p.rob
+    launch = lambda: GK.spectral_update_cuda(consts, 2, dt, eps, specs,
+                                             *state)
+    outs = launch()
+    ms = kernel_device_ms(launch, "spectral_update_kernel")
+    call_ms = time_ms(launch, reps=20)
+    plain_ms = time_ms(lambda: SG.spectral_update_plain(
+        consts, 2, dt, eps, specs, *state), reps=3, warmup=1, windows=3)
+    bound_ms, bound_by, nbytes = glue_bound(p, N_MEMBERS, (*specs, *state),
+                                            outs)
+    print(f"kernel spectral_update T30L{p.kx} {p.precision} B={N_MEMBERS}: "
+          f"max rel err vs plain {worst:.3e} (limit {limit:.0e}) over the "
+          f"ten outputs of 6 cases; kernel {ms:.4f} ms on the card "
+          f"({call_ms:.4f} ms per wrapper call, back to back), plain "
+          f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+          f"({nbytes / 1e6:.1f} MB) = {100 * bound_ms / ms:.0f}% [{card}]")
+    for line in lines:
+        print(line)
+    return {"max_rel_err": worst, "max_abs_err": max_abs, "ms": ms,
+            "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def check_spectral_update_on_state(consts, state, limit: float):
+    """The spectral-update kernel against its plain version on the model's
+    own state after a day: the flux spectra and psdt of the next step (its
+    transforms, grid dynamics and physics with shortwave), j1=2."""
+    step = 2 + N_STEPS
+    specs, psdt, st = grid_tendency_specs(
+        consts, state, 1, PD.get_physical_tendencies,
+        {"compute_shortwave": True, "stepno": step})
+    p = consts.params
+    tag = (f"T30L{p.kx} {p.precision} B={psdt.shape[0]} on the model's "
+           f"state after a day")
+    worst, _, errs = compare_glue(consts, 2, 2.0 * p.delt, specs,
+                                  SG.update_inputs(st, psdt), limit, tag)
+    print(f"kernel spectral_update {tag}: max rel err vs plain {worst:.3e} "
+          f"(limit {limit:.0e}): " + " ".join(
+              f"{n} {e:.1e}" for n, e in zip(GLUE_OUTS, errs)))
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# The DFT chain against its plain version
+# ---------------------------------------------------------------------------
+
+def dft_chain_inputs(dtype, seed: int = 40):
+    """Seeded Fourier pairs at the JAX tool's shapes (standard normal, as
+    the tool makes them) and the four DFT tables, on the card."""
+    rng = np.random.default_rng(seed)
+    shape = (N_DFT_MEMBERS, DC.NFIELDS, DC.KX, DC.IL, DC.MX)
+    fre = torch.from_numpy(rng.standard_normal(shape)).to("cuda", dtype)
+    fim = torch.from_numpy(rng.standard_normal(shape)).to("cuda", dtype)
+    return DC.device_tables(dtype, "cuda"), fre, fim
+
+
+def check_dft_chain(dtype, limit: float, card: str):
+    """The DFT-chain kernel against its plain version (12 matrix products
+    and the chain's elementwise passes) at B=256, and its time."""
+    tabs, fre, fim = dft_chain_inputs(dtype)
+    got = DC.dft_chain_cuda(tabs, fre, fim)
+    torch.cuda.synchronize()
+    want = DC.dft_chain_plain(tabs, fre, fim)
+    for a, b in zip(got, want):
+        if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+            raise RuntimeError("dft_chain: bad shape or values")
+    err = max(_rel(a, b) for a, b in zip(got, want))
+    max_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    launch = lambda: DC.dft_chain_cuda(tabs, fre, fim)
+    ms = kernel_device_ms(launch, "dft_chain_kernel", reps=10)
+    call_ms = time_ms(launch, reps=10)
+    plain_ms = time_ms(lambda: DC.dft_chain_plain(tabs, fre, fim), reps=2,
+                       warmup=1, windows=3)
+    size = fre.element_size()
+    rows = fre.numel() // DC.MX                     # (member, field, level, lat)
+    ops = rows * 8 * DC.MX * DC.IX                  # 4 mx*ix multiply-adds
+    nbytes = 4 * fre.numel() * size + 4 * DC.MX * DC.IX * size
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
+    bound_ms = 1e3 * max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    name = "f32" if dtype == torch.float32 else "f64"
+    print(f"kernel dft_chain {name} B={N_DFT_MEMBERS} ({rows} field rows): "
+          f"max rel err vs plain {err:.3e} (limit {limit:.0e}), kernel "
+          f"{ms:.4f} ms on the card ({call_ms:.4f} ms per wrapper call, back "
+          f"to back), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by "
+          f"{bound_by} ({ops / 1e9:.2f} GFLOP at "
+          f"{PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s; {nbytes / 1e6:.1f} MB = "
+          f"{1e3 * t_bytes:.4f} ms) = {100 * bound_ms / ms:.0f}% [{card}]")
+    if not err <= limit:
+        raise RuntimeError(f"dft_chain kernel disagrees with its plain "
+                           f"version: {err:.3e}")
+    return {"max_rel_err": err, "max_abs_err": max_abs, "ms": ms,
+            "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
 def expected_transform_launches(consts, n_evals: int, n_forcings: int,
                                 with_init: bool):
     """(direct, inverse) transform launches of a path, from the step's
@@ -857,7 +1066,8 @@ def build_report() -> list:
     nvcc -Xptxas -v printed when the libraries were built."""
     import re
     bases = ("grid_dynamics_kernel", "grid_physics_kernel",
-             "grid2spec_kernel", "spec2grid_kernel", "split_probe_kernel")
+             "grid2spec_kernel", "spec2grid_kernel", "split_probe_kernel",
+             "spectral_update_kernel", "dft_chain_kernel")
     words = {"f": "float", "d": "double", "13__nv_bfloat16": "bfloat16"}
     rows = []
     for name, log in ck.build_logs.items():
@@ -904,24 +1114,37 @@ def device_time_per_step(run, state, cal, first_step: int, n_steps: int):
     the eight device kernels that take most of that time as
     [(name, ms per step, launches per step)], and the ms per step of the
     matrix products and of the hand-written kernels) over a short
-    window, from torch.profiler; (None, None, [], {}) if the profiler saw no
-    device activity. The profiler slows the host, so the busy share is taken
+    window, from torch.profiler; (None, None, [], {}) if the profiler did
+    not record the window whole. The window is whole when it holds one
+    record of the grid-dynamics and of the spectral-update kernel per step
+    (the tracer can lose every record for a while, see kernel_device_ms);
+    otherwise it is profiled again a second later, three windows at most. The profiler slows the host, so the busy share is taken
     against the step time of an unprofiled window."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    ctx, _ = M.build_step_ctx(dataclasses.replace(cal), first_step, n_steps)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run(state, ctx)
+    for attempt in range(3):
+        ctx, _ = M.build_step_ctx(dataclasses.replace(cal), first_step,
+                                  n_steps)
         torch.cuda.synchronize()
-    # Device-side events only (kernels, copies, fills): the operator-level
-    # events carry the same device time once more.
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in events)
-    if busy_us <= 0:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(state, ctx)
+            torch.cuda.synchronize()
+        # Device-side events only (kernels, copies, fills): the
+        # operator-level events carry the same device time once more.
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        records = lambda name: sum(e.count for e in events if name in e.key)
+        if (records("grid_dynamics_kernel") == n_steps
+                and records("spectral_update_kernel") == n_steps):
+            break
+        print(f"  (profiled window {attempt + 1} of {n_steps} steps is not "
+              f"whole: {records('grid_dynamics_kernel')} grid_dynamics and "
+              f"{records('spectral_update_kernel')} spectral_update records)")
+        time.sleep(1.0)
+    else:
         return None, None, [], {}
+    busy_us = sum(e.self_device_time_total for e in events)
     share = lambda *keys: sum(
         e.self_device_time_total for e in events
         if any(k in e.key.lower() for k in keys)) * 1e-3 / n_steps
@@ -929,7 +1152,8 @@ def device_time_per_step(run, state, cal, first_step: int, n_steps: int):
               "fused transform kernels": share("grid2spec_kernel",
                                                "spec2grid_kernel"),
               "grid_physics kernel": share("grid_physics_kernel"),
-              "grid_dynamics kernel": share("grid_dynamics_kernel")}
+              "grid_dynamics kernel": share("grid_dynamics_kernel"),
+              "spectral_update kernel": share("spectral_update_kernel")}
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     top = [(e.key[:60], e.self_device_time_total * 1e-3 / n_steps,
             e.count / n_steps) for e in top]
@@ -1031,10 +1255,21 @@ def main() -> None:
     check_probes(f64, 1e-12, card)
     bf16_out = check_bf16_outputs(f32, card)
 
+    # 4c. the spectral-update kernel vs plain (the three time steps of the
+    # start-up sequence, dense and stride-0 member axes; float32, float64,
+    # T30L5) and the DFT chain at the JAX tool's shapes.
+    glue32 = check_spectral_update(f32, 1e-5, card)
+    glue64 = check_spectral_update(f64, 1e-12, card)
+    check_spectral_update(dataclasses.replace(T30L5, fft_mode="matmul"),
+                          1e-12, card)
+    dft32 = check_dft_chain(torch.float32, 1e-5, card)
+    dft64 = check_dft_chain(torch.float64, 1e-12, card)
+
     # 5. the dynamics-only path, at a reduced depth: initialization (two
     # bootstrap steps at B=1), then 12 steps of 128 members.
     ck.reset_launch_counts()
     tk.reset_plain_chain_calls()
+    GK.reset_plain_calls()
     consts_d, state_d, cal_d = make_demo_model(
         T30L8, device="cuda", physics_on=False, precision="f32",
         fft_mode="matmul")
@@ -1047,16 +1282,21 @@ def main() -> None:
         consts_d, N_STEPS_DYN + 2, 1, with_init=True)
     expected_dyn = dict.fromkeys(ck.launch_counts, 0)
     expected_dyn.update(grid_dynamics=N_STEPS_DYN + 2, fused_grid2spec=direct,
-                        fused_spec2grid=inverse)
-    if launches_dyn != expected_dyn or any(tk.plain_chain_calls.values()):
+                        fused_spec2grid=inverse,
+                        spectral_update=N_STEPS_DYN + 2)
+    if (launches_dyn != expected_dyn or any(tk.plain_chain_calls.values())
+            or any(GK.plain_calls.values())):
         raise RuntimeError(
             f"dynamics-only path: launches {launches_dyn}, expected "
-            f"{expected_dyn}; plain chain calls {tk.plain_chain_calls}")
+            f"{expected_dyn}; plain chain calls {tk.plain_chain_calls}, "
+            f"plain spectral update {GK.plain_calls}")
     print(f"dynamics-only path: T30L8 f32, {N_MEMBERS} members x "
           f"{N_STEPS_DYN} steps + initialization, finite, error_flag false, "
           f"grid_dynamics launches {launches_dyn['grid_dynamics']} (= steps "
-          f"+ 2), fused_grid2spec {direct}, fused_spec2grid {inverse}, none "
-          f"of the physics or of the plain chain; unperturbed members differ "
+          f"+ 2), spectral_update {launches_dyn['spectral_update']}, "
+          f"fused_grid2spec {direct}, fused_spec2grid {inverse}, none "
+          f"of the physics, of the plain chain or of the plain spectral "
+          f"update; unperturbed members differ "
           f"from member 0 by {member_spread(out_d):.1e}")
     del out_d
 
@@ -1066,13 +1306,14 @@ def main() -> None:
     # shortwave on steps 3, 6, ..., 36, the daily forcing at step 36.
     ck.reset_launch_counts()
     tk.reset_plain_chain_calls()
+    GK.reset_plain_calls()
     consts, state1, cal = make_demo_model(T30L8, device="cuda",
                                           precision="f32", fft_mode="matmul")
     run = make_run_steps_batched(consts, device="cuda")
     state, cal_day, secs_first = run_window(
         run, broadcast_state(state1, N_MEMBERS), cal, 2, N_STEPS)
     launches = dict(ck.launch_counts)
-    plain_calls = dict(tk.plain_chain_calls)
+    plain_calls = dict(tk.plain_chain_calls, **GK.plain_calls)
     check_state(state, N_MEMBERS, "main path")
     steps = range(2, 2 + N_STEPS)
     n_sw = 2 + sum(1 for s in steps if s % 3 == 0)
@@ -1082,7 +1323,8 @@ def main() -> None:
     expected = dict.fromkeys(ck.launch_counts, 0)
     expected.update(grid_dynamics=N_STEPS + 2, grid_physics_sw=n_sw,
                     grid_physics_nosw=N_STEPS + 2 - n_sw,
-                    fused_grid2spec=direct, fused_spec2grid=inverse)
+                    fused_grid2spec=direct, fused_spec2grid=inverse,
+                    spectral_update=N_STEPS + 2)
     if launches != expected or any(plain_calls.values()):
         raise RuntimeError(f"main path launched {launches}, expected "
                            f"{expected}; plain chain calls {plain_calls}")
@@ -1098,10 +1340,12 @@ def main() -> None:
                                f"not finite")
     print(f"main path: T30L8 f32 with physics, {N_MEMBERS} members x "
           f"{N_STEPS} steps + initialization, finite, error_flag false, "
-          f"launches {launches} (grid_dynamics = steps + 2; physics 14 with "
+          f"launches {launches} (grid_dynamics = spectral_update = steps + "
+          f"2; physics 14 with "
           f"shortwave + 24 without; fused_spec2grid = 38 evaluations x 12 + "
           f"2 of the initialization; fused_grid2spec = 38 x 10 + 4 + 2 for "
-          f"each of {n_forcings} forcings), plain chain calls {plain_calls}; "
+          f"each of {n_forcings} forcings), plain chain and plain spectral "
+          f"update calls {plain_calls}; "
           f"unperturbed members differ from member 0 by {spread:.1e}; first "
           f"window {secs_first:.3f} s")
 
@@ -1110,6 +1354,8 @@ def main() -> None:
     # pattern).
     check_physics(f32, N_MEMBERS, 1e-5, card, ("grid_phi", "sppt"),
                   inputs=state_physics_inputs(consts, state))
+    # The spectral-update kernel on the model's own state after that day.
+    glue_state = check_spectral_update_on_state(consts, state, 1e-5)
 
     # Member independence through the kernels and the coupler: one member's
     # initial temperature perturbed, only that member may differ.
@@ -1168,6 +1414,7 @@ def main() -> None:
     # steps), the runner keeps it (bfloat16 instantiations on every step).
     ck.reset_launch_counts()
     tk.reset_plain_chain_calls()
+    GK.reset_plain_calls()
     consts_b, state_b1, cal_b = make_demo_model(
         T30L8, device="cuda", precision="f32", fft_mode="matmul",
         bf16_tendencies=True)
@@ -1175,7 +1422,7 @@ def main() -> None:
     out_b, cal_b2, _ = run_window(run_b, broadcast_state(state_b1, N_MEMBERS),
                                   cal_b, 2, N_STEPS_BF16)
     launches_b = dict(ck.launch_counts)
-    plain_b = dict(tk.plain_chain_calls)
+    plain_b = dict(tk.plain_chain_calls, **GK.plain_calls)
     check_state(out_b, N_MEMBERS, "bf16_tendencies path")
     steps_b = range(2, 2 + N_STEPS_BF16)
     n_sw_b = sum(1 for s in steps_b if s % 3 == 0)
@@ -1190,7 +1437,8 @@ def main() -> None:
         grid_physics_nosw_bf16=N_STEPS_BF16 - n_sw_b,
         fused_grid2spec=init_d + 2 * n_forc_b,
         fused_grid2spec_bf16=run_d2 - 2 * n_forc_b,
-        fused_spec2grid=init_i + run_i)
+        fused_spec2grid=init_i + run_i,
+        spectral_update=N_STEPS_BF16 + 2)
     if launches_b != expected_b or any(plain_b.values()):
         raise RuntimeError(f"bf16_tendencies path launched {launches_b}, "
                            f"expected {expected_b}; plain chain {plain_b}")
@@ -1233,7 +1481,9 @@ def main() -> None:
           f"{N_STEPS_BF16} steps + initialization, finite, error_flag false, "
           f"launches {launches_b} (the bfloat16 instantiations on the "
           f"{N_STEPS_BF16} steps, the float32 ones on the two bootstrap "
-          f"steps), plain chain calls {plain_b}; same initial state bitwise; "
+          f"steps; the spectral update, float32 on every step, "
+          f"{launches_b['spectral_update']}), plain chain and plain spectral "
+          f"update calls {plain_b}; same initial state bitwise; "
           f"prognostics vs the float32 run after {N_STEPS_BF16} steps, rel. "
           f"to each field's largest value: "
           + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
@@ -1276,6 +1526,30 @@ def main() -> None:
           f"({n_rows} rows): consistent with each other and with "
           f"grid2spec_p, launches {launches_probe['fused_probe']}")
 
+    # 6d. the DFT-chain path: the row-5 kernel through its entry point on the
+    # card, once, at the JAX tool's shapes.
+    ck.reset_launch_counts()
+    DC.reset_plain_calls()
+    tabs, fre, fim = dft_chain_inputs(torch.float32, seed=41)
+    ore, oim = DC.dft_chain(tabs, fre, fim)
+    launches_dft = dict(ck.launch_counts)
+    plain_dft = dict(DC.plain_calls)
+    expected_dft = dict.fromkeys(ck.launch_counts, 0)
+    expected_dft["dft_chain"] = 1
+    again = DC.dft_chain_cuda(tabs, fre, fim)
+    dft_ok = (ore.shape == fre.shape and oim.shape == fim.shape
+              and bool(torch.isfinite(ore).all())
+              and bool(torch.isfinite(oim).all())
+              and torch.equal(ore, again[0]) and torch.equal(oim, again[1]))
+    if launches_dft != expected_dft or any(plain_dft.values()) or not dft_ok:
+        raise RuntimeError(f"DFT-chain path: launches {launches_dft}, plain "
+                           f"calls {plain_dft}, outputs consistent {dft_ok}")
+    print(f"DFT-chain path: dft_chain on {N_DFT_MEMBERS} members of "
+          f"{DC.NFIELDS} fields x {DC.KX} levels, f32: finite, of the input's "
+          f"shape, the same bits on a second launch; launches "
+          f"{launches_dft['dft_chain']}, plain calls {plain_dft['dft_chain']}")
+    del tabs, fre, fim, ore, oim, again
+
     # 7. float64 end to end with physics: the card (the column kernels and
     # the fused transform kernels in float64) against the CPU (their plain
     # versions: the dense matmul chain for the transforms) from the same
@@ -1288,6 +1562,7 @@ def main() -> None:
     ctx, _ = M.build_step_ctx(dataclasses.replace(cal_c), 2, N_STEPS)
     out_c = make_run_steps_batched(consts_c, device="cpu")(
         broadcast_state(state_c, nmem64), ctx)
+    GK.reset_plain_calls()
     out_g = make_run_steps_batched(consts_g, device="cuda")(
         broadcast_state(to_gpu(state_c), nmem64), ctx)
     torch.cuda.synchronize()
@@ -1299,6 +1574,11 @@ def main() -> None:
             d64, i64) or not consts_c.sp.use_dense_legendre:
         raise RuntimeError(f"f64 card run: transform launches {launches64}, "
                            f"expected {d64} and {i64} on the dense route")
+    if (launches64["spectral_update"] != N_STEPS
+            or any(GK.plain_calls.values())):
+        raise RuntimeError(f"f64 card run: spectral_update launched "
+                           f"{launches64['spectral_update']} times, expected "
+                           f"{N_STEPS}; plain calls {GK.plain_calls}")
     worst64, worst_name = 0.0, ""
     fields = [(n, out_g[n][0], out_c[n][0]) for n in PROGNOSTICS]
     fields += [(n, out_g[n], out_c[n]) for n in
@@ -1315,7 +1595,8 @@ def main() -> None:
           f"{worst_name} over the prognostics and 8 physics fields (limit "
           f"1e-9); float64 transform kernels launched "
           f"{launches64['fused_grid2spec']} + {launches64['fused_spec2grid']}"
-          f" times")
+          f" times, the float64 spectral update "
+          f"{launches64['spectral_update']} (no plain call)")
     if not worst64 <= 1e-9:
         raise RuntimeError("float64 card run disagrees with the CPU run")
 
@@ -1375,6 +1656,27 @@ def main() -> None:
         "plain_ms": stage2["plain_ms"], "bound_ms": stage2["bound_ms"],
         "bound_by": stage2["bound_by"], "library_ms": stage2["library_ms"],
         "shape": f"T30 f32, {N_PROBE_ROWS} rows, p2", "stages": probes32})
+    glue = entry("spectral_update",
+                 "pyspeedy_tpu_torch/csrc/spectral_update.cu",
+                 "tools/exp_glue.py:39", launches["spectral_update"], glue32,
+                 shape)
+    glue["launches_dynamics_only_path"] = launches_dyn["spectral_update"]
+    glue["launches_bf16_path"] = launches_b["spectral_update"]
+    glue["launches_f64_day"] = launches64["spectral_update"]
+    glue["max_rel_err_model_state"] = glue_state
+    for key in ("ms", "call_ms", "plain_ms", "bound_ms", "max_rel_err"):
+        glue[key + "_f64"] = glue64[key]
+    kernels.append(glue)
+    # The DFT chain is not on the model's path: its launches are those of
+    # the DFT-chain path above.
+    dft = entry("dft_chain", "pyspeedy_tpu_torch/csrc/dft_chain.cu",
+                "tools/exp_dft_kernel.py:113", launches_dft["dft_chain"],
+                dft32, f"f32 B={N_DFT_MEMBERS} x ({DC.NFIELDS}, {DC.KX}, "
+                f"{DC.IL}, {DC.MX}) Fourier pairs")
+    dft["launches_on"] = "the DFT-chain path (the model's steps do not run it)"
+    for key in ("ms", "call_ms", "plain_ms", "bound_ms", "max_rel_err"):
+        dft[key + "_f64"] = dft64[key]
+    kernels.append(dft)
     print(json.dumps({"kernels": kernels}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi_line())

@@ -30,6 +30,14 @@ def _to_device(params: ModelParams, device):
         np.asarray(x, dtype=params.np_dtype))).to(device)
 
 
+def _host_copy(params: ModelParams, *tables) -> np.ndarray:
+    """numpy (f64) tables rounded to the model dtype and concatenated flat as
+    float64: the values the device tables hold, for a kernel's argument
+    struct."""
+    return np.concatenate([np.asarray(t, dtype=params.np_dtype).astype(
+        np.float64).ravel() for t in tables])
+
+
 def _host64(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", torch.float64).numpy()
 
@@ -44,6 +52,9 @@ class HorDiffusion(NamedTuple):
     dmps: torch.Tensor   # (mx, nx) del^2 stratospheric damping
     tcorv: torch.Tensor  # (kx,) vertical orographic T-correction profile
     qcorv: torch.Tensor  # (kx,) vertical orographic q-correction profile
+    # tcorv and qcorv once more on the host, float64 holding the model-dtype
+    # values: the spectral-update kernel takes them in its argument struct.
+    levels_host: np.ndarray  # (2*kx,)
 
 
 def build_hordif(params: ModelParams, geom: Geometry,
@@ -71,7 +82,8 @@ def build_hordif(params: ModelParams, geom: Geometry,
 
     a = _to_device(params, device)
     return HorDiffusion(dmp=a(hdiff * elapn), dmpd=a(hdifd * elapn),
-                        dmps=a(hdifs * elap), tcorv=a(tcorv), qcorv=a(qcorv))
+                        dmps=a(hdifs * elap), tcorv=a(tcorv), qcorv=a(qcorv),
+                        levels_host=_host_copy(params, tcorv, qcorv))
 
 
 class ImplicitTables(NamedTuple):
@@ -90,6 +102,13 @@ class ImplicitTables(NamedTuple):
     elz: torch.Tensor    # (mx, nx) l(l+1) * xi / a^2
     xj_mn: torch.Tensor  # (mx, nx, kx, kx) gathered inverse matrices; zero
                          # rows at l=0 so the correction vanishes there.
+    # xj_mn laid out (kx, kx, mx, nx): the spectral-update kernel reads the
+    # matrix of its (m, n) point with the n neighbours of a warp adjacent.
+    xj_klmn: torch.Tensor
+    # tref, tref2, dhsx, xd and xc (row by row) once more on the host,
+    # float64 holding the model-dtype values: the spectral-update kernel
+    # takes them in its argument struct.
+    levels_host: np.ndarray  # (3*kx + 2*kx*kx,)
 
 
 def _tref_profile(geom: Geometry) -> np.ndarray:
@@ -171,6 +190,8 @@ def build_implicit(params: ModelParams, geom: Geometry, hd: HorDiffusion,
         dmp1=a(dmp1), dmp1d=a(dmp1d), dmp1s=a(dmp1s),
         tref=a(tref), tref2=a(tref2), tref3=a(tref3), dhsx=a(dhsx),
         xc=a(xc), xd=a(xd), elz=a(elz), xj_mn=a(xj_mn),
+        xj_klmn=a(np.moveaxis(xj_mn, (2, 3), (0, 1))),
+        levels_host=_host_copy(params, tref, tref2, dhsx, xd, xc),
     )
 
 

@@ -5,8 +5,13 @@ spectral flux combination (tendencies.f90:244-268), linear reference-profile
 tendencies (:283-352), the semi-implicit correction (implicit.f90:234-289),
 horizontal diffusion + stratospheric drag (time_stepping.f90:78-122) and the
 Robert-Williams leapfrog (:124-188). It is pointwise/shift/level-contraction
-algebra on (B, 2, kx, mx, nx) real-pair tensors, left to PyTorch's own
-elementwise operators.
+algebra on (B, 2, kx, mx, nx) real-pair tensors.
+
+On the card it is one launch of the hand-written kernel
+``csrc/spectral_update.cu`` (``ops/glue_kernels.py``), for all members, every
+step (the two bootstrap steps of the initialization included). CPU tensors
+take :func:`spectral_update_plain`, the same algebra in PyTorch's own
+operators, which is also the kernel's yardstick of correctness on the card.
 """
 
 from __future__ import annotations
@@ -14,11 +19,13 @@ from __future__ import annotations
 import torch
 
 from .. import constants as pc
+from ..ops import glue_kernels as GK
 from .implicit import implicit_terms
 from .tendencies import combine_specs, spectral_linear_tendencies
 from .timestep import hordif, leapfrog_pair, sdrag_mask
 
-__all__ = ["spectral_update", "apply_spectral_update"]
+__all__ = ["spectral_update", "spectral_update_plain", "update_inputs",
+           "apply_spectral_update"]
 
 
 def spectral_update(consts, j1: int, dt: float, eps: float, specs, psdt,
@@ -27,7 +34,20 @@ def spectral_update(consts, j1: int, dt: float, eps: float, specs, psdt,
     """specs: direct-transform outputs (list); state pairs at both time
     levels with tracers FLAT (B, 2, ntr*kx, mx, nx); tcorh/qcorh
     (B, 2, mx, nx). Returns the ten new state tensors
-    (ps, vor, div, t, trf) x (lev1, lev2)."""
+    (ps, vor, div, t, trf) x (lev1, lev2). CUDA tensors launch the kernel
+    (or the call raises), CPU tensors take spectral_update_plain."""
+    return GK.spectral_update(spectral_update_plain, consts, j1, dt, eps,
+                              specs, psdt, vor0, vor1, div0, div1, t0, t1,
+                              ps0, ps1, trf0, trf1, phi, tcorh, qcorh)
+
+
+def spectral_update_plain(consts, j1: int, dt: float, eps: float, specs,
+                          psdt, vor0, vor1, div0, div1, t0, t1, ps0, ps1,
+                          trf0, trf1, phi, tcorh, qcorh):
+    """The plain PyTorch version of the spectral-update kernel: same
+    arguments and results as spectral_update. Counts its calls in
+    ops.glue_kernels.plain_calls."""
+    GK.plain_calls["spectral_update"] += 1
     params = consts.params
     sp = consts.sp
     im = consts.implicit
@@ -82,23 +102,30 @@ def spectral_update(consts, j1: int, dt: float, eps: float, specs, psdt,
     return (ps0n, ps1n, vor0n, vor1n, div0n, div1n, t0n, t1n, trf0n, trf1n)
 
 
+def update_inputs(state, psdt) -> tuple:
+    """The state arguments of spectral_update after `specs`, from the
+    member-batched state dict: psdt, the prognostic pairs at both time levels
+    (tracers flattened to (B, 2, ntr*kx, mx, nx), a view), phi, tcorh and
+    qcorh."""
+    tr0, tr1 = state["tr"]
+    flat = lambda a: a.flatten(2, 3)
+    return (psdt,
+            state["vor"][0], state["vor"][1],
+            state["div"][0], state["div"][1],
+            state["t"][0], state["t"][1],
+            state["ps"][0], state["ps"][1],
+            flat(tr0), flat(tr1),
+            state["phi"], state["tcorh"], state["qcorh"])
+
+
 def apply_spectral_update(consts, state, specs, psdt, j1: int, dt: float):
     """Run spectral_update over the member-batched state dict."""
     params = consts.params
     eps = 0.0 if j1 == 1 else params.rob
     ntr, kx = params.ntr, params.kx
 
-    tr0, tr1 = state["tr"]
-    flat = lambda a: a.flatten(2, 3)
-    arrays = (psdt,
-              state["vor"][0], state["vor"][1],
-              state["div"][0], state["div"][1],
-              state["t"][0], state["t"][1],
-              state["ps"][0], state["ps"][1],
-              flat(tr0), flat(tr1),
-              state["phi"], state["tcorh"], state["qcorh"])
-
-    outs = spectral_update(consts, j1, dt, eps, list(specs), *arrays)
+    outs = spectral_update(consts, j1, dt, eps, list(specs),
+                           *update_inputs(state, psdt))
 
     (ps0, ps1, vor0, vor1, div0, div1, t0, t1, trf0, trf1) = outs
     unflat = lambda a: a.unflatten(2, (ntr, kx))

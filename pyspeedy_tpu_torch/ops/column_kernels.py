@@ -17,8 +17,10 @@ one exactly where it launches its kernel. The physics kernel counts its two
 variants apart (``grid_physics_sw``: a shortwave step, ``grid_physics_nosw``),
 and every kernel counts the launches of its bfloat16 instantiation apart
 (``*_bf16``: the ``bf16_tendencies`` configuration). The fused spectral
-transforms (``csrc/fused_transform.cu``) are in the table too; their wrappers
-live in ``ops/transform_kernels.py``.
+transforms (``csrc/fused_transform.cu``), the spectral update
+(``csrc/spectral_update.cu``) and the DFT chain (``csrc/dft_chain.cu``) are in
+the table too; their wrappers live in ``ops/transform_kernels.py``,
+``ops/glue_kernels.py`` and ``ops/dft_chain.py``.
 """
 
 from __future__ import annotations
@@ -89,6 +91,21 @@ KERNELS = {
         argtypes=(_I, _I, _L, _I, _I, _I, _I, _I, _P, _P, _P),
         counters=("fused_grid2spec", "fused_grid2spec_bf16",
                   "fused_spec2grid", "fused_probe")),
+    # -fmad=false as for the physics: the plain version's separate passes
+    # cannot contract a*b+c, and the leapfrog filter is a small difference of
+    # large values. Wrapper: ops/glue_kernels.py.
+    "spectral_update": KernelSpec(
+        source=_CSRC / "spectral_update.cu",
+        symbol="pyspeedy_spectral_update",
+        argtypes=(_I, _I, _I, _L, _I, _I, _P, _P, _P, _P, _P, _I, _I, _D, _D,
+                  _D, _D, _D, _P),
+        extra_flags=("-fmad=false",),
+        counters=("spectral_update",)),
+    # Wrapper: ops/dft_chain.py.
+    "dft_chain": KernelSpec(
+        source=_CSRC / "dft_chain.cu", symbol="pyspeedy_dft_chain",
+        argtypes=(_I, _L, _I, _I, _I, _I, _I, _P, _P),
+        counters=("dft_chain",)),
 }
 KERNEL_SOURCES = {name: spec.source for name, spec in KERNELS.items()}
 

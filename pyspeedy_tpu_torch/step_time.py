@@ -1,0 +1,72 @@
+"""Wall time per step of the full-physics T30L8 float32 model on one GPU.
+
+Run from the root of a checkout, on a machine with a CUDA device:
+
+    python3 -m pyspeedy_tpu_torch.step_time
+
+It builds the kernels, initializes the demo model (synthetic boundary
+conditions), runs one warm-up day at B=128 members, then three windows of
+`N_STEPS` steps, and the same at B=1; each window ends in
+``torch.cuda.synchronize()``. It prints one JSON line: the card's name and
+power limit, where the package was imported from, and the milliseconds per
+step of every window. To compare two checkouts, copy this file into the
+other checkout's package and run both on one card in turns (parent, change,
+change, parent): the host's time per step spreads by tens of percent from
+call to call.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+N_STEPS = 36
+WIDTHS = (128, 1)
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        sys.exit("step_time needs a CUDA device")
+    from .models import model as M
+    from .ops import column_kernels as ck
+    from .parallel.ensemble import broadcast_state, make_run_steps_batched
+    from .params import T30L8
+    from .testing import make_demo_model
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    ck.build_kernels()
+    consts, state1, cal = make_demo_model(T30L8, device="cuda",
+                                          precision="f32", fft_mode="matmul")
+    run = make_run_steps_batched(consts, device="cuda")
+
+    def window(state, cal, first):
+        ctx, cal = M.build_step_ctx(dataclasses.replace(cal), first, N_STEPS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = run(state, ctx)
+        torch.cuda.synchronize()
+        return state, cal, 1e3 * (time.perf_counter() - t0) / N_STEPS
+
+    result = {"card": card,
+              "package": str(Path(__file__).resolve().parent)}
+    for width in WIDTHS:
+        state, c, _ = window(broadcast_state(state1, width), cal, 2)
+        times = []
+        for n in range(3):
+            state, c, ms = window(state, c, 2 + (n + 1) * N_STEPS)
+            times.append(ms)
+        result[f"ms_per_step_B{width}"] = times
+    print(json.dumps(result))
+
+
+if __name__ == "__main__":
+    main()

@@ -383,7 +383,7 @@ def test_cpu_dispatch_never_touches_the_build(monkeypatch):
         "grid_dynamics", "grid_dynamics_bf16", "grid_physics_sw",
         "grid_physics_nosw", "grid_physics_sw_bf16", "grid_physics_nosw_bf16",
         "fused_grid2spec", "fused_grid2spec_bf16", "fused_spec2grid",
-        "fused_probe"}
+        "fused_probe", "spectral_update", "dft_chain"}
 
 
 def _bad_inputs():
@@ -516,7 +516,8 @@ def test_kernel_source_and_build_command():
     assert cmd[cmd.index("-o") + 1] == "out.so"
     assert "-fmad=false" not in ck.build_command("grid_dynamics", "nvcc", "x")
     assert set(ck.KERNEL_SOURCES) == set(ck.KERNELS) == {
-        "grid_dynamics", "grid_physics", "fused_transform"}
+        "grid_dynamics", "grid_physics", "fused_transform", "spectral_update",
+        "dft_chain"}
     assert len(spec.argtypes) == 12
 
 
