@@ -9,15 +9,17 @@ It builds the CUDA kernels from ``pyspeedy_tpu_torch/csrc`` with nvcc, holds
 each kernel against its plain PyTorch version on the card at the shapes the
 model gives it (the two column kernels, their bfloat16-output instantiations,
 the fused spectral transforms in float32, float64 and the 2-byte operand
-mode, the four probe stages, the spectral update in float32 and float64 on
+mode, alone and in the step's groups of fields (each group bitwise equal to
+its fields launched one by one), the four probe stages, the spectral update in float32 and float64 on
 random inputs and on the model's own state, the DFT chain at the JAX tool's
 shapes), drives the port's paths through the public entry points (the
 member-batched dynamics-only T30L8 model at a reduced depth; the main path:
 the full-physics T30L8 model, initialization and one model day of 128
 members; the bf16_tendencies configuration at a reduced depth; the probe
 stages on the model's own fields; the DFT chain through its entry point),
-checks the results and the exact launch counts of every path (and that no
-plain version ran on the card), and prints what it measured. It needs a CUDA
+checks the results and the exact launch counts of every path (for the
+transforms, launches and fields apart), and that no plain version ran on the
+card, and prints what it measured. It needs a CUDA
 device and exits non-zero without one; there is no CPU fallback. Every phase
 that fails raises, so the run exits non-zero.
 
@@ -487,25 +489,27 @@ def state_physics_inputs(consts, state) -> dict:
 # The fused transform kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def transform_bound(sp, nrows: int, direct: bool, in_dtype):
-    """Least time the card could take for `nrows` field rows: the larger of
-    bytes over the memory rate (the grid rows, the spectral pairs and the two
-    tables, each once) and operations over the peak rate of the operand type
-    (a DFT of il x ix x 2mx and a block-structured Legendre stage of
-    2 x mx x nx x il multiply-adds per row)."""
+def transform_bound(sp, nrows: int, direct: bool, in_dtype, launches: int = 1):
+    """Least time the card could take for `nrows` field rows of one launch
+    (or `launches` launches): the bytes, the grid rows, the spectral pairs
+    and the two tables (once per launch) each moved once, over the memory
+    rate. Beside it the dense operation figure, the first version's
+    yardstick: a DFT of il x ix x 2mx and a block-structured Legendre stage
+    of 2 x mx x nx x il multiply-adds per row at the peak rate of the
+    operand type outside the tensor cores (bfloat16 in the tensor cores).
+    Returns (bytes ms, "bytes", bytes, dense operation ms, operations)."""
     il, ix, mx, nx = sp.il, sp.ix, sp.mx, sp.nx
     work = sp.rdtype.itemsize
     grid_b = il * ix * (in_dtype.itemsize if direct else work)
     spec_b = 2 * mx * nx * work
     table_b = (2 * ix * mx + il * mx * nx) * (
         in_dtype.itemsize if direct else work)
-    nbytes = nrows * (grid_b + spec_b) + table_b
+    nbytes = nrows * (grid_b + spec_b) + launches * table_b
     ops = nrows * 2 * (il * ix * 2 * mx + 2 * mx * nx * il)
     peak = (PEAK_FLOPS_BF16 if in_dtype == torch.bfloat16
             else PEAK_FLOPS[sp.rdtype])
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / peak
-    by = "bytes" if t_bytes >= t_ops else "operations"
-    return 1e3 * max(t_bytes, t_ops), by, nbytes, ops
+    return 1e3 * nbytes / PEAK_BYTES_PER_S, "bytes", nbytes, \
+        1e3 * ops / peak, ops
 
 
 def _rel(a, b) -> float:
@@ -523,12 +527,117 @@ def transform_inputs(sp, nmem: int, k: int, seed: int):
     return g.to("cuda", sp.rdtype), p.to("cuda", sp.rdtype)
 
 
+def step_groups(sp, params, nmem: int, seed: int, grid_dtype=None):
+    """The step's three transform groups, seeded, in the shapes and layouts
+    the call sites build them (models/tendencies.py, physics/driver.py with
+    grid_phi): the dynamics' 7 inverse stacks (a tracer stack flattened, the
+    stacked log-ps gradient), the physics' 5 (u, v with kcos 2, T, the
+    humidity block of the tracer stack, log ps) and the 7 + 3 ntr direct
+    fields (psdt, winds, fluxes, level slices of the tracer flux stacks).
+    Returns {name: (kind, fields, kcos)}."""
+    rng = np.random.default_rng(seed)
+    kx, ntr = params.kx, params.ntr
+    il, ix, mx, nx = sp.il, sp.ix, sp.mx, sp.nx
+    tri = torch.from_numpy((np.arange(mx)[:, None] + np.arange(nx)[None]
+                            <= mx).astype(float)).to("cuda", sp.rdtype)
+    spec = lambda *s: torch.from_numpy(rng.standard_normal(
+        (nmem, 2) + s + (mx, nx))).to("cuda", sp.rdtype) * tri
+    grid = lambda *s: torch.from_numpy(rng.standard_normal(
+        (nmem,) + s + (il, ix))).to("cuda", grid_dtype or sp.rdtype)
+    tr = spec(ntr, kx)
+    pxy = torch.stack([spec(), spec()], dim=2)
+    flux_qu, flux_qv, trtend = (grid(ntr * kx) for _ in range(3))
+    direct = [grid(), grid(kx), grid(kx), grid(kx), grid(kx)]
+    for i in range(ntr):
+        direct += [flux_qu[:, i * kx:(i + 1) * kx],
+                   flux_qv[:, i * kx:(i + 1) * kx]]
+    direct += [grid(kx), grid(kx)]
+    direct += [trtend[:, i * kx:(i + 1) * kx] for i in range(ntr)]
+    return {
+        "inverse, dynamics": ("inverse", [spec(kx), spec(kx), spec(kx),
+                                          tr.flatten(2, 3), spec(kx),
+                                          spec(kx), pxy], [1] * 7),
+        "inverse, physics": ("inverse", [spec(kx), spec(kx), spec(kx),
+                                         tr[:, :, 0], spec()],
+                             [2, 2, 1, 1, 1]),
+        "direct": ("direct", direct, None),
+    }
+
+
+def group_rows(fields, direct: bool) -> int:
+    return sum(x.numel() // (x.shape[-1] * x.shape[-2] * (1 if direct else 2))
+               for x in fields)
+
+
+def check_group(sp, kind, fields, kcos, limit):
+    """One group launched once against the plain chain field by field and
+    against its fields launched one by one (bitwise). Returns (worst rel
+    err, max abs err)."""
+    if kind == "direct":
+        many = tk.fused_grid2spec_many_cuda(sp, fields, 1)
+        alone = [tk.fused_grid2spec_cuda(sp, f, 1) for f in fields]
+        plain = [tk.grid2spec_plain(sp, f, 1) for f in fields]
+    else:
+        many = tk.fused_spec2grid_many_cuda(sp, fields, kcos, 1)
+        alone = [tk.fused_spec2grid_cuda(sp, f, k, 1)
+                 for f, k in zip(fields, kcos)]
+        plain = [tk.spec2grid_plain(sp, f, k, 1) for f, k in zip(fields, kcos)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(many, alone)):
+        raise RuntimeError(f"a {kind} group differs from its fields "
+                           f"launched one by one")
+    worst = max(_rel(a, b) for a, b in zip(many, plain))
+    if not worst <= limit:
+        raise RuntimeError(f"a {kind} group disagrees with the plain chain: "
+                           f"{worst:.3e} (limit {limit:g})")
+    return worst, max(float((a - b).abs().max()) for a, b in zip(many, plain))
+
+
+def time_group(sp, sp_fft, name, kind, fields, kcos, card, tag):
+    """Device time of one launch of a group, a wrapper call back to back,
+    the plain chain field by field (the cuBLAS yardstick) and the fft route
+    field by field, against the bytes bound."""
+    direct = kind == "direct"
+    if direct:
+        launch = lambda: tk.fused_grid2spec_many_cuda(sp, fields, 1)
+        plain = lambda: [tk.grid2spec_plain(sp, f, 1) for f in fields]
+        fft = lambda: [S.grid2spec_p(sp_fft, f.to(sp.rdtype), 1)
+                       for f in fields]
+        kern = "grid2spec_fold_kernel"
+    else:
+        launch = lambda: tk.fused_spec2grid_many_cuda(sp, fields, kcos, 1)
+        plain = lambda: [tk.spec2grid_plain(sp, f, k, 1)
+                         for f, k in zip(fields, kcos)]
+        fft = lambda: [S.spec2grid_p(sp_fft, f, k, 1)
+                       for f, k in zip(fields, kcos)]
+        kern = "spec2grid_fold_kernel"
+    rows = group_rows(fields, direct)
+    ms = kernel_device_ms(launch, kern, reps=10)
+    call_ms = time_ms(launch, reps=10)
+    plain_ms = time_ms(plain, reps=3, warmup=1, windows=3)
+    fft_ms = time_ms(fft, reps=3, warmup=1, windows=3)
+    bound_ms, _, nbytes, ops_ms, _ = transform_bound(
+        sp, rows, direct, fields[0].dtype)
+    print(f"  group {name} {tag}: {len(fields)} fields, {rows} rows, one "
+          f"launch: kernel {ms:.4f} ms on the card ({call_ms:.4f} ms per "
+          f"wrapper call, back to back), the plain cuBLAS chain field by "
+          f"field {plain_ms:.4f} ms, the fft route field by field "
+          f"{fft_ms:.4f} ms, bound {bound_ms:.4f} ms by bytes "
+          f"({nbytes / 1e6:.1f} MB) = {100 * bound_ms / ms:.0f}%; dense "
+          f"operation figure {ops_ms:.4f} ms [{card}]")
+    return {"fields": len(fields), "rows": rows, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "fft_route_ms": fft_ms,
+            "bound_ms": bound_ms}
+
+
 def check_transforms(params, limit: float, card: str):
     """Both fused transform kernels against their plain versions (the dense
-    matmul chain, which is also the library yardstick) at the shapes the
-    main path gives them, in the strided layouts the step passes, and timed
-    at one kx stack of 128 members; beside them the same transform through
-    the torch.fft route."""
+    matmul chain, which is also the library yardstick) at 1, 128, 256 and
+    1,024 rows, in the strided layouts the step passes and in the step's
+    three groups (each group bitwise equal to its fields launched one by
+    one); timed at one kx stack of 128 members (1,024 rows) and as the
+    step's groups at B=128; beside them the same transforms through the
+    torch.fft route."""
     consts, _ = M.build_consts(params, device="cuda", physics_on=False)
     sp = consts.sp
     il, ix, mx, nx = sp.il, sp.ix, sp.mx, sp.nx
@@ -561,6 +670,11 @@ def check_transforms(params, limit: float, card: str):
                        tk.spec2grid_plain(sp, shared, 2, 1)),
                   _rel(tk.fused_grid2spec_cuda(sp, flux, 1),
                        tk.grid2spec_plain(sp, flux, 1)))
+    # The step's three groups at B=128, each bitwise equal to its fields
+    # launched one by one.
+    groups = step_groups(sp, params, N_MEMBERS, seed=8)
+    group_err = {name: check_group(sp, kind, fields, kcos, limit)[0]
+                 for name, (kind, fields, kcos) in groups.items()}
     # Garbage in the imaginary part of m = 0 changes nothing in the inverse.
     g, p = transform_inputs(sp, 4, kx, seed=6)
     p = S.truncate(sp, p)
@@ -581,29 +695,33 @@ def check_transforms(params, limit: float, card: str):
     torch.cuda.synchronize()
     tag = f"T30L{kx} {prec}"
     print(f"kernel fused_grid2spec / fused_spec2grid {tag}: max rel err vs "
-          f"plain {worst_d:.3e} / {worst_i:.3e} over (B, k) = (128, {kx}), "
-          f"(128, 1), (1, 1), (128, 2), kcos 1 and 2; strided layouts "
-          f"{strided:.3e} (limit {limit:.0e}); m=0 imaginary garbage: "
-          f"bitwise no effect; round trip of a truncated field {trip:.3e} "
-          f"(limit 2e-2), vs the plain round trip {trip_plain:.3e}")
-    if not max(worst_d, worst_i, strided, trip_plain) <= limit:
+          f"plain {worst_d:.3e} / {worst_i:.3e} over 1,024, 128, 1 and 256 "
+          f"rows ((B, k) = (128, {kx}), (128, 1), (1, 1), (128, 2)), kcos 1 "
+          f"and 2; strided layouts {strided:.3e}; the step's groups "
+          + ", ".join(f"{n} {e:.3e}" for n, e in group_err.items())
+          + f", each bitwise equal to its fields launched one by one (limit "
+          f"{limit:.0e}); m=0 imaginary garbage: bitwise no effect; round "
+          f"trip of a truncated field {trip:.3e} (limit 2e-2), vs the plain "
+          f"round trip {trip_plain:.3e}")
+    if not max(worst_d, worst_i, strided, trip_plain,
+               *group_err.values()) <= limit:
         raise RuntimeError("a fused transform kernel disagrees with its "
                            "plain version")
     if not trip <= 2e-2:
         raise RuntimeError(f"round trip error {trip:.3e}")
 
-    # Times at one kx stack of 128 members (1,024 rows).
+    # Times at one kx stack of 128 members (1,024 rows), then of the groups.
     g, p = transform_inputs(sp, N_MEMBERS, kx, seed=7)
     nrows = N_MEMBERS * kx
     sp_fft = S.build_spectral(params, M.build_geometry(params),
                               use_matmul_fft=False, device="cuda")
     res = {}
     for name, kern, launch, plain, fft, worst, max_abs, direct in (
-            ("fused_grid2spec", "grid2spec_kernel",
+            ("fused_grid2spec", "grid2spec_fold_kernel",
              lambda: tk.fused_grid2spec_cuda(sp, g, 1),
              lambda: tk.grid2spec_plain(sp, g, 1),
              lambda: S.grid2spec_p(sp_fft, g, 1), worst_d, abs_d, True),
-            ("fused_spec2grid", "spec2grid_kernel",
+            ("fused_spec2grid", "spec2grid_fold_kernel",
              lambda: tk.fused_spec2grid_cuda(sp, p, 1, 1),
              lambda: tk.spec2grid_plain(sp, p, 1, 1),
              lambda: S.spec2grid_p(sp_fft, p, 1, 1), worst_i, abs_i, False)):
@@ -611,20 +729,27 @@ def check_transforms(params, limit: float, card: str):
         call_ms = time_ms(launch, reps=20)
         plain_ms = time_ms(plain, reps=10, warmup=2, windows=3)
         fft_ms = time_ms(fft, reps=10, warmup=2, windows=3)
-        bound_ms, bound_by, nbytes, ops = transform_bound(
+        bound_ms, bound_by, nbytes, ops_ms, ops = transform_bound(
             sp, nrows, direct, sp.rdtype)
         print(f"  {name} {tag} {nrows} rows: the same transform through the "
               f"fft route (torch.fft + Legendre einsum) {fft_ms:.4f} ms")
         print(f"  {name} {tag} {nrows} rows: kernel {ms:.4f} ms on the card "
               f"({call_ms:.4f} ms per wrapper call, back to back), plain = "
               f"library (dense cuBLAS chain) {plain_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, "
-              f"{ops / 1e9:.2f} GFLOP at {PEAK_FLOPS[sp.rdtype] / 1e12:.0f} "
-              f"TFLOP/s) = {100 * bound_ms / ms:.0f}% [{card}]")
+              f"{bound_ms:.4f} ms by bytes ({nbytes / 1e6:.1f} MB) = "
+              f"{100 * bound_ms / ms:.0f}%; the first version's yardstick, "
+              f"the dense operation figure: {ops_ms:.4f} ms ({ops / 1e9:.2f} "
+              f"GFLOP at {PEAK_FLOPS[sp.rdtype] / 1e12:.0f} TFLOP/s) = "
+              f"{100 * ops_ms / ms:.0f}% [{card}]")
         res[name] = {"max_rel_err": worst, "max_abs_err": max_abs, "ms": ms,
                      "call_ms": call_ms, "plain_ms": plain_ms,
                      "library_ms": plain_ms, "fft_route_ms": fft_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by}
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "groups": {}}
+    for name, (kind, fields, kcos) in groups.items():
+        key = "fused_grid2spec" if kind == "direct" else "fused_spec2grid"
+        res[key]["groups"][name] = time_group(sp, sp_fft, name, kind, fields,
+                                              kcos, card, tag)
     return res
 
 
@@ -649,30 +774,43 @@ def check_bf16_operands(params, card: str):
         if got.dtype != torch.float32:
             raise RuntimeError("2-byte operand mode must return float32")
     vs_f32 = _rel(got, tk.grid2spec_plain(sp, g.float(), 1))
+    limit = 2.0 ** -8
+    # The step's direct group with bfloat16 operands, as the
+    # bf16_tendencies step builds it.
+    kind, fields, _ = step_groups(sp, params, N_MEMBERS, seed=22,
+                                  grid_dtype=torch.bfloat16)["direct"]
+    group_err = check_group(sp, kind, fields, None, limit)[0]
+    worst = max(worst, group_err)
     g, _ = transform_inputs(sp, N_MEMBERS, kx, seed=21)
     g = g.to(torch.bfloat16)
     launch = lambda: tk.fused_grid2spec_cuda(sp, g, 1)
-    ms = kernel_device_ms(launch, "grid2spec_kernel")
+    ms = kernel_device_ms(launch, "grid2spec_fold_kernel")
     call_ms = time_ms(launch, reps=20)
     plain_ms = time_ms(lambda: tk.grid2spec_plain(sp, g, 1), reps=10,
                        warmup=2, windows=3)
-    bound_ms, bound_by, nbytes, _ = transform_bound(
+    bound_ms, bound_by, nbytes, ops_ms, _ = transform_bound(
         sp, N_MEMBERS * kx, True, torch.bfloat16)
-    limit = 2.0 ** -8
     print(f"kernel fused_grid2spec, 2-byte operands (bfloat16 grid and "
           f"tables, float32 sums and result): max rel err vs its plain chain "
-          f"{worst:.3e} (limit 2^-8 = {limit:.3e}), rms {rms:.3e}; against "
-          f"the float32 transform of the same rounded grid {vs_f32:.3e}; "
-          f"kernel {ms:.4f} ms on the card ({call_ms:.4f} ms per call), "
-          f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-          f"({nbytes / 1e6:.1f} MB) [{card}]")
+          f"{worst:.3e} (limit 2^-8 = {limit:.3e}; the step's direct group "
+          f"{group_err:.3e}, bitwise equal to its fields launched one by "
+          f"one), rms {rms:.3e}; against the float32 transform of the same "
+          f"rounded grid {vs_f32:.3e}; {N_MEMBERS * kx} rows: kernel "
+          f"{ms:.4f} ms on the card ({call_ms:.4f} ms per call), plain "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by bytes "
+          f"({nbytes / 1e6:.1f} MB) = {100 * bound_ms / ms:.0f}%; dense "
+          f"operation figure {ops_ms:.5f} ms [{card}]")
     if not worst <= limit:
         raise RuntimeError("the 2-byte operand kernel disagrees with its "
                            "plain chain")
+    sp_fft = S.build_spectral(params, M.build_geometry(params),
+                              use_matmul_fft=False, device="cuda")
+    group = time_group(sp, sp_fft, "direct", kind, fields, None, card,
+                       f"T30L{kx} 2-byte operands")
     return {"max_rel_err_bf16": worst, "max_abs_err_bf16": max_abs,
             "rms_rel_err_bf16": rms, "ms_bf16": ms, "call_ms_bf16": call_ms,
             "plain_ms_bf16": plain_ms, "bound_ms_bf16": bound_ms,
-            "bound_by_bf16": bound_by}
+            "bound_by_bf16": bound_by, "group_bf16": group}
 
 
 def check_probes(params, limit: float, card: str):
@@ -701,7 +839,7 @@ def check_probes(params, limit: float, card: str):
         got = tk.fused_probe_cuda(sp, stage, g)
         want = tk.probe_plain(sp, stage, g)
         err = _rel(got, want)
-        kern = "split_probe_kernel" if stage == 3 else "grid2spec_kernel"
+        kern = "split_probe_kernel" if stage == 3 else "probe_stage_kernel"
         launch = lambda: tk.fused_probe_cuda(sp, stage, g)
         ms = kernel_device_ms(launch, kern)
         call_ms = time_ms(launch, reps=20)
@@ -987,6 +1125,52 @@ def check_spectral_update_on_state(consts, state, limit: float):
     return worst
 
 
+def check_call_site_groups(consts, state, limit: float):
+    """The transform groups the step's call sites build (the dynamics' and
+    the physics' inverse groups, the direct group) on the model's own state
+    after a day, captured during one step evaluation: each launched once
+    against the plain chain field by field and against its fields launched
+    one by one (bitwise)."""
+    captured = []
+    direct_many, inverse_many = tk.fused_grid2spec_many, tk.fused_spec2grid_many
+
+    def record_direct(sp, grids, pdim=0):
+        grids = list(grids)
+        captured.append(("direct", grids, None, pdim))
+        return direct_many(sp, grids, pdim)
+
+    def record_inverse(sp, pairs, kcos=1, pdim=0):
+        pairs = list(pairs)
+        kcos = tk.kcos_list(kcos, len(pairs))
+        captured.append(("inverse", pairs, kcos, pdim))
+        return inverse_many(sp, pairs, kcos, pdim)
+
+    tk.fused_grid2spec_many, tk.fused_spec2grid_many = (record_direct,
+                                                        record_inverse)
+    try:
+        grid_tendency_specs(consts, state, 1, PD.get_physical_tendencies,
+                            {"compute_shortwave": True,
+                             "stepno": 2 + N_STEPS})
+    finally:
+        tk.fused_grid2spec_many, tk.fused_spec2grid_many = (direct_many,
+                                                            inverse_many)
+    sizes = [(kind, len(fields), pdim) for kind, fields, _, pdim in captured]
+    want = [("inverse", 7, 1), ("inverse", 5, 1),
+            ("direct", 7 + 3 * consts.params.ntr, 1)]
+    if sizes != want:
+        raise RuntimeError(f"the step's transform groups are {sizes}, "
+                           f"expected {want}")
+    errs = [check_group(consts.sp, kind, fields, kcos, limit)[0]
+            for kind, fields, kcos, _ in captured]
+    print(f"the step's transform groups as its call sites build them, on the "
+          f"model's state after a day (T30L8 f32 B={N_MEMBERS}): "
+          + ", ".join(f"{kind} of {len(f)} fields {e:.3e}"
+                      for (kind, f, _, _), e in zip(captured, errs))
+          + f" max rel err vs the plain chain (limit {limit:.0e}), each "
+          f"bitwise equal to its fields launched one by one")
+    return max(errs)
+
+
 # ---------------------------------------------------------------------------
 # The DFT chain against its plain version
 # ---------------------------------------------------------------------------
@@ -1041,24 +1225,41 @@ def check_dft_chain(dtype, limit: float, card: str):
             "bound_by": bound_by}
 
 
-def expected_transform_launches(consts, n_evals: int, n_forcings: int,
-                                with_init: bool):
-    """(direct, inverse) transform launches of a path, from the step's
-    structure: a step evaluation transforms 7 stacks to the grid for the
-    dynamics (vor, div, T, tracers, u, v, the log-ps gradient) and, with the
-    physics, 5 more (u, v, T, q, ps; 6 without grid_phi: the phi stack), and
-    7 + 3*ntr back (psdt, two wind and two temperature-flux fields, two
-    fluxes and one tendency per tracer, kinetic energy, T); the daily forcing
-    2 direct; the initialization itself 4 direct and 2 inverse (the filtered
-    orography, its spectral form and synthesis, surface pressure and
-    humidity of the rest state)."""
+def expected_transforms(consts, n_evals: int, n_forcings: int,
+                        with_init: bool):
+    """((direct launches, direct fields), (inverse launches, inverse
+    fields)) of a path, from the step's structure. A step evaluation
+    transforms 7 stacks to the grid for the dynamics (vor, div, T, tracers,
+    u, v, the log-ps gradient) in one launch and, with the physics, 5 more
+    (u, v, T, q, ps; 6 without grid_phi: the phi stack) in a second one, and
+    7 + 3*ntr fields back (psdt, two wind and two temperature-flux fields,
+    two fluxes and one tendency per tracer, kinetic energy, T) in one launch
+    per MAX_SEGMENTS fields; the daily forcing 2 direct fields, one launch
+    each; the initialization itself 4 direct and 2 inverse, one launch each
+    (the filtered orography, its spectral form and synthesis, surface
+    pressure and humidity of the rest state). The fields are the arithmetic
+    of the transforms; the launches follow the grouping."""
     ntr = consts.params.ntr
-    inv = 7 + ((5 if consts.grid_phi else 6) if consts.physics_on else 0)
-    direct = n_evals * (7 + 3 * ntr) + 2 * n_forcings
-    inverse = n_evals * inv
+    inv_fields = 7 + ((5 if consts.grid_phi else 6) if consts.physics_on
+                      else 0)
+    inv_launches = 2 if consts.physics_on else 1
+    dir_fields = 7 + 3 * ntr
+    dir_launches = -(-dir_fields // tk.MAX_SEGMENTS)
+    direct = [n_evals * dir_launches + 2 * n_forcings,
+              n_evals * dir_fields + 2 * n_forcings]
+    inverse = [n_evals * inv_launches, n_evals * inv_fields]
     if with_init:
-        direct, inverse = direct + 4, inverse + 2
-    return direct, inverse
+        direct = [direct[0] + 4, direct[1] + 4]
+        inverse = [inverse[0] + 2, inverse[1] + 2]
+    return tuple(direct), tuple(inverse)
+
+
+def reset_counts():
+    """Every launch, field and plain-call count to 0, just before a path."""
+    ck.reset_launch_counts()
+    tk.reset_field_counts()
+    tk.reset_plain_chain_calls()
+    GK.reset_plain_calls()
 
 
 def build_report() -> list:
@@ -1066,7 +1267,8 @@ def build_report() -> list:
     nvcc -Xptxas -v printed when the libraries were built."""
     import re
     bases = ("grid_dynamics_kernel", "grid_physics_kernel",
-             "grid2spec_kernel", "spec2grid_kernel", "split_probe_kernel",
+             "grid2spec_fold_kernel", "spec2grid_fold_kernel",
+             "probe_stage_kernel", "split_probe_kernel",
              "spectral_update_kernel", "dft_chain_kernel")
     words = {"f": "float", "d": "double", "13__nv_bfloat16": "bfloat16"}
     rows = []
@@ -1149,8 +1351,8 @@ def device_time_per_step(run, state, cal, first_step: int, n_steps: int):
         e.self_device_time_total for e in events
         if any(k in e.key.lower() for k in keys)) * 1e-3 / n_steps
     groups = {"matrix products": share("gemm", "cutlass", "xmma"),
-              "fused transform kernels": share("grid2spec_kernel",
-                                               "spec2grid_kernel"),
+              "fused transform kernels": share("grid2spec_fold_kernel",
+                                               "spec2grid_fold_kernel"),
               "grid_physics kernel": share("grid_physics_kernel"),
               "grid_dynamics kernel": share("grid_dynamics_kernel"),
               "spectral_update kernel": share("spectral_update_kernel")}
@@ -1267,9 +1469,7 @@ def main() -> None:
 
     # 5. the dynamics-only path, at a reduced depth: initialization (two
     # bootstrap steps at B=1), then 12 steps of 128 members.
-    ck.reset_launch_counts()
-    tk.reset_plain_chain_calls()
-    GK.reset_plain_calls()
+    reset_counts()
     consts_d, state_d, cal_d = make_demo_model(
         T30L8, device="cuda", physics_on=False, precision="f32",
         fft_mode="matmul")
@@ -1277,25 +1477,34 @@ def main() -> None:
     out_d, _, _ = run_window(run_d, broadcast_state(state_d, N_MEMBERS),
                              cal_d, 2, N_STEPS_DYN)
     launches_dyn = dict(ck.launch_counts)
+    fields_dyn = dict(tk.field_counts)
     check_state(out_d, N_MEMBERS, "dynamics-only path")
-    direct, inverse = expected_transform_launches(
+    direct, inverse = expected_transforms(
         consts_d, N_STEPS_DYN + 2, 1, with_init=True)
     expected_dyn = dict.fromkeys(ck.launch_counts, 0)
-    expected_dyn.update(grid_dynamics=N_STEPS_DYN + 2, fused_grid2spec=direct,
-                        fused_spec2grid=inverse,
+    expected_dyn.update(grid_dynamics=N_STEPS_DYN + 2,
+                        fused_grid2spec=direct[0],
+                        fused_spec2grid=inverse[0],
                         spectral_update=N_STEPS_DYN + 2)
-    if (launches_dyn != expected_dyn or any(tk.plain_chain_calls.values())
+    expected_fields_dyn = {"fused_grid2spec": direct[1],
+                           "fused_grid2spec_bf16": 0,
+                           "fused_spec2grid": inverse[1]}
+    if (launches_dyn != expected_dyn or fields_dyn != expected_fields_dyn
+            or any(tk.plain_chain_calls.values())
             or any(GK.plain_calls.values())):
         raise RuntimeError(
             f"dynamics-only path: launches {launches_dyn}, expected "
-            f"{expected_dyn}; plain chain calls {tk.plain_chain_calls}, "
-            f"plain spectral update {GK.plain_calls}")
+            f"{expected_dyn}; transform fields {fields_dyn}, expected "
+            f"{expected_fields_dyn}; plain chain calls "
+            f"{tk.plain_chain_calls}, plain spectral update "
+            f"{GK.plain_calls}")
     print(f"dynamics-only path: T30L8 f32, {N_MEMBERS} members x "
           f"{N_STEPS_DYN} steps + initialization, finite, error_flag false, "
           f"grid_dynamics launches {launches_dyn['grid_dynamics']} (= steps "
           f"+ 2), spectral_update {launches_dyn['spectral_update']}, "
-          f"fused_grid2spec {direct}, fused_spec2grid {inverse}, none "
-          f"of the physics, of the plain chain or of the plain spectral "
+          f"fused_grid2spec {direct[0]} launches of {direct[1]} fields, "
+          f"fused_spec2grid {inverse[0]} launches of {inverse[1]} fields, "
+          f"none of the physics, of the plain chain or of the plain spectral "
           f"update; unperturbed members differ "
           f"from member 0 by {member_spread(out_d):.1e}")
     del out_d
@@ -1304,30 +1513,36 @@ def main() -> None:
     # the default on the card). Initialization runs both bootstrap steps
     # with shortwave at B=1; then one model day of 128 members from step 2,
     # shortwave on steps 3, 6, ..., 36, the daily forcing at step 36.
-    ck.reset_launch_counts()
-    tk.reset_plain_chain_calls()
-    GK.reset_plain_calls()
+    reset_counts()
     consts, state1, cal = make_demo_model(T30L8, device="cuda",
                                           precision="f32", fft_mode="matmul")
     run = make_run_steps_batched(consts, device="cuda")
     state, cal_day, secs_first = run_window(
         run, broadcast_state(state1, N_MEMBERS), cal, 2, N_STEPS)
     launches = dict(ck.launch_counts)
+    fields_main = dict(tk.field_counts)
     plain_calls = dict(tk.plain_chain_calls, **GK.plain_calls)
     check_state(state, N_MEMBERS, "main path")
     steps = range(2, 2 + N_STEPS)
     n_sw = 2 + sum(1 for s in steps if s % 3 == 0)
     n_forcings = 1 + sum(1 for s in steps if s % T30L8.nsteps == 0)
-    direct, inverse = expected_transform_launches(
+    direct, inverse = expected_transforms(
         consts, N_STEPS + 2, n_forcings, with_init=True)
     expected = dict.fromkeys(ck.launch_counts, 0)
     expected.update(grid_dynamics=N_STEPS + 2, grid_physics_sw=n_sw,
                     grid_physics_nosw=N_STEPS + 2 - n_sw,
-                    fused_grid2spec=direct, fused_spec2grid=inverse,
+                    fused_grid2spec=direct[0], fused_spec2grid=inverse[0],
                     spectral_update=N_STEPS + 2)
-    if launches != expected or any(plain_calls.values()):
+    expected_fields = {"fused_grid2spec": direct[1],
+                       "fused_grid2spec_bf16": 0,
+                       "fused_spec2grid": inverse[1]}
+    if (launches != expected or fields_main != expected_fields
+            or any(plain_calls.values())):
         raise RuntimeError(f"main path launched {launches}, expected "
-                           f"{expected}; plain chain calls {plain_calls}")
+                           f"{expected}; transform fields {fields_main}, "
+                           f"expected "
+                           f"{expected_fields}; plain chain calls "
+                           f"{plain_calls}")
     if not (consts.physics_on and consts.grid_phi):
         raise RuntimeError("the card's defaults are physics and grid_phi on")
     spread = member_spread(state)
@@ -1342,10 +1557,12 @@ def main() -> None:
           f"{N_STEPS} steps + initialization, finite, error_flag false, "
           f"launches {launches} (grid_dynamics = spectral_update = steps + "
           f"2; physics 14 with "
-          f"shortwave + 24 without; fused_spec2grid = 38 evaluations x 12 + "
-          f"2 of the initialization; fused_grid2spec = 38 x 10 + 4 + 2 for "
-          f"each of {n_forcings} forcings), plain chain and plain spectral "
-          f"update calls {plain_calls}; "
+          f"shortwave + 24 without; fused_spec2grid = 38 evaluations x 2 "
+          f"groups + 2 of the initialization, of {inverse[1]} fields = 38 x "
+          f"(7 + 5) + 2; fused_grid2spec = 38 x 1 group + 4 + 2 for each of "
+          f"{n_forcings} forcings, of {direct[1]} fields = 38 x 10 + 4 + "
+          f"{2 * n_forcings}), transform fields {fields_main}, plain chain and "
+          f"plain spectral update calls {plain_calls}; "
           f"unperturbed members differ from member 0 by {spread:.1e}; first "
           f"window {secs_first:.3f} s")
 
@@ -1354,8 +1571,10 @@ def main() -> None:
     # pattern).
     check_physics(f32, N_MEMBERS, 1e-5, card, ("grid_phi", "sppt"),
                   inputs=state_physics_inputs(consts, state))
-    # The spectral-update kernel on the model's own state after that day.
+    # The spectral-update kernel on the model's own state after that day,
+    # and the step's transform groups as its call sites build them there.
     glue_state = check_spectral_update_on_state(consts, state, 1e-5)
+    sites_err = check_call_site_groups(consts, state, 1e-5)
 
     # Member independence through the kernels and the coupler: one member's
     # initial temperature perturbed, only that member may differ.
@@ -1412,9 +1631,7 @@ def main() -> None:
     # 6b. the bf16_tendencies configuration at a reduced depth: the
     # initialization strips the flag (float32 instantiations, two bootstrap
     # steps), the runner keeps it (bfloat16 instantiations on every step).
-    ck.reset_launch_counts()
-    tk.reset_plain_chain_calls()
-    GK.reset_plain_calls()
+    reset_counts()
     consts_b, state_b1, cal_b = make_demo_model(
         T30L8, device="cuda", precision="f32", fft_mode="matmul",
         bf16_tendencies=True)
@@ -1422,26 +1639,33 @@ def main() -> None:
     out_b, cal_b2, _ = run_window(run_b, broadcast_state(state_b1, N_MEMBERS),
                                   cal_b, 2, N_STEPS_BF16)
     launches_b = dict(ck.launch_counts)
+    fields_b = dict(tk.field_counts)
     plain_b = dict(tk.plain_chain_calls, **GK.plain_calls)
     check_state(out_b, N_MEMBERS, "bf16_tendencies path")
     steps_b = range(2, 2 + N_STEPS_BF16)
     n_sw_b = sum(1 for s in steps_b if s % 3 == 0)
     n_forc_b = sum(1 for s in steps_b if s % T30L8.nsteps == 0)
-    init_d, init_i = expected_transform_launches(consts_b, 2, 1, True)
-    run_d2, run_i = expected_transform_launches(consts_b, N_STEPS_BF16,
-                                                n_forc_b, False)
+    init_d, init_i = expected_transforms(consts_b, 2, 1, True)
+    run_d2, run_i = expected_transforms(consts_b, N_STEPS_BF16, n_forc_b,
+                                        False)
     expected_b = dict.fromkeys(ck.launch_counts, 0)
     expected_b.update(
         grid_dynamics=2, grid_physics_sw=2,
         grid_dynamics_bf16=N_STEPS_BF16, grid_physics_sw_bf16=n_sw_b,
         grid_physics_nosw_bf16=N_STEPS_BF16 - n_sw_b,
-        fused_grid2spec=init_d + 2 * n_forc_b,
-        fused_grid2spec_bf16=run_d2 - 2 * n_forc_b,
-        fused_spec2grid=init_i + run_i,
+        fused_grid2spec=init_d[0] + 2 * n_forc_b,
+        fused_grid2spec_bf16=run_d2[0] - 2 * n_forc_b,
+        fused_spec2grid=init_i[0] + run_i[0],
         spectral_update=N_STEPS_BF16 + 2)
-    if launches_b != expected_b or any(plain_b.values()):
+    expected_fields_b = {"fused_grid2spec": init_d[1] + 2 * n_forc_b,
+                         "fused_grid2spec_bf16": run_d2[1] - 2 * n_forc_b,
+                         "fused_spec2grid": init_i[1] + run_i[1]}
+    if (launches_b != expected_b or fields_b != expected_fields_b
+            or any(plain_b.values())):
         raise RuntimeError(f"bf16_tendencies path launched {launches_b}, "
-                           f"expected {expected_b}; plain chain {plain_b}")
+                           f"expected {expected_b}; transform fields "
+                           f"{fields_b}, expected {expected_fields_b}; plain "
+                           f"chain {plain_b}")
     if not consts_b.bf16_tendencies:
         raise RuntimeError("make_demo_model dropped bf16_tendencies")
     for name in PROGNOSTICS:
@@ -1482,7 +1706,8 @@ def main() -> None:
           f"launches {launches_b} (the bfloat16 instantiations on the "
           f"{N_STEPS_BF16} steps, the float32 ones on the two bootstrap "
           f"steps; the spectral update, float32 on every step, "
-          f"{launches_b['spectral_update']}), plain chain and plain spectral "
+          f"{launches_b['spectral_update']}), transform fields {fields_b}, "
+          f"plain chain and plain spectral "
           f"update calls {plain_b}; same initial state bitwise; "
           f"prognostics vs the float32 run after {N_STEPS_BF16} steps, rel. "
           f"to each field's largest value: "
@@ -1563,17 +1788,20 @@ def main() -> None:
     out_c = make_run_steps_batched(consts_c, device="cpu")(
         broadcast_state(state_c, nmem64), ctx)
     GK.reset_plain_calls()
+    tk.reset_field_counts()
     out_g = make_run_steps_batched(consts_g, device="cuda")(
         broadcast_state(to_gpu(state_c), nmem64), ctx)
     torch.cuda.synchronize()
     check_state(out_g, nmem64, "f64 card run")
     launches64 = dict(ck.launch_counts)
-    d64, i64 = expected_transform_launches(consts_g, N_STEPS,
-                                           n_forcings - 1, False)
-    if (launches64["fused_grid2spec"], launches64["fused_spec2grid"]) != (
-            d64, i64) or not consts_c.sp.use_dense_legendre:
-        raise RuntimeError(f"f64 card run: transform launches {launches64}, "
-                           f"expected {d64} and {i64} on the dense route")
+    fields64 = dict(tk.field_counts)
+    d64, i64 = expected_transforms(consts_g, N_STEPS, n_forcings - 1, False)
+    got64 = ((launches64["fused_grid2spec"], fields64["fused_grid2spec"]),
+             (launches64["fused_spec2grid"], fields64["fused_spec2grid"]))
+    if got64 != (d64, i64) or not consts_c.sp.use_dense_legendre:
+        raise RuntimeError(f"f64 card run: transform (launches, fields) "
+                           f"{got64}, expected {d64} and {i64} on the dense "
+                           f"route")
     if (launches64["spectral_update"] != N_STEPS
             or any(GK.plain_calls.values())):
         raise RuntimeError(f"f64 card run: spectral_update launched "
@@ -1595,7 +1823,8 @@ def main() -> None:
           f"{worst_name} over the prognostics and 8 physics fields (limit "
           f"1e-9); float64 transform kernels launched "
           f"{launches64['fused_grid2spec']} + {launches64['fused_spec2grid']}"
-          f" times, the float64 spectral update "
+          f" times for {fields64['fused_grid2spec']} + "
+          f"{fields64['fused_spec2grid']} fields, the float64 spectral update "
           f"{launches64['spectral_update']} (no plain call)")
     if not worst64 <= 1e-9:
         raise RuntimeError("float64 card run disagrees with the CPU run")
@@ -1635,11 +1864,17 @@ def main() -> None:
         kernels.append(entry(name, tr_src, repl, launches[name], tr32[name],
                              rows))
         kernels[-1]["fft_route_ms"] = tr32[name]["fft_route_ms"]
+        kernels[-1]["fields"] = fields_main[name]
         kernels[-1]["launches_dynamics_only_path"] = launches_dyn[name]
+        kernels[-1]["fields_dynamics_only_path"] = fields_dyn[name]
+        kernels[-1]["groups"] = tr32[name]["groups"]
+        kernels[-1]["groups_f64"] = tr64[name]["groups"]
+        kernels[-1]["max_rel_err_call_site_groups"] = sites_err
         for key in ("ms", "call_ms", "plain_ms", "bound_ms", "max_rel_err",
                     "fft_route_ms"):
             kernels[-1][key + "_f64"] = tr64[name][key]
     kernels[-2]["launches_bf16_path"] = launches_b["fused_grid2spec_bf16"]
+    kernels[-2]["fields_bf16_path"] = fields_b["fused_grid2spec_bf16"]
     kernels[-2].update(tr_bf16)
     # The probes are not on the model's path: their launches are those of
     # the probe path above; the entry's times and bound are those of p2, the

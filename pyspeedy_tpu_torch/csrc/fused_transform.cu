@@ -1,6 +1,6 @@
 // Fused spectral transforms for NVIDIA Hopper (sm_90a): the zonal DFT and the
-// Legendre transform of a field in one kernel, the Fourier intermediate held
-// in shared memory.
+// Legendre transform of a group of fields in one launch, the Fourier
+// intermediate held in shared memory.
 //
 // Replaces three Pallas experiments of the JAX package:
 //   tools/exp_fused_transform.py:65  fused_grid2spec  (pallas_call at :102)
@@ -9,55 +9,102 @@
 // The plain PyTorch versions (the dense matmul chain) and the wrappers are in
 // pyspeedy_tpu_torch/ops/transform_kernels.py.
 //
-// Computes, for every field row r (one (il, ix) grid or one spectral pair):
+// Computes, for every field row (one (il, ix) grid or one spectral pair):
 //   direct   F[c, j, m] = sum_i g[j, i] * dft_fwd[c, i, m]
 //            S[c, m, n] = sum_j F[c, j, m] * leg_dir[j, m, n]
 //   inverse  F[c, j, m] = sum_n leg_inv[j, m, n] * p[c, m, n]
 //            g[j, i]    = (sum_c sum_m F[c, j, m] * dft_inv[c, m, i]) * scale[j]
-// c indexes the (real, imaginary) parts. dft_inv[1, 0, :] is zero, which is
-// the reference's "discard the imaginary part of m = 0" rule: no mask here.
-// The Legendre stage uses the (il, mx, nx) operator, one (il x nx) block per
-// zonal wavenumber, not its zero-padded dense (il*mx, mx*nx) form, which
-// costs mx times the operations. Three element types: float, double, and the
-// 2-byte operand mode of the direct transform (grid, DFT table and Legendre
-// table in bfloat16, float accumulation, the Fourier intermediate rounded to
-// bfloat16, float result).
+// c indexes the (real, imaginary) parts. The inverse never reads the
+// imaginary part of m = 0 (the reference's "discard" rule). Three element
+// types: float, double, and the 2-byte operand mode of the direct transform
+// (grid, DFT table and Legendre table in bfloat16, float sums, the Fourier
+// intermediate rounded to bfloat16, float result).
 //
-// The probe kinds run the stages of the direct transform alone, for one part
-// (the real one): p0 the DFT stage written straight to device memory as
-// (N*il, mx); p1 the same values taken through the shared-memory intermediate
-// and stored flat as (N, il*mx); p2 the whole chain as (N, mx*nx); p3 the
+// What bounds the transform on an H100 (3.35 TB/s): the bytes. A T30 row
+// (il=48, ix=96, mx=31, nx=32) moves 18,432 B of grid and 7,936 B of spectral
+// pair in float: 7.9 ns per row, 0.0081 ms for 1,024 rows (0.0162 ms in
+// double, 0.0053 ms with 2-byte operands). The folded arithmetic below is
+// 0.30 GFLOP at 1,024 rows, 0.0045 ms at the 67 TFLOP/s float peak, so the
+// kernel can only approach the byte figure if its operations are cheap to
+// issue. The first version of these kernels (one block of 256 threads per
+// row) ran at 13-17 % of the dense operation figure; they re-read the tables from L2 for every row,
+// issued about one shared-memory load per multiply-add, did 3.8 times the
+// Legendre operations the tables need and twice the DFT operations, copied
+// rows with plain loads and were launched once per field (22 launches a step).
+//
+// Design, point by point:
+//  1. Persistent blocks (as many as fit on the card, at most one per row)
+//     walk over the rows of a whole group of fields; each block copies the
+//     tables into shared memory once, with cp.async, from one flat array that
+//     ops/spectral.py::_fold_tables lays out in the order of the shared
+//     memory: the DFT table folded to half a period (12 KB in float), the
+//     Legendre table folded to the 24 northern latitudes and cut to the 527
+//     (m, n) pairs with m + n <= 31 (50.6 KB in float, 101 KB in double).
+//     The tables are read once per block, not once per row.
+//  2. Register tiles: in the DFT stages a thread keeps 6 latitudes x 4 (or 2)
+//     wavenumbers (direct) or 6 latitudes x 2 longitudes of both parities
+//     (inverse) in registers and reads its operands as 8- and 16-byte
+//     vectors: 4 shared-memory loads feed 24 multiply-adds (direct, float),
+//     8 feed 24 (inverse), where the first version issued about one load per
+//     multiply-add; the loads of a warp are broadcasts or fall on distinct
+//     banks. The direct Legendre sums run as two independent chains.
+//  3. The structure of the tables. Hemispheric parity holds bitwise,
+//     L[il-1-j, m, n] = (-1)^n L[j, m, n], and the table is exactly zero
+//     where m + n > 31: the direct Legendre stage sums over 24 latitudes of
+//     F[j] + F[il-1-j] (even n) or F[j] - F[il-1-j] (odd n) over the 527
+//     pairs and stores 0 elsewhere; the inverse forms even and odd partial
+//     sums E, O and writes F[j] = E + O, F[il-1-j] = E - O. The DFT tables
+//     have half-period symmetry, D[i + ix/2] = (-1)^m D[i], to 2.6e-16 (direct)
+//     and 5e-14 (inverse) absolute, not bitwise: both DFT stages are folded
+//     (the direct one sums g[i] +- g[i + ix/2] against the first half of the
+//     table, the inverse one forms the even-m and odd-m partial sums and
+//     writes g[i] = Pe + Po, g[i + ix/2] = Pe - Po). That halves the DFT
+//     operations and changes the result by rounding only (chip_smoke.py
+//     measures it against the plain chain; PERF.md has the figures).
+//     tests/test_torch_transform_groups.py states both table facts, so a
+//     table that broke them would fail there, not drift here.
+//  4. The next row is copied into shared memory with cp.async (16-byte
+//     chunks, L1 bypassed) while the current one is computed: the folded,
+//     transposed grid (direct) or the Fourier coefficients (inverse) are the
+//     second buffer of the ring, so the stage buffer is free once they are
+//     written. Rows whose address is not 16-byte aligned are copied with
+//     plain loads instead. Outputs are stored straight from the register
+//     tiles, neighbouring threads on neighbouring addresses.
+//  5./6. One launch takes a group of up to 16 fields (segments): each with
+//     its pointers, member, pair and row strides, rows per member and, for
+//     the inverse, its own 1/cos(lat) flag, in a __grid_constant__ argument
+//     struct. A step's 22 transform launches become 3.
+// Products on CUDA cores, not the tensor cores: in float the 1e-5 limit
+// needs the 3xTF32 split (three tensor-core products and the operand split
+// per element); in double the DMMA m8n8k4 shapes do not match a 6-latitude
+// fold. After the folds the products are 0.30 GFLOP at 1,024 rows, below the
+// bytes, so the design spends its effort on table reuse and load counts.
+//
+// Every output element is one fixed-order sum inside one block, with no
+// atomics: results are deterministic, and a row's result does not depend on
+// the rows or segments launched with it (a group equals its fields launched
+// one by one, bitwise).
+//
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W, 1,024 rows:
+// 0.0324-0.0327 ms direct and 0.0269-0.0275 ms inverse in float (25 % and
+// 30 % of the byte bound; the first version 0.086 and 0.069-0.081 ms),
+// 0.058 and 0.065 ms in double, 0.033 ms with 2-byte operands; the step's
+// groups at 128 members (10 direct fields, 7 and 5 inverse) 0.274, 0.155 and
+// 0.104 ms. Against the plain chain: 3.2e-7 of the largest value in float,
+// 6.6e-15 in double (the first version 2.8e-7 and 1e-15: the folds, above
+// all the inverse DFT table's 5e-14 asymmetry, add about 5e-15), 8.6e-4 with
+// 2-byte operands. What holds the kernels back from the bytes: the cheap
+// stages (the folds, the Legendre sums, the zero stores) issue about as many
+// instructions as the DFT, with 8 (direct) or 12 (inverse) warps per SM
+// between four barriers a row; registers 80 (direct) and 55 / 86 (inverse,
+// float / double), no spills.
+//
+// The probe kinds (tools/exp_fused_probe.py) keep the first version's one-block-per-
+// row template, probe_stage_kernel, for the probes alone: p0 the DFT stage written
+// straight to device memory as (N*il, mx); p1 the same values taken through
+// the shared-memory intermediate and stored flat as (N, il*mx); p2 the whole
+// chain for the real part as (N, mx*nx); p3 (split_probe_kernel) the
 // inverse-side split, (N, il*ix)[:, :il*mx] viewed as (N*il, mx), times 2.
-// They say which stage is wrong and which stage takes the time.
-//
-// Bound on an H100 (3.35 TB/s; 67 TFLOP/s float and 34 TFLOP/s double outside
-// the tensor cores): a T30 row (il=48, ix=96, mx=31, nx=32) is 18,432 B of
-// grid and 7,936 B of spectral pair in float and needs 571,392 + 190,464
-// operations: 7.9 ns of bytes against 11.4 ns of operations per row in float
-// (15.7 against 22.4 in double), so the transform is bound by operations in
-// float and double, and by bytes only if the products moved to the tensor
-// cores, as the 2-byte mode would allow. Measured by chip_smoke.py on an
-// NVIDIA H100 80GB HBM3 at 700 W, 1,024 rows: 0.087 ms direct and 0.081 ms
-// inverse in float (13-14 % of the 0.0116 ms bound), 0.131 and 0.126 ms in
-// double (18 %), 0.091 ms with 2-byte operands; the dense cuBLAS chain takes
-// 0.21 and 0.48 ms in float.
-//
-// Design (simple on purpose): one block of 256 threads per row. The row is
-// staged in shared memory; in the DFT stages a thread keeps 6 latitudes of
-// one (part, wavenumber) or one longitude in registers; the tables are read
-// through L1/L2 (the DFT tables are 24 KB in float, the Legendre table
-// 190 KB). Every output element is one fixed-order sum inside one block: no
-// atomics, so results are deterministic and a row's result does not depend on
-// the rows launched with it. Rows are addressed by member, pair and row
-// strides, so the pair axis may sit anywhere in front of the field axes and
-// nothing is copied before or after the launch.
-// What this leaves for a redesign: the Legendre table is read from L2 once
-// per row (several rows per block would reuse it); about one shared-memory
-// or L1 load is issued per multiply-add (a two-dimensional register tile
-// would cut that); the hemispheric even/odd fold would halve the Legendre
-// operations and the triangular truncation halve them again; the products do
-// not use the tensor cores (wgmma with TF32 or bfloat16 operands) and the
-// loads do not use TMA.
 //
 // Interface: plain C, loaded with ctypes; one entry point with a `kind`
 // argument. The launch goes to the stream it is given, allocates nothing and
@@ -69,8 +116,24 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kLatTile = 6;   // latitudes a thread keeps in the DFT stages
+// ---------------------------------------------------------------------------
+// Shapes: the transforms are built for T30, the one truncation whose dense
+// route exists (the wrappers refuse others).
+// ---------------------------------------------------------------------------
+constexpr int kIL = 48, kIY = 24, kIX = 96, kIH = 48, kMX = 31, kNX = 32;
+constexpr int kTri = 527;            // (m, n) pairs with m + n <= 31
+constexpr int kPlane = kMX * kNX;    // one part of a spectral field
+constexpr int kCols = 32;            // (part, m of one parity): 2 x 16
+constexpr int kPitchA = kIL + 2;     // folded grid, transposed: even pitch
+constexpr int kTable = 2 * kIH * kCols + kIY * kTri;  // either kernel's tables
+constexpr int kMaxSeg = 16;
+constexpr int kSegWords = 11;        // int64 words of one segment descriptor
+constexpr int kTJ = 6;               // latitudes of a thread's register tile
+
+// Start of row m of the (m, n) triangle, n = 0 .. nx-1-m.
+__host__ __device__ constexpr int tri_offset(int m) {
+  return kNX * m - m * (m - 1) / 2;
+}
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ double widen(double x) { return x; }
@@ -81,64 +144,412 @@ __device__ __forceinline__ float round_bf16(float x) {
 }
 __device__ __forceinline__ double round_bf16(double x) { return x; }  // never used
 
-// Element strides of a row's address: rows are numbered member-major,
-// `per_member` rows to a member.
-struct RowStrides {
-  long long member;
-  long long pair;   // between the real and the imaginary part (spectral side)
-  long long row;
+// One field of a group: its rows are numbered member-major, per_member rows
+// to a member; strides in elements.
+struct Segment {
+  const void* in;
+  void* out;
+  long long first;        // first row of the segment in the group's numbering
+  long long in_member, in_pair, in_row;
+  long long out_member, out_pair, out_row;
+  int per_member;
+  int flag;               // inverse: 1 = scale by 1/cos(lat) at the store
+  int aligned;            // 16-byte copies allowed (pointer, strides, row)
 };
 
-// Direct transform and its probes. T: working and output type; E: element type
-// of the grid and of both tables; BF16: round the Fourier intermediate to
-// bfloat16. STAGE -1: the whole transform, both parts; 0, 1, 2: the probes
-// p0, p1, p2 (real part only).
-template <typename T, typename E, bool BF16, int STAGE>
-__global__ void __launch_bounds__(kThreads)
-grid2spec_kernel(const E* __restrict__ grid, const E* __restrict__ dft,
-                 const E* __restrict__ leg, T* __restrict__ out,
-                 int il, int ix, int mx, int nx, int per_member,
-                 RowStrides gs, RowStrides os) {
+struct Group {
+  Segment seg[kMaxSeg];
+  int nseg;
+  const void* tables;     // kTable values, in the order of the shared memory
+  const void* scale;      // inverse: 1/cos(lat) (il,)
+};
+
+// N neighbouring values in one load (the address is aligned to the size).
+template <typename T, int N>
+struct alignas(sizeof(T) * N) Vec {
+  T v[N];
+};
+template <typename T, int N>
+__device__ __forceinline__ Vec<T, N> load_vec(const T* p) {
+  return *reinterpret_cast<const Vec<T, N>*>(p);
+}
+
+__device__ __forceinline__ int find_segment(const Group& g, long long r) {
+  int s = 0;
+  while (s + 1 < g.nseg && r >= g.seg[s + 1].first) ++s;
+  return s;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Copy n elements (n * sizeof(E) a multiple of 16) into shared memory:
+// cp.async in 16-byte chunks where the source is aligned, plain loads
+// otherwise (then complete when the caller next synchronises the block).
+template <int THREADS, typename E>
+__device__ __forceinline__ void stage_copy(E* dst, const E* src, int n, bool aligned) {
+  if (aligned) {
+    const int chunks = n * static_cast<int>(sizeof(E)) / 16;
+    auto* d = reinterpret_cast<unsigned char*>(dst);
+    auto* s = reinterpret_cast<const unsigned char*>(src);
+    for (int q = threadIdx.x; q < chunks; q += THREADS) cp_async16(d + 16 * q, s + 16 * q);
+  } else {
+    for (int q = threadIdx.x; q < n; q += THREADS) dst[q] = src[q];
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store2(T* p, T a, T b);
+template <>
+__device__ __forceinline__ void store2<float>(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+template <>
+__device__ __forceinline__ void store2<double>(double* p, double a, double b) {
+  *reinterpret_cast<double2*>(p) = make_double2(a, b);
+}
+
+// ---------------------------------------------------------------------------
+// Direct transform. T: working and output type; E: element type of the grid
+// and both tables; BF16: round the Fourier intermediate to bfloat16.
+// ---------------------------------------------------------------------------
+template <typename T, typename E>
+constexpr size_t direct_shared_bytes() {
+  return sizeof(E) * kIL * kIX + sizeof(T) * (kTable + 2 * kIH * kPitchA + 2 * kIL * kMX);
+}
+
+template <typename T, typename E, bool BF16, int THREADS>
+__global__ void __launch_bounds__(THREADS)
+grid2spec_fold_kernel(const __grid_constant__ Group g, long long total) {
+  constexpr int TC = 512 / THREADS;        // wavenumber columns of a thread
+  constexpr int NCB = kCols / TC;
+  constexpr int HALF = THREADS / 2;        // threads of one parity
+  static_assert(8 * NCB == HALF && 8 * kTJ == kIL, "register tile");
+  constexpr int MAXP = (kTri + THREADS - 1) / THREADS;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* stage = reinterpret_cast<E*>(smem_raw);                          // (il, ix) as read
+  T* sD = reinterpret_cast<T*>(smem_raw + sizeof(E) * kIL * kIX);     // (2, ih, 32)
+  T* sL = sD + 2 * kIH * kCols;                                       // (iy, 527)
+  T* sA = sL + kIY * kTri;                                            // (2, ih, il+2)
+  T* sF = sA + 2 * kIH * kPitchA;                                     // (2, il, mx)
+  const int tid = threadIdx.x;
+
+  long long r = blockIdx.x;
+  auto issue = [&](long long row) {
+    const Segment& s = g.seg[find_segment(g, row)];
+    const long long lr = row - s.first;
+    const long long b = lr / s.per_member, kk = lr - b * s.per_member;
+    const E* src = static_cast<const E*>(s.in) + b * s.in_member + kk * s.in_row;
+    stage_copy<THREADS>(stage, src, kIL * kIX, s.aligned != 0);
+  };
+  // The tables, once per block, with the first row: the half-period DFT
+  // table (2 parities, ih, 32 columns: col = c * 16 + q for m = 2q + parity,
+  // the odd parity's q = 15 zero), then the northern Legendre rows over the
+  // triangle (iy, 527), as ops/spectral.py::_fold_tables lays them out.
+  if (r < total) issue(r);
+  stage_copy<THREADS>(sD, static_cast<const T*>(g.tables), kTable, true);
+  cp_async_commit();
+  int pm[MAXP], pn[MAXP];
+#pragma unroll
+  for (int q = 0; q < MAXP; ++q) {
+    int p = tid + q * THREADS;
+    pm[q] = -1;
+    pn[q] = 0;
+    if (p < kTri) {
+      int m = 0;
+      while (p >= kNX - m) { p -= kNX - m; ++m; }
+      pm[q] = m;
+      pn[q] = p;
+    }
+  }
+
+  for (; r < total; r += gridDim.x) {
+    const Segment& s = g.seg[find_segment(g, r)];
+    const long long lr = r - s.first;
+    const long long b = lr / s.per_member, kk = lr - b * s.per_member;
+    cp_async_wait_all();
+    __syncthreads();
+
+    // Fold the row by half a period and transpose it:
+    // sA[0][i][j] = g[j][i] + g[j][i+ih], sA[1][i][j] = g[j][i] - g[j][i+ih].
+    for (int idx = tid; idx < kIL * kIH; idx += THREADS) {
+      const int j = idx / kIH, i = idx - j * kIH;
+      const T a = widen(stage[j * kIX + i]), c = widen(stage[j * kIX + i + kIH]);
+      sA[i * kPitchA + j] = a + c;
+      sA[(kIH + i) * kPitchA + j] = a - c;
+    }
+    __syncthreads();
+    if (r + gridDim.x < total) issue(r + gridDim.x);
+    cp_async_commit();
+
+    // Zonal DFT on the folded row: even m from the sums, odd m from the
+    // differences; a thread keeps kTJ latitudes x TC columns.
+    {
+      const int par = tid / HALF, u = tid - par * HALF;
+      const int jb = u / NCB, cb = u - jb * NCB;
+      const T* a_base = sA + par * kIH * kPitchA + jb * kTJ;
+      const T* b_base = sD + par * kIH * kCols + cb * TC;
+      T acc[kTJ][TC];
+#pragma unroll
+      for (int jj = 0; jj < kTJ; ++jj)
+#pragma unroll
+        for (int cc = 0; cc < TC; ++cc) acc[jj][cc] = T(0);
+#pragma unroll 4
+      for (int k = 0; k < kIH; ++k) {
+        Vec<T, 2> a[kTJ / 2];
+#pragma unroll
+        for (int q = 0; q < kTJ / 2; ++q) a[q] = load_vec<T, 2>(a_base + k * kPitchA + 2 * q);
+        const Vec<T, TC> bv = load_vec<T, TC>(b_base + k * kCols);
+#pragma unroll
+        for (int jj = 0; jj < kTJ; ++jj)
+#pragma unroll
+          for (int cc = 0; cc < TC; ++cc) acc[jj][cc] += a[jj / 2].v[jj % 2] * bv.v[cc];
+      }
+#pragma unroll
+      for (int cc = 0; cc < TC; ++cc) {
+        const int col = cb * TC + cc;
+        const int c = col >> 4, m = 2 * (col & 15) + par;
+        if (m >= kMX) continue;
+#pragma unroll
+        for (int jj = 0; jj < kTJ; ++jj) {
+          T v = acc[jj][cc];
+          if constexpr (BF16) v = round_bf16(v);
+          sF[(c * kIL + jb * kTJ + jj) * kMX + m] = v;
+        }
+      }
+    }
+    __syncthreads();
+
+    // Hemispheric fold: F[j] <- F[j] + F[il-1-j], F[il-1-j] <- F[j] - F[il-1-j].
+    for (int idx = tid; idx < 2 * kIY * kMX; idx += THREADS) {
+      const int c = idx / (kIY * kMX);
+      const int rem = idx - c * kIY * kMX;
+      const int j = rem / kMX, m = rem - j * kMX;
+      T* lo = sF + (c * kIL + j) * kMX + m;
+      T* hi = sF + (c * kIL + kIL - 1 - j) * kMX + m;
+      const T x = *lo, y = *hi;
+      *lo = x + y;
+      *hi = x - y;
+    }
+    __syncthreads();
+
+    // Legendre analysis over the northern latitudes, the triangle only.
+    T* out = static_cast<T*>(s.out) + b * s.out_member + kk * s.out_row;
+#pragma unroll
+    for (int q = 0; q < MAXP; ++q) {
+      const int m = pm[q];
+      if (m < 0) continue;
+      const int n = pn[q];
+      const int p = tid + q * THREADS;
+      // Row j holds F[j] + F[il-1-j], row il-1-j the difference.
+      const T* f0 = sF + m + ((n & 1) ? (kIL - 1) * kMX : 0);
+      const T* f1 = f0 + kIL * kMX;
+      const int step = (n & 1) ? -kMX : kMX;
+      T s0 = T(0), s1 = T(0), t0 = T(0), t1 = T(0);   // even and odd j
+#pragma unroll 4
+      for (int j = 0; j < kIY; j += 2) {
+        const T l = sL[j * kTri + p], lo = sL[(j + 1) * kTri + p];
+        s0 += l * f0[j * step];
+        s1 += l * f1[j * step];
+        t0 += lo * f0[(j + 1) * step];
+        t1 += lo * f1[(j + 1) * step];
+      }
+      out[m * kNX + n] = s0 + t0;
+      out[s.out_pair + m * kNX + n] = s1 + t1;
+    }
+    for (int idx = tid; idx < kPlane; idx += THREADS) {
+      const int m = idx / kNX, n = idx - m * kNX;
+      if (m + n >= kNX) {
+        out[idx] = T(0);
+        out[s.out_pair + idx] = T(0);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Inverse transform.
+// ---------------------------------------------------------------------------
+template <typename T>
+constexpr size_t inverse_shared_bytes() {
+  return sizeof(T) * (2 * kPlane + kIY * kTri + 2 * kCols * kIH + 2 * kCols * kIL);
+}
+
+template <typename T, int THREADS>
+__global__ void __launch_bounds__(THREADS)
+spec2grid_fold_kernel(const __grid_constant__ Group g, long long total) {
+  constexpr int TI = 2;                   // longitudes of a thread (both halves)
+  constexpr int NIB = kIH / TI;
+  static_assert(8 * NIB == THREADS && 8 * kTJ == kIL, "register tile");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* stage = reinterpret_cast<T*>(smem_raw);    // (2, mx, nx) as read
+  T* sL = stage + 2 * kPlane;                   // (iy, 527)
+  T* sB = sL + kIY * kTri;                      // (2, 32, ih)
+  T* sA = sB + 2 * kCols * kIH;                 // (2, 32, il) Fourier coefficients
+  const int tid = threadIdx.x;
+
+  long long r = blockIdx.x;
+  auto issue = [&](long long row) {
+    const Segment& s = g.seg[find_segment(g, row)];
+    const long long lr = row - s.first;
+    const long long b = lr / s.per_member, kk = lr - b * s.per_member;
+    const T* src = static_cast<const T*>(s.in) + b * s.in_member + kk * s.in_row;
+    stage_copy<THREADS>(stage, src, kPlane, s.aligned != 0);
+    stage_copy<THREADS>(stage + kPlane, src + s.in_pair, kPlane, s.aligned != 0);
+  };
+  // The tables, once per block, with the first row: the northern Legendre
+  // rows over the triangle (iy, 527), then the half-period DFT table (2
+  // parities, 32 rows k = c * 16 + q for m = 2q + parity, ih).
+  if (r < total) issue(r);
+  stage_copy<THREADS>(sL, static_cast<const T*>(g.tables), kTable, true);
+  cp_async_commit();
+  const T* scale = static_cast<const T*>(g.scale);
+  // Rows never written below stay zero: the odd parity's q = 15 and the
+  // imaginary part of m = 0, which the transform ignores.
+  for (int idx = tid; idx < 2 * kCols * kIL; idx += THREADS) sA[idx] = T(0);
+
+  for (; r < total; r += gridDim.x) {
+    const Segment& s = g.seg[find_segment(g, r)];
+    const long long lr = r - s.first;
+    const long long b = lr / s.per_member, kk = lr - b * s.per_member;
+    cp_async_wait_all();
+    __syncthreads();
+
+    // Legendre synthesis, folded: item = (m, northern latitude j), j fastest.
+    for (int it = tid; it < kMX * kIY; it += THREADS) {
+      const int m = it / kIY, j = it - m * kIY;
+      const T* l = sL + j * kTri + tri_offset(m);
+      const T* p0 = stage + m * kNX;
+      const T* p1 = p0 + kPlane;
+      const int nn = kNX - m;
+      T e0 = T(0), o0 = T(0), e1 = T(0), o1 = T(0);
+      int n = 0;
+      for (; n + 1 < nn; n += 2) {
+        const T le = l[n], lo = l[n + 1];
+        e0 += le * p0[n];
+        e1 += le * p1[n];
+        o0 += lo * p0[n + 1];
+        o1 += lo * p1[n + 1];
+      }
+      if (n < nn) {
+        const T le = l[n];
+        e0 += le * p0[n];
+        e1 += le * p1[n];
+      }
+      const int par = m & 1, q = m >> 1;
+      T* a0 = sA + (par * kCols + q) * kIL;
+      a0[j] = e0 + o0;
+      a0[kIL - 1 - j] = e0 - o0;
+      if (m != 0) {
+        T* a1 = sA + (par * kCols + 16 + q) * kIL;
+        a1[j] = e1 + o1;
+        a1[kIL - 1 - j] = e1 - o1;
+      }
+    }
+    __syncthreads();
+    if (r + gridDim.x < total) issue(r + gridDim.x);
+    cp_async_commit();
+
+    // Inverse DFT, folded: Pe over even m, Po over odd m, for the first half
+    // of the longitudes; g[i] = Pe + Po, g[i + ih] = Pe - Po.
+    const int jb = tid / NIB, ib = tid - jb * NIB;
+    T pe[kTJ][TI], po[kTJ][TI];
+#pragma unroll
+    for (int jj = 0; jj < kTJ; ++jj)
+#pragma unroll
+      for (int ii = 0; ii < TI; ++ii) pe[jj][ii] = po[jj][ii] = T(0);
+    const T* ae_base = sA + jb * kTJ;
+    const T* ao_base = sA + kCols * kIL + jb * kTJ;
+    const T* be_base = sB + ib * TI;
+    const T* bo_base = sB + kCols * kIH + ib * TI;
+#pragma unroll 4
+    for (int k = 0; k < kCols; ++k) {
+      Vec<T, 2> ae[kTJ / 2], ao[kTJ / 2];
+#pragma unroll
+      for (int q = 0; q < kTJ / 2; ++q) {
+        ae[q] = load_vec<T, 2>(ae_base + k * kIL + 2 * q);
+        ao[q] = load_vec<T, 2>(ao_base + k * kIL + 2 * q);
+      }
+      const Vec<T, TI> be = load_vec<T, TI>(be_base + k * kIH);
+      const Vec<T, TI> bo = load_vec<T, TI>(bo_base + k * kIH);
+#pragma unroll
+      for (int jj = 0; jj < kTJ; ++jj)
+#pragma unroll
+        for (int ii = 0; ii < TI; ++ii) {
+          pe[jj][ii] += ae[jj / 2].v[jj % 2] * be.v[ii];
+          po[jj][ii] += ao[jj / 2].v[jj % 2] * bo.v[ii];
+        }
+    }
+    T* out = static_cast<T*>(s.out) + b * s.out_member + kk * s.out_row;
+#pragma unroll
+    for (int jj = 0; jj < kTJ; ++jj) {
+      const int j = jb * kTJ + jj;
+      T x0 = pe[jj][0] + po[jj][0], x1 = pe[jj][1] + po[jj][1];
+      T y0 = pe[jj][0] - po[jj][0], y1 = pe[jj][1] - po[jj][1];
+      if (s.flag) {
+        const T sc = scale[j];
+        x0 = x0 * sc; x1 = x1 * sc; y0 = y0 * sc; y1 = y1 * sc;
+      }
+      store2(out + j * kIX + ib * TI, x0, x1);
+      store2(out + j * kIX + kIH + ib * TI, y0, y1);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The first version's one-block-per-row template, kept for the probe kinds
+// alone.
+// ---------------------------------------------------------------------------
+constexpr int kProbeThreads = 256;
+
+template <typename T, int STAGE>
+__global__ void __launch_bounds__(kProbeThreads)
+probe_stage_kernel(const T* __restrict__ grid, const T* __restrict__ dft,
+                   const T* __restrict__ leg, T* __restrict__ out,
+                   int il, int ix, int mx, int nx) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sg = reinterpret_cast<T*>(smem_raw);          // (il, ix) the grid row
-  T* sf = sg + il * ix;                            // (2, il, mx) Fourier parts
+  T* sf = sg + il * ix;                            // (il, mx) Fourier, real part
   const int tid = threadIdx.x;
   const long long r = blockIdx.x;
-  const long long b = r / per_member;
-  const long long kk = r - b * per_member;
-  constexpr int kParts = STAGE < 0 ? 2 : 1;
 
-  const E* g = grid + b * gs.member + kk * gs.row;
-  for (int idx = tid; idx < il * ix; idx += kThreads) sg[idx] = widen(g[idx]);
+  const T* gr0 = grid + r * il * ix;
+  for (int idx = tid; idx < il * ix; idx += kProbeThreads) sg[idx] = gr0[idx];
   __syncthreads();
 
-  // Zonal DFT: item = (latitude tile, part, wavenumber), wavenumber fastest.
-  const int ncol = kParts * mx;
-  const int nitems = (il / kLatTile) * ncol;
-  for (int item = tid; item < nitems; item += kThreads) {
-    const int jt = item / ncol;
-    const int mc = item - jt * ncol;
-    const int c = mc / mx;
-    const int m = mc - c * mx;
-    const E* d = dft + (static_cast<long long>(c) * ix) * mx + m;
-    const T* gr = sg + jt * kLatTile * ix;
-    T acc[kLatTile];
+  // Zonal DFT: item = (latitude tile, wavenumber), wavenumber fastest.
+  const int nitems = (il / kTJ) * mx;
+  for (int item = tid; item < nitems; item += kProbeThreads) {
+    const int jt = item / mx;
+    const int m = item - jt * mx;
+    const T* d = dft + m;
+    const T* gr = sg + jt * kTJ * ix;
+    T acc[kTJ];
 #pragma unroll
-    for (int jj = 0; jj < kLatTile; ++jj) acc[jj] = 0;
+    for (int jj = 0; jj < kTJ; ++jj) acc[jj] = 0;
     for (int i = 0; i < ix; ++i) {
-      const T dv = widen(d[i * mx]);
+      const T dv = d[i * mx];
 #pragma unroll
-      for (int jj = 0; jj < kLatTile; ++jj) acc[jj] += gr[jj * ix + i] * dv;
+      for (int jj = 0; jj < kTJ; ++jj) acc[jj] += gr[jj * ix + i] * dv;
     }
 #pragma unroll
-    for (int jj = 0; jj < kLatTile; ++jj) {
-      const int j = jt * kLatTile + jj;
-      T v = acc[jj];
-      if constexpr (BF16) v = round_bf16(v);
+    for (int jj = 0; jj < kTJ; ++jj) {
+      const int j = jt * kTJ + jj;
       if constexpr (STAGE == 0)
-        out[(r * il + j) * mx + m] = v;
+        out[(r * il + j) * mx + m] = acc[jj];
       else
-        sf[(c * il + j) * mx + m] = v;
+        sf[j * mx + m] = acc[jj];
     }
   }
   if constexpr (STAGE == 0) return;
@@ -146,117 +557,36 @@ grid2spec_kernel(const E* __restrict__ grid, const E* __restrict__ dft,
 
   if constexpr (STAGE == 1) {
     T* o = out + r * il * mx;
-    for (int idx = tid; idx < il * mx; idx += kThreads) o[idx] = sf[idx];
+    for (int idx = tid; idx < il * mx; idx += kProbeThreads) o[idx] = sf[idx];
     return;
   }
 
-  // Legendre analysis: item = (wavenumber m, index n), n fastest, both parts.
-  for (int item = tid; item < mx * nx; item += kThreads) {
+  // Legendre analysis: item = (wavenumber m, index n), n fastest.
+  for (int item = tid; item < mx * nx; item += kProbeThreads) {
     const int m = item / nx;
-    const E* p = leg + item;                 // leg[j, m, n], stride mx*nx in j
-    const T* f0 = sf + m;
-    T a0 = 0, a1 = 0;
+    const T* p = leg + item;                 // leg[j, m, n], stride mx*nx in j
+    T a0 = 0;
 #pragma unroll 4
-    for (int j = 0; j < il; ++j) {
-      const T pv = widen(p[static_cast<long long>(j) * mx * nx]);
-      a0 += f0[j * mx] * pv;
-      if constexpr (kParts == 2) a1 += f0[(il + j) * mx] * pv;
-    }
-    if constexpr (STAGE == 2) {
-      out[r * mx * nx + item] = a0;
-    } else {
-      T* o = out + b * os.member + kk * os.row + item;
-      o[0] = a0;
-      o[os.pair] = a1;
-    }
+    for (int j = 0; j < il; ++j) a0 += sf[j * mx + m] * p[static_cast<long long>(j) * mx * nx];
+    out[r * mx * nx + item] = a0;
   }
 }
 
 // Probe p3: out[(r*il + j), m] = 2 * flat(g[r])[j*mx + m].
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kProbeThreads)
 split_probe_kernel(const T* __restrict__ grid, T* __restrict__ out,
                    long long total, int il, int ix, int mx) {
-  const long long idx = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
+  const long long idx = blockIdx.x * static_cast<long long>(kProbeThreads) + threadIdx.x;
   if (idx >= total) return;
   const long long per_row = static_cast<long long>(il) * mx;
   const long long r = idx / per_row;
   out[idx] = grid[r * il * ix + (idx - r * per_row)] * static_cast<T>(2);
 }
 
-// Inverse transform. legt is the Legendre operator transposed to (il, nx, mx)
-// so that neighbouring threads (neighbouring m) read neighbouring addresses.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-spec2grid_kernel(const T* __restrict__ spec, const T* __restrict__ legt,
-                 const T* __restrict__ dft, const T* __restrict__ scale,
-                 T* __restrict__ out, int il, int ix, int mx, int nx,
-                 int per_member, RowStrides ss) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int pitch = nx + 1;                        // odd pitch: no bank conflicts
-  T* sp = reinterpret_cast<T*>(smem_raw);          // (2, mx, nx + 1)
-  T* sf = sp + 2 * mx * pitch;                     // (2, il, mx)
-  const int tid = threadIdx.x;
-  const long long r = blockIdx.x;
-  const long long b = r / per_member;
-  const long long kk = r - b * per_member;
-
-  const T* p = spec + b * ss.member + kk * ss.row;
-  for (int idx = tid; idx < 2 * mx * nx; idx += kThreads) {
-    const int c = idx / (mx * nx);
-    const int rem = idx - c * mx * nx;
-    const int m = rem / nx;
-    const int n = rem - m * nx;
-    sp[(c * mx + m) * pitch + n] = p[c * ss.pair + rem];
-  }
-  __syncthreads();
-
-  // Legendre synthesis: item = (latitude j, wavenumber m), m fastest.
-  for (int item = tid; item < il * mx; item += kThreads) {
-    const int j = item / mx;
-    const int m = item - j * mx;
-    const T* l = legt + (static_cast<long long>(j) * nx) * mx + m;
-    const T* p0 = sp + m * pitch;
-    const T* p1 = sp + (mx + m) * pitch;
-    T a0 = 0, a1 = 0;
-#pragma unroll 4
-    for (int n = 0; n < nx; ++n) {
-      const T lv = l[n * mx];
-      a0 += lv * p0[n];
-      a1 += lv * p1[n];
-    }
-    sf[item] = a0;
-    sf[il * mx + item] = a1;
-  }
-  __syncthreads();
-
-  // Inverse zonal DFT: item = (latitude tile, longitude i), i fastest.
-  T* o = out + r * il * ix;
-  const int nitems = (il / kLatTile) * ix;
-  for (int item = tid; item < nitems; item += kThreads) {
-    const int jt = item / ix;
-    const int i = item - jt * ix;
-    T acc[kLatTile];
-#pragma unroll
-    for (int jj = 0; jj < kLatTile; ++jj) acc[jj] = 0;
-    for (int c = 0; c < 2; ++c) {
-      const T* d = dft + (static_cast<long long>(c) * mx) * ix + i;
-      const T* f = sf + (c * il + jt * kLatTile) * mx;
-      for (int m = 0; m < mx; ++m) {
-        const T dv = d[m * ix];
-#pragma unroll
-        for (int jj = 0; jj < kLatTile; ++jj) acc[jj] += f[jj * mx + m] * dv;
-      }
-    }
-#pragma unroll
-    for (int jj = 0; jj < kLatTile; ++jj) {
-      const int j = jt * kLatTile + jj;
-      T v = acc[jj];
-      if (scale != nullptr) v = v * scale[j];
-      o[j * ix + i] = v;
-    }
-  }
-}
+// ---------------------------------------------------------------------------
+// Launchers
+// ---------------------------------------------------------------------------
 
 // Dynamic shared memory above 48 KB has to be allowed per kernel first.
 template <typename K>
@@ -266,114 +596,163 @@ int allow_shared(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
 }
 
-template <typename T, typename E, bool BF16, int STAGE>
-int launch_direct(long long nrows, int per_member, int il, int ix, int mx, int nx,
-                  const void* grid, const void* dft, const void* leg, void* out,
-                  RowStrides gs, RowStrides os, cudaStream_t stream) {
-  const size_t bytes = sizeof(T) * (static_cast<size_t>(il) * ix + 2 * static_cast<size_t>(il) * mx);
-  auto kernel = grid2spec_kernel<T, E, BF16, STAGE>;
-  const int rc = allow_shared(kernel, bytes);
+// A persistent launch: as many blocks as fit on the card at once, at most one
+// per row. The occupancy is asked once per kernel and device (the statics
+// belong to one instantiation, that is to one kernel).
+template <auto kernel>
+int launch_persistent(int threads, size_t bytes, const Group& g,
+                      long long total, cudaStream_t stream) {
+  static int cached_device = -1, blocks_per_sm = 0, sms = 0;
+  int dev = 0;
+  int rc = static_cast<int>(cudaGetDevice(&dev));
   if (rc != 0) return rc;
-  kernel<<<static_cast<unsigned>(nrows), kThreads, bytes, stream>>>(
-      static_cast<const E*>(grid), static_cast<const E*>(dft),
-      static_cast<const E*>(leg), static_cast<T*>(out), il, ix, mx, nx,
-      per_member, gs, os);
+  if (dev != cached_device) {
+    rc = allow_shared(kernel, bytes);
+    if (rc != 0) return rc;
+    rc = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+    if (rc != 0) return rc;
+    rc = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks_per_sm, kernel, threads, bytes));
+    if (rc != 0) return rc;
+    if (blocks_per_sm < 1) return -5;
+    cached_device = dev;
+  }
+  long long blocks = static_cast<long long>(blocks_per_sm) * sms;
+  if (blocks > total) blocks = total;
+  kernel<<<static_cast<unsigned>(blocks), threads, bytes, stream>>>(g, total);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, typename E, bool BF16>
-int launch_direct_stage(int stage, long long nrows, int per_member, int il, int ix,
-                        int mx, int nx, const void* grid, const void* dft,
-                        const void* leg, void* out, RowStrides gs, RowStrides os,
-                        cudaStream_t s) {
-  switch (stage) {
-    case -1: return launch_direct<T, E, BF16, -1>(nrows, per_member, il, ix, mx, nx, grid, dft, leg, out, gs, os, s);
-    case 0: return launch_direct<T, E, BF16, 0>(nrows, per_member, il, ix, mx, nx, grid, dft, leg, out, gs, os, s);
-    case 1: return launch_direct<T, E, BF16, 1>(nrows, per_member, il, ix, mx, nx, grid, dft, leg, out, gs, os, s);
-    case 2: return launch_direct<T, E, BF16, 2>(nrows, per_member, il, ix, mx, nx, grid, dft, leg, out, gs, os, s);
-    default: return -2;
-  }
+template <typename T, int STAGE>
+int launch_probe(long long nrows, int il, int ix, int mx, int nx, const void* grid,
+                 const void* dft, const void* leg, void* out, cudaStream_t stream) {
+  const size_t bytes = sizeof(T) * (static_cast<size_t>(il) * ix + static_cast<size_t>(il) * mx);
+  auto kernel = probe_stage_kernel<T, STAGE>;
+  const int rc = allow_shared(kernel, bytes);
+  if (rc != 0) return rc;
+  kernel<<<static_cast<unsigned>(nrows), kProbeThreads, bytes, stream>>>(
+      static_cast<const T*>(grid), static_cast<const T*>(dft),
+      static_cast<const T*>(leg), static_cast<T*>(out), il, ix, mx, nx);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int launch_inverse(long long nrows, int per_member, int il, int ix, int mx, int nx,
-                   const void* spec, const void* legt, const void* dft,
-                   const void* scale, void* out, RowStrides ss, cudaStream_t stream) {
-  const size_t bytes = sizeof(T) * (2 * static_cast<size_t>(mx) * (nx + 1) + 2 * static_cast<size_t>(il) * mx);
-  auto kernel = spec2grid_kernel<T>;
-  const int rc = allow_shared(kernel, bytes);
-  if (rc != 0) return rc;
-  kernel<<<static_cast<unsigned>(nrows), kThreads, bytes, stream>>>(
-      static_cast<const T*>(spec), static_cast<const T*>(legt),
-      static_cast<const T*>(dft), static_cast<const T*>(scale),
-      static_cast<T*>(out), il, ix, mx, nx, per_member, ss);
-  return static_cast<int>(cudaGetLastError());
+int launch_probe_stage(int stage, long long nrows, int il, int ix, int mx, int nx,
+                       const void* const* ptrs, cudaStream_t s) {
+  void* out = const_cast<void*>(ptrs[3]);
+  switch (stage) {
+    case 0: return launch_probe<T, 0>(nrows, il, ix, mx, nx, ptrs[0], ptrs[1], ptrs[2], out, s);
+    case 1: return launch_probe<T, 1>(nrows, il, ix, mx, nx, ptrs[0], ptrs[1], ptrs[2], out, s);
+    case 2: return launch_probe<T, 2>(nrows, il, ix, mx, nx, ptrs[0], ptrs[1], ptrs[2], out, s);
+    default: return -2;
+  }
 }
 
 template <typename T>
 int launch_split(long long nrows, int il, int ix, int mx, const void* grid,
                  void* out, cudaStream_t stream) {
   const long long total = nrows * il * mx;
-  const long long nblocks = (total + kThreads - 1) / kThreads;
+  const long long nblocks = (total + kProbeThreads - 1) / kProbeThreads;
   if (nblocks > 2147483647LL) return -3;
-  split_probe_kernel<T><<<static_cast<unsigned>(nblocks), kThreads, 0, stream>>>(
+  split_probe_kernel<T><<<static_cast<unsigned>(nblocks), kProbeThreads, 0, stream>>>(
       static_cast<const T*>(grid), static_cast<T*>(out), total, il, ix, mx);
   return static_cast<int>(cudaGetLastError());
 }
 
+bool aligned16(long long address, long long stride, int esize) {
+  return address % 16 == 0 && (stride * esize) % 16 == 0;
+}
+
+// The group's descriptor from the wrapper's int64 words; returns its rows,
+// or a negative code.
+long long read_group(Group& g, int nseg, const long long* desc, const void* const* tables,
+                     bool inverse, int esize) {
+  if (nseg < 1 || nseg > kMaxSeg) return -6;
+  g.nseg = nseg;
+  g.tables = tables[0];
+  g.scale = inverse ? tables[1] : nullptr;
+  if (reinterpret_cast<unsigned long long>(g.tables) % 16 != 0) return -7;
+  long long total = 0;
+  for (int q = 0; q < nseg; ++q) {
+    const long long* w = desc + q * kSegWords;
+    Segment& s = g.seg[q];
+    s.in = reinterpret_cast<const void*>(w[0]);
+    s.out = reinterpret_cast<void*>(w[1]);
+    const long long rows = w[2];
+    s.per_member = static_cast<int>(w[3]);
+    s.in_member = w[4];
+    s.in_pair = w[5];
+    s.in_row = w[6];
+    s.out_member = w[7];
+    s.out_pair = w[8];
+    s.out_row = w[9];
+    s.flag = static_cast<int>(w[10]);
+    if (rows < 1 || s.per_member < 1 || rows % s.per_member != 0) return -2;
+    s.first = total;
+    total += rows;
+    const long long chunk = static_cast<long long>(inverse ? kPlane : kIL * kIX) * esize;
+    s.aligned = aligned16(w[0], s.in_member, esize) && aligned16(0, s.in_row, esize) &&
+                (!inverse || aligned16(0, s.in_pair, esize)) && chunk % 16 == 0;
+  }
+  if (total > 2147483647LL) return -3;
+  return total;
+}
+
 }  // namespace
 
-// kind: 0 direct transform, 1 inverse transform, 2..5 the probes p0..p3.
+// kind: 0 direct transform of a group, 1 inverse transform of a group,
+//       2..5 the probes p0..p3.
 // mode: 0 float, 1 double, 2 bfloat16 operands (direct transform only).
-// nrows field rows, numbered member-major with per_member rows to a member.
-// ptrs, by kind:
-//   0, 2, 3, 4: grid, dft_fwd (2, ix, mx), leg_dir (il, mx, nx), out
-//   1:          spec, leg_inv transposed (il, nx, mx), dft_inv (2, mx, ix),
-//               scale (il,) or null, out
-//   5:          grid, out
-// strides (elements), by kind:
-//   0: grid member, grid row, out member, out pair, out row
-//   1: spec member, spec pair, spec row
-//   the probes take dense (N, il, ix) grids and write dense outputs.
+// count: the group's segments (kinds 0, 1), or the rows (probes).
+// tables, by kind:
+//   0:       the direct kernel's folded tables (ops/spectral.py::_fold_tables;
+//            in the 2-byte mode their bfloat16 roundings, as float)
+//   1:       the inverse kernel's folded tables, 1/cos(lat) (il,)
+//   2, 3, 4: grid, dft_fwd (2, ix, mx), leg_dir (il, mx, nx), out
+//   5:       grid, out
+// desc (kinds 0, 1): 11 int64 words per segment: input and output address,
+//   rows, rows per member, input member, pair and row strides, output member,
+//   pair and row strides (elements), flag (inverse: 1 = scale by 1/cos(lat)).
+//   The probes take dense (N, il, ix) grids and write dense outputs.
 extern "C" int pyspeedy_fused_transform(
-    int kind, int mode, long long nrows, int per_member, int il, int ix, int mx,
-    int nx, const void* const* ptrs, const long long* strides, void* stream) {
-  if (nrows <= 0) return 0;
-  if (nrows > 2147483647LL) return -3;
-  if (il < kLatTile || il % kLatTile != 0 || ix < 1 || mx < 1 || nx < 1 ||
-      per_member < 1)
-    return -2;
+    int kind, int mode, int count, int il, int ix, int mx, int nx,
+    const void* const* tables, const long long* desc, void* stream) {
+  if (count <= 0) return 0;
   if (mode < 0 || mode > 2) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 
-  if (kind == 1) {
-    const RowStrides ss = {strides[0], strides[1], strides[2]};
+  if (kind == 0 || kind == 1) {
+    if (il != kIL || ix != kIX || mx != kMX || nx != kNX) return -2;
+    const bool inverse = kind == 1;
+    if (inverse && mode == 2) return -1;
+    const int esize = mode == 0 ? 4 : mode == 1 ? 8 : 2;
+    Group g;
+    const long long total = read_group(g, count, desc, tables, inverse, esize);
+    if (total < 0) return static_cast<int>(total);
+    if (inverse) {
+      if (mode == 0)
+        return launch_persistent<spec2grid_fold_kernel<float, 192>>(192,
+                                 inverse_shared_bytes<float>(), g, total, s);
+      return launch_persistent<spec2grid_fold_kernel<double, 192>>(192,
+                               inverse_shared_bytes<double>(), g, total, s);
+    }
     if (mode == 0)
-      return launch_inverse<float>(nrows, per_member, il, ix, mx, nx, ptrs[0], ptrs[1], ptrs[2], ptrs[3], const_cast<void*>(ptrs[4]), ss, s);
+      return launch_persistent<grid2spec_fold_kernel<float, float, false, 128>>(128,
+                               direct_shared_bytes<float, float>(), g, total, s);
     if (mode == 1)
-      return launch_inverse<double>(nrows, per_member, il, ix, mx, nx, ptrs[0], ptrs[1], ptrs[2], ptrs[3], const_cast<void*>(ptrs[4]), ss, s);
-    return -1;
+      return launch_persistent<grid2spec_fold_kernel<double, double, false, 256>>(256,
+                               direct_shared_bytes<double, double>(), g, total, s);
+    return launch_persistent<grid2spec_fold_kernel<float, __nv_bfloat16, true, 128>>(128,
+                             direct_shared_bytes<float, __nv_bfloat16>(), g, total, s);
   }
-  if (kind == 5) {
-    if (mode == 0) return launch_split<float>(nrows, il, ix, mx, ptrs[0], const_cast<void*>(ptrs[1]), s);
-    if (mode == 1) return launch_split<double>(nrows, il, ix, mx, ptrs[0], const_cast<void*>(ptrs[1]), s);
-    return -1;
-  }
-  if (kind != 0 && (kind < 2 || kind > 4)) return -4;
 
-  const int stage = kind == 0 ? -1 : kind - 2;
-  RowStrides gs = {static_cast<long long>(il) * ix * per_member, 0,
-                   static_cast<long long>(il) * ix};
-  RowStrides os = {0, 0, 0};
-  if (kind == 0) {
-    gs = {strides[0], 0, strides[1]};
-    os = {strides[2], strides[3], strides[4]};
+  if (kind < 2 || kind > 5) return -4;
+  if (mode == 2) return -1;   // the probes have no 2-byte mode
+  if (il < kTJ || il % kTJ != 0 || ix < 1 || mx < 1 || nx < 1) return -2;
+  if (kind == 5) {
+    if (mode == 0) return launch_split<float>(count, il, ix, mx, tables[0], const_cast<void*>(tables[1]), s);
+    return launch_split<double>(count, il, ix, mx, tables[0], const_cast<void*>(tables[1]), s);
   }
-  void* out = const_cast<void*>(ptrs[3]);
-  if (mode == 0)
-    return launch_direct_stage<float, float, false>(stage, nrows, per_member, il, ix, mx, nx, ptrs[0], ptrs[1], ptrs[2], out, gs, os, s);
-  if (mode == 1)
-    return launch_direct_stage<double, double, false>(stage, nrows, per_member, il, ix, mx, nx, ptrs[0], ptrs[1], ptrs[2], out, gs, os, s);
-  if (kind != 0) return -1;   // the probes have no 2-byte mode
-  return launch_direct<float, __nv_bfloat16, true, -1>(nrows, per_member, il, ix, mx, nx, ptrs[0], ptrs[1], ptrs[2], out, gs, os, s);
+  if (mode == 0) return launch_probe_stage<float>(kind - 2, count, il, ix, mx, nx, tables, s);
+  return launch_probe_stage<double>(kind - 2, count, il, ix, mx, nx, tables, s);
 }

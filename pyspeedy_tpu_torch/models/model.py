@@ -138,8 +138,8 @@ def build_consts(params: ModelParams, device="cuda", physics_on: bool = True,
     if bf16_tendencies and not sp.use_dense_legendre:
         raise ValueError(
             f"bf16_tendencies=True needs the dense transform route "
-            f"(fft_mode 'matmul', or 'auto' on a CUDA device, at a "
-            f"truncation whose dense Legendre table passes the size gate); "
+            f"(fft_mode 'matmul', or 'auto' on a CUDA device, at T30, the "
+            f"truncation the fused transform kernels are built for); "
             f"fft_mode={params.fft_mode!r} at T{params.trunc} on "
             f"{device.type} takes another route, which has no bfloat16 "
             f"operand branch")

@@ -148,7 +148,7 @@ def grid_tendency_specs(consts, state, j2: int, physics_fn=None, ctx=None):
     grid dynamics (the CUDA kernel on the card, the plain version on the CPU)
     -> physics (physics_fn, when given, adds its tendencies at time level 0
     and writes its diagnostics into the state) -> direct transforms, one
-    transform call per field. Returns
+    grouped transform call each way. Returns
     (specs, psdt, state) where specs is the list of direct-transform outputs
     (wind/flux pairs then ke, ttend, tracer tendencies) still awaiting the
     spectral-side combination (tendencies.f90:238-268 second half), and psdt
@@ -168,26 +168,21 @@ def grid_tendency_specs(consts, state, j2: int, physics_fn=None, ctx=None):
     # --- prognostics to grid space (tendencies.f90:109-130) ---
     # The cos-lat scaling of the reference's kcos=2 variant commutes with the
     # linear transform and is applied after, in the grid-dynamics function.
-    # The grid-dynamics kernel takes dense tensors: the fused transform
-    # kernel and the fft route return one (contiguous() is then a no-op), an
-    # einsum of the third route may return a permuted view.
+    # The seven stacks go to the grid as one group (one kernel launch on the
+    # card). The grid-dynamics kernel takes dense tensors: the fused
+    # transform kernel and the fft route return one (contiguous() is then a
+    # no-op), an einsum of the third route may return a permuted view.
     ucos, vcos = S.vort2vel_p(sp, vor, div, PDIM)
     psdx, psdy = S.gradient_p(sp, ps, PDIM)
-    to_grid = lambda f: S.spec2grid_p(sp, f, 1, PDIM).contiguous()
-    vorg, divg, tg = to_grid(vor), to_grid(div), to_grid(t)
-    trg_flat = to_grid(tr.flatten(2, 3))
-    ug, vg = to_grid(ucos), to_grid(vcos)
-    pxy = to_grid(torch.stack([psdx, psdy], dim=2))   # (B, 2, il, ix)
+    vorg, divg, tg, trg_flat, ug, vg, pxy = (
+        g.contiguous() for g in S.spec2grid_many_p(
+            sp, [vor, div, t, tr.flatten(2, 3), ucos, vcos,
+                 torch.stack([psdx, psdy], dim=2)], 1, PDIM))
 
     (utend, vtend, ttend, trtend_flat, psdt_g, flux_ut, flux_vt,
      flux_qu, flux_qv, ke) = grid_dynamics(
         grid_dynamics_core, consts.col, vorg, divg, tg, trg_flat, ug, vg, pxy,
         bf16_out=consts.bf16_tendencies)
-
-    # --- log-ps tendency (tendencies.f90:144-149): the (0,0) spectral mean
-    # is zeroed in place on the fresh tensor.
-    psdt = S.grid2spec_p(sp, psdt_g, PDIM)
-    psdt[..., 0, 0] = 0.0
 
     state = dict(state)
     # --- physics (tendencies.f90:229-232) ---
@@ -197,18 +192,23 @@ def grid_tendency_specs(consts, state, j2: int, physics_fn=None, ctx=None):
             consts, state, ctx, utend, vtend, ttend, trtend_flat)
 
     # --- back to spectral (tendencies.f90:238-268) ---
-    # Direct transforms of every outgoing field: the wind/flux pairs (scaled
-    # by 1/cos as in grid_vel2vort's kcos=2) plus the scalar tendencies. With
+    # Direct transforms of every outgoing field, as one group (one kernel
+    # launch on the card at ntr <= 3): the grid log-ps tendency (the physics
+    # does not change it), the wind/flux pairs (scaled by 1/cos as in
+    # grid_vel2vort's kcos=2) plus the scalar tendencies. With
     # bf16_tendencies the operands arrive in bfloat16 from the kernels; the
     # 1/cos scaling stays in their type so that nothing widens them again.
     rcos = consts.col.rcos.to(utend.dtype)
-    inputs = [utend * rcos, vtend * rcos, flux_ut, flux_vt]
+    inputs = [psdt_g, utend * rcos, vtend * rcos, flux_ut, flux_vt]
     for i in range(ntr):
         inputs += [flux_qu[:, i * kx:(i + 1) * kx],
                    flux_qv[:, i * kx:(i + 1) * kx]]
     inputs += [ke, ttend]
     inputs += [trtend_flat[:, i * kx:(i + 1) * kx] for i in range(ntr)]
-    specs = [S.grid2spec_p(sp, f, PDIM) for f in inputs]
+    psdt, *specs = S.grid2spec_many_p(sp, inputs, PDIM)
+    # --- log-ps tendency (tendencies.f90:144-149): the (0,0) spectral mean
+    # is zeroed in place on the fresh tensor.
+    psdt[..., 0, 0] = 0.0
 
     return specs, psdt, state
 

@@ -84,11 +84,12 @@ KERNELS = {
         extra_flags=("-fmad=false",),
         counters=("grid_physics_sw", "grid_physics_nosw",
                   "grid_physics_sw_bf16", "grid_physics_nosw_bf16")),
-    # One entry point with a `kind` argument: direct, inverse, four probes.
+    # One entry point with a `kind` argument: a direct or an inverse group,
+    # four probes.
     "fused_transform": KernelSpec(
         source=_CSRC / "fused_transform.cu",
         symbol="pyspeedy_fused_transform",
-        argtypes=(_I, _I, _L, _I, _I, _I, _I, _I, _P, _P, _P),
+        argtypes=(_I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
         counters=("fused_grid2spec", "fused_grid2spec_bf16",
                   "fused_spec2grid", "fused_probe")),
     # -fmad=false as for the physics: the plain version's separate passes

@@ -27,19 +27,21 @@ Conventions (mirroring the reference):
 Three transform routes, chosen when the tables are built:
 
 * the **dense route** (``use_matmul_fft and use_dense_legendre``: the DFT as
-  a matrix product and a dense-table size that passes the gate in
-  ``build_spectral``, i.e. ``fft_mode`` "matmul", or "auto" on a CUDA
-  device, at T30). ``grid2spec_p`` / ``spec2grid_p`` hand it to
-  ``ops.transform_kernels``: a CUDA tensor launches the hand-written fused
-  kernel (``csrc/fused_transform.cu``) or the call raises; a CPU tensor takes
-  the kernel's plain version, the chain of four ``torch.matmul`` against the
-  DFT matrices and the ``leg_*_dense`` tables. A CUDA tensor never reaches
-  that chain through these functions.
+  a matrix product at the T30 shape the kernels are built for, i.e.
+  ``fft_mode`` "matmul", or "auto" on a CUDA device, at T30).
+  ``grid2spec_p`` / ``spec2grid_p`` and their grouped forms
+  ``grid2spec_many_p`` / ``spec2grid_many_p`` (one launch for a group of up
+  to 16 fields) hand it to ``ops.transform_kernels``: a CUDA tensor launches
+  the hand-written fused kernel (``csrc/fused_transform.cu``) or the call
+  raises; a CPU tensor takes the kernel's plain version, the chain of four
+  ``torch.matmul`` against the DFT matrices and the ``leg_*_dense`` tables.
+  A CUDA tensor never reaches that chain through these functions.
 * the **fft route** (``fft_mode="fft"``, and "auto" on the CPU):
   ``torch.fft`` and a Legendre einsum, on either device.
-* the **einsum route** (matmul DFT, dense table over the size gate: T47, T63):
-  two einsums, on either device. The gate is the JAX package's: it decided
-  which truncations its fused kernel could serve, and decides the same here.
+* the **einsum route** (matmul DFT at any other truncation: T47, T63):
+  two einsums, on either device. The JAX package's size gate sends T47 and
+  T63 there too; another truncation that would pass that gate takes this
+  route as well, since the kernels serve T30 alone.
 
 The last two are routes of their own, not plain versions of the kernels; their
 products go to ``torch.fft`` / ``torch.einsum`` as the JAX package left them
@@ -62,7 +64,8 @@ from .geometry import Geometry
 
 __all__ = [
     "SpectralTransform", "build_spectral", "gaussian_nodes_and_weights",
-    "grid2spec_p", "spec2grid_p", "gradient_p", "vel2vort_p", "vort2vel_p",
+    "grid2spec_p", "spec2grid_p", "grid2spec_many_p", "spec2grid_many_p",
+    "gradient_p", "vel2vort_p", "vort2vel_p",
     "grid_vel2vort_p", "pair", "unpair", "grid2spec", "spec2grid", "gradient",
     "vel2vort", "vort2vel", "grid_vel2vort",
     "truncate", "grid_filter", "laplacian", "laplacian_inv",
@@ -181,17 +184,20 @@ class SpectralTransform(NamedTuple):
     # stage into a plain (..., il*mx) @ (il*mx, mx*nx) product with no batch
     # dimension. The mx-fold redundancy in operations buys one large GEMM.
     # They serve the plain matmul chain of the dense route only (CPU tensors,
-    # and the kernels' yardstick on the card): the fused kernels read the
-    # (il, mx, nx) operators.
+    # and the kernels' yardstick on the card).
     leg_dir_dense: torch.Tensor  # (il*mx, mx*nx) or (1,1) placeholder
     leg_inv_dense: torch.Tensor  # (mx*nx, il*mx) or (1,1) placeholder
-    # What the fused kernels read besides the tables above: the inverse
-    # Legendre operator transposed so that m is the fastest axis, and the
-    # direct tables rounded to bfloat16 for the 2-byte operand mode (that
-    # mode's plain chain rounds leg_dir_dense where it is called).
-    cpol_inv_t: torch.Tensor          # (il, nx, mx)
+    # The direct DFT tables rounded to bfloat16 for the 2-byte operand mode
+    # (that mode's plain chain rounds leg_dir_dense where it is called).
     dft_fwd_ri_bf16: torch.Tensor     # (2, ix, mx) bfloat16
-    cpol_dir_full_bf16: torch.Tensor  # (il, mx, nx) bfloat16
+    # What the fused kernels read, in the order of their shared memory (see
+    # _fold_tables): the folded DFT and Legendre tables of the direct
+    # transform (fold_dir; fold_dir_bf16 holds the bfloat16 roundings of the
+    # same values, as float32) and of the inverse one (fold_inv). (1,)
+    # placeholders off the dense route.
+    fold_dir: torch.Tensor
+    fold_dir_bf16: torch.Tensor
+    fold_inv: torch.Tensor
     use_matmul_fft: bool = False
     use_dense_legendre: bool = False
 
@@ -222,6 +228,35 @@ class SpectralTransform(NamedTuple):
     @property
     def device(self):
         return self.wt.device
+
+
+def _fold_tables(dft_fwd, leg_dir, dft_inv, leg_inv):
+    """The fused kernels' tables, flat, in the order of their shared memory.
+
+    The transforms are folded by the structure of their tables: the Legendre
+    operators have hemispheric parity, L[il-1-j, m, n] = (-1)^n L[j, m, n],
+    and vanish where m + n > nx - 1, so only the northern latitudes and the
+    triangle of (m, n) pairs are kept, row p = (m, n) in m-major order; the
+    DFT tables have half-period symmetry, D[i + ix/2] = (-1)^m D[i], so only
+    the first half of the longitudes is kept, with the wavenumbers split by
+    parity into columns c * h + q for m = 2q + parity (h = ceil(mx/2); zero
+    where m >= mx).
+    direct:  (2 parity, ix/2, 2h) DFT, then (il/2, triangle) Legendre;
+    inverse: (il/2, triangle) Legendre, then (2 parity, 2h, ix/2) DFT."""
+    _, ix, mx = dft_fwd.shape
+    il, _, nx = leg_dir.shape
+    ih, iy, h = ix // 2, il // 2, (mx + 1) // 2
+    tri_m, tri_n = np.array([(m, n) for m in range(mx)
+                             for n in range(nx - m)]).T
+    d_fwd = np.zeros((2, ih, 2 * h))
+    d_inv = np.zeros((2, 2 * h, ih))
+    for par in range(2):
+        ms = np.arange(par, mx, 2)
+        for c in range(2):
+            d_fwd[par, :, c * h:c * h + len(ms)] = dft_fwd[c][:ih, ms]
+            d_inv[par, c * h:c * h + len(ms)] = dft_inv[c][ms, :ih]
+    return (np.concatenate([d_fwd.ravel(), leg_dir[:iy, tri_m, tri_n].ravel()]),
+            np.concatenate([leg_inv[:iy, tri_m, tri_n].ravel(), d_inv.ravel()]))
 
 
 def build_spectral(params: ModelParams, geom: Geometry,
@@ -304,11 +339,13 @@ def build_spectral(params: ModelParams, geom: Geometry,
          ((cpol_even + cpol_odd) * wt3)[::-1]], axis=0)
 
     # Dense block-diagonal Legendre matrices (see SpectralTransform docstring).
-    # Gated by size, with the JAX package's threshold: the zero-padding costs
-    # mx-fold operations and memory (il*mx*mx*nx entries per operator), so
-    # T30 takes the dense form and T47/T63 the einsum form.
+    # The dense route is the fused kernels' route, and they are built for the
+    # T30 shape alone: every other truncation takes the einsum form (at
+    # T47/T63 the JAX package's size gate, il*mx*mx*nx <= 4e6 entries per
+    # operator, does the same; another truncation that passes that gate takes
+    # the einsum form here and the dense one there, the same transform).
     il = 2 * iy
-    use_dense = use_matmul_fft and (il * mx * mx * nx) <= 4_000_000
+    use_dense = use_matmul_fft and (il, ix, mx, nx) == TK.T30_SHAPE
     if use_dense:
         idx = np.arange(mx)
         Dd = np.zeros((il, mx, mx, nx))
@@ -317,9 +354,13 @@ def build_spectral(params: ModelParams, geom: Geometry,
         Ed = np.zeros((mx, nx, il, mx))
         Ed[idx, :, :, idx] = cpol_inv_full.transpose(1, 2, 0)
         leg_inv_dense = Ed.reshape(mx * nx, il * mx)
+        fold_dir, fold_inv = _fold_tables(
+            np.stack([dft_fwd_re, dft_fwd_im]), cpol_dir_full,
+            np.stack([dft_inv_re, dft_inv_im]), cpol_inv_full)
     else:
         leg_dir_dense = np.zeros((1, 1))
         leg_inv_dense = np.zeros((1, 1))
+        fold_dir = fold_inv = np.zeros((1,))
 
     a = lambda x: torch.from_numpy(
         np.ascontiguousarray(np.asarray(x, dtype=params.np_dtype))).to(device)
@@ -340,9 +381,9 @@ def build_spectral(params: ModelParams, geom: Geometry,
         dft_fwd_ri=a(np.stack([dft_fwd_re, dft_fwd_im])),
         dft_inv_ri=a(np.stack([dft_inv_re, dft_inv_im])),
         leg_dir_dense=a(leg_dir_dense), leg_inv_dense=a(leg_inv_dense),
-        cpol_inv_t=a(cpol_inv_full.transpose(0, 2, 1)),
         dft_fwd_ri_bf16=bf(np.stack([dft_fwd_re, dft_fwd_im])),
-        cpol_dir_full_bf16=bf(cpol_dir_full),
+        fold_dir=a(fold_dir), fold_dir_bf16=bf(fold_dir).float(),
+        fold_inv=a(fold_inv),
         use_matmul_fft=use_matmul_fft,
         use_dense_legendre=use_dense,
     )
@@ -360,16 +401,70 @@ def build_spectral(params: ModelParams, geom: Geometry,
 # pairs, wherever the pair axis sits.
 
 
+def _dense(sp: SpectralTransform) -> bool:
+    return sp.use_matmul_fft and sp.use_dense_legendre
+
+
 def grid2spec_p(sp: SpectralTransform, grid: torch.Tensor,
                 pdim: int = 0) -> torch.Tensor:
     """Grid (..., il, ix) -> spectral pair (spectral.f90:263-273), the pair
     axis inserted at `pdim` of the result: (2, ..., mx, nx) for pdim=0,
-    (B, 2, ..., mx, nx) for pdim=1. On the dense route a CUDA tensor goes
-    through the fused kernel and a CPU tensor through its plain chain (see
-    the module docstring); a bfloat16 grid takes the 2-byte operand mode
-    there and is widened on the other routes."""
-    if sp.use_matmul_fft and sp.use_dense_legendre:
-        return TK.fused_grid2spec(sp, grid, pdim)
+    (B, 2, ..., mx, nx) for pdim=1. A group of one (see grid2spec_many_p): on
+    the dense route a CUDA tensor goes through the fused kernel and a CPU
+    tensor through its plain chain (see the module docstring); a bfloat16
+    grid takes the 2-byte operand mode there and is widened on the other
+    routes."""
+    return grid2spec_many_p(sp, [grid], pdim)[0]
+
+
+def spec2grid_p(sp: SpectralTransform, p: torch.Tensor, kcos: int = 1,
+                pdim: int = 0) -> torch.Tensor:
+    """Spectral pair -> grid (..., il, ix) (spectral.f90:251-261); `pdim` is
+    the position of the pair axis in `p`. kcos=1: raw field; otherwise the
+    output is scaled by 1/cos(lat). A group of one (see spec2grid_many_p).
+
+    The reference's "discard the m=0 imaginary part" rule (fourier.f90:72-76)
+    is inherent in dft_inv_ri[1, 0, :] == 0 on the matmul paths and explicit
+    on the fft path. On the dense route a CUDA tensor goes through the fused
+    kernel (the 1/cos scaling folded into its store) and a CPU tensor through
+    its plain chain."""
+    return spec2grid_many_p(sp, [p], [kcos], pdim)[0]
+
+
+def grid2spec_many_p(sp: SpectralTransform, grids, pdim: int = 0) -> list:
+    """grid2spec_p of each field of a list, the same values as one call per
+    field. On the dense route the fields go to the fused kernel in groups of
+    up to TK.MAX_SEGMENTS, one launch per group and element type on the card
+    (the plain chain, field by field, on the CPU); on the other routes one
+    field at a time."""
+    grids = list(grids)
+    if not _dense(sp):
+        return [_grid2spec_routes(sp, g, pdim) for g in grids]
+    n = TK.MAX_SEGMENTS
+    return [out for i in range(0, len(grids), n)
+            for out in TK.fused_grid2spec_many(sp, grids[i:i + n], pdim)]
+
+
+def spec2grid_many_p(sp: SpectralTransform, pairs, kcos=1,
+                     pdim: int = 0) -> list:
+    """spec2grid_p of each spectral pair of a list, `kcos` one value or one
+    per field; the same values as one call per field. On the dense route the
+    fields go to the fused kernel in groups of up to TK.MAX_SEGMENTS (each
+    field with its own 1/cos(lat) flag); on the other routes one field at a
+    time."""
+    pairs = list(pairs)
+    kcos = TK.kcos_list(kcos, len(pairs))
+    if not _dense(sp):
+        return [_spec2grid_routes(sp, p, k, pdim) for p, k in zip(pairs, kcos)]
+    n = TK.MAX_SEGMENTS
+    return [out for i in range(0, len(pairs), n)
+            for out in TK.fused_spec2grid_many(sp, pairs[i:i + n],
+                                               kcos[i:i + n], pdim)]
+
+
+def _grid2spec_routes(sp: SpectralTransform, grid: torch.Tensor,
+                      pdim: int) -> torch.Tensor:
+    """grid2spec_p on the fft and einsum routes."""
     if grid.dtype == torch.bfloat16:
         grid = grid.to(sp.rdtype)
     if not sp.use_matmul_fft:
@@ -383,19 +478,9 @@ def grid2spec_p(sp: SpectralTransform, grid: torch.Tensor,
     return S2.movedim(0, pdim)
 
 
-def spec2grid_p(sp: SpectralTransform, p: torch.Tensor, kcos: int = 1,
-                pdim: int = 0) -> torch.Tensor:
-    """Spectral pair -> grid (..., il, ix) (spectral.f90:251-261); `pdim` is
-    the position of the pair axis in `p`. kcos=1: raw field; otherwise the
-    output is scaled by 1/cos(lat).
-
-    The reference's "discard the m=0 imaginary part" rule (fourier.f90:72-76)
-    is inherent in dft_inv_ri[1, 0, :] == 0 on the matmul paths and explicit
-    on the fft path. On the dense route a CUDA tensor goes through the fused
-    kernel (the 1/cos scaling folded into its store) and a CPU tensor through
-    its plain chain."""
-    if sp.use_matmul_fft and sp.use_dense_legendre:
-        return TK.fused_spec2grid(sp, p, kcos, pdim)
+def _spec2grid_routes(sp: SpectralTransform, p: torch.Tensor, kcos: int,
+                      pdim: int) -> torch.Tensor:
+    """spec2grid_p on the fft and einsum routes."""
     if not sp.use_matmul_fft:
         ix = 2 * sp.il  # ix == 2*il for the supported grids (96 = 2*48)
         F2 = torch.einsum("jmn,...mn->...jm", sp.cpol_inv_full, p)

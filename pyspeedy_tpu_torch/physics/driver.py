@@ -221,24 +221,27 @@ def physics_grid_inputs(consts, state, sw_flag: bool):
     small zonally-uniform m=0 lapse-rate correction is synthesized here."""
     sp = consts.sp
     pdim = 1
-    # kcos=2 scales the winds by 1/cos(lat) (inside the fused transform
-    # kernel on the card). The physics kernel takes dense tensors: the fused
-    # kernel and the fft route return one (contiguous() is then a no-op), an
-    # einsum of the third route may return a permuted view.
-    to_grid = lambda f, kcos=1: S.spec2grid_p(sp, f, kcos, pdim).contiguous()
+    # The fields go to the grid as one group (one kernel launch on the
+    # card); kcos=2 scales the winds by 1/cos(lat) (inside the fused
+    # transform kernel on the card). The physics kernel takes dense tensors:
+    # the fused kernel and the fft route return one (contiguous() is then a
+    # no-op), an einsum of the third route may return a permuted view.
     ucos, vcos = S.vort2vel_p(sp, state["vor"][0], state["div"][0], pdim)
     t_spec = state["t"][0]
-    ug = to_grid(ucos, 2)
-    vg = to_grid(vcos, 2)
-    tg = to_grid(t_spec)
-    qg = to_grid(state["tr"][0][:, :, 0])
-    pslg = to_grid(state["ps"][0])
+    fields = [ucos, vcos, t_spec, state["tr"][0][:, :, 0], state["ps"][0]]
+    kcos = [2, 2, 1, 1, 1]
+    if not consts.grid_phi:
+        fields.append(state["phi"])
+        kcos.append(1)
+    grids = [g.contiguous() for g in
+             S.spec2grid_many_p(sp, fields, kcos, pdim)]
+    ug, vg, tg, qg, pslg = grids[:5]
     phig = phisg = m0corr = None
     if consts.grid_phi:
         phisg = state["phisg"]
         m0corr = hydrostatic_m0corr(consts.gp, sp, t_spec).contiguous()
     else:
-        phig = to_grid(state["phi"])
+        phig = grids[5]
 
     bc = tuple(state[name] for name in BC_FIELDS)
     # A shortwave step never reads the cache: pass none. On the other steps

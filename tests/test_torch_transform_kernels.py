@@ -118,13 +118,13 @@ def test_plain_inverse_transform_matches_jax(prec, pdim, k):
 def test_spectral_module_takes_the_dense_route_through_these_functions(
         monkeypatch):
     """ops.spectral hands the dense route to transform_kernels; the other two
-    routes never come here."""
+    routes never come here. A single field is a group of one."""
     _, tsp = transforms("f64")
     calls = []
-    monkeypatch.setattr(TK, "fused_grid2spec",
-                        lambda *a: calls.append("direct") or "d")
-    monkeypatch.setattr(TK, "fused_spec2grid",
-                        lambda *a: calls.append("inverse") or "i")
+    monkeypatch.setattr(TK, "fused_grid2spec_many",
+                        lambda sp, f, *a: calls.append("direct") or ["d"])
+    monkeypatch.setattr(TK, "fused_spec2grid_many",
+                        lambda sp, f, *a: calls.append("inverse") or ["i"])
     g = torch.zeros(tsp.il, tsp.ix, dtype=torch.float64)
     p = torch.zeros(2, tsp.mx, tsp.nx, dtype=torch.float64)
     assert TS.grid2spec_p(tsp, g) == "d" and TS.spec2grid_p(tsp, p, 2) == "i"
@@ -209,15 +209,35 @@ def test_bf16_grid_needs_float32_tables():
 
 
 def test_kernel_tables_are_views_of_the_operators():
-    """What the kernels read: the inverse Legendre operator with m fastest
-    and the direct tables rounded to bfloat16 from their float32 values."""
+    """What the kernels read: the operators' values, rearranged (the DFT
+    tables' first half period split by the parity of m, the Legendre
+    operators' northern rows over the triangle m + n <= nx - 1), and the
+    direct tables rounded to bfloat16 from their float32 values."""
     _, tsp = transforms("f32")
-    assert torch.equal(tsp.cpol_inv_t, tsp.cpol_inv_full.permute(0, 2, 1))
-    assert tsp.cpol_inv_t.is_contiguous()
+    il, ix, mx, nx = tsp.il, tsp.ix, tsp.mx, tsp.nx
+    ih, iy, h = ix // 2, il // 2, (mx + 1) // 2
+    tri = [(m, n) for m in range(mx) for n in range(nx - m)]
+    tm, tn = (torch.tensor(x) for x in zip(*tri))
+    ntri = iy * len(tri)
+    dft = tsp.fold_dir[:-ntri].reshape(2, ih, 2 * h)
+    assert torch.equal(tsp.fold_dir[-ntri:].reshape(iy, -1),
+                       tsp.cpol_dir_full[:iy, tm, tn])
+    assert torch.equal(tsp.fold_inv[:ntri].reshape(iy, -1),
+                       tsp.cpol_inv_full[:iy, tm, tn])
+    inv = tsp.fold_inv[ntri:].reshape(2, 2 * h, ih)
+    for par in range(2):
+        ms = torch.arange(par, mx, 2)
+        for c in range(2):
+            cols = slice(c * h, c * h + len(ms))
+            assert torch.equal(dft[par, :, cols], tsp.dft_fwd_ri[c][:ih, ms])
+            assert torch.equal(inv[par, cols], tsp.dft_inv_ri[c][ms, :ih])
+        assert float(dft[par, :, c * h + len(ms):].abs().sum()) == 0.0
+    assert tsp.fold_dir.is_contiguous() and tsp.fold_inv.is_contiguous()
+    assert tsp.fold_dir.numel() == tsp.fold_inv.numel() == 15720
     assert torch.equal(tsp.dft_fwd_ri_bf16,
                        tsp.dft_fwd_ri.to(torch.bfloat16))
-    assert torch.equal(tsp.cpol_dir_full_bf16,
-                       tsp.cpol_dir_full.to(torch.bfloat16))
+    assert torch.equal(tsp.fold_dir_bf16,
+                       tsp.fold_dir.to(torch.bfloat16).float())
     assert float(tsp.dft_inv_ri[1, 0].abs().max()) == 0.0
 
 
@@ -319,8 +339,8 @@ def test_kernel_source_and_build_command():
     for banned in ("torch/extension.h", "cublas", "cutlass/gemm/device",
                    "#include <cutlass"):
         assert banned not in text, banned
-    for kernel in ("grid2spec_kernel", "spec2grid_kernel",
-                   "split_probe_kernel"):
+    for kernel in ("grid2spec_fold_kernel", "spec2grid_fold_kernel",
+                   "probe_stage_kernel", "split_probe_kernel"):
         assert kernel in text
     for replaced in ("tools/exp_fused_transform.py:65",
                      "tools/exp_fused_transform.py:121",
@@ -328,7 +348,7 @@ def test_kernel_source_and_build_command():
         assert replaced in text
     cmd = ck.build_command("fused_transform", "nvcc", "out.so")
     assert "arch=compute_90a,code=sm_90a" in cmd and "-fmad=false" not in cmd
-    assert len(spec.argtypes) == 11
+    assert len(spec.argtypes) == 10
     assert set(spec.counters) == {"fused_grid2spec", "fused_grid2spec_bf16",
                                   "fused_spec2grid", "fused_probe"}
 
