@@ -19,7 +19,10 @@ members; the bf16_tendencies configuration at a reduced depth; the probe
 stages on the model's own fields; the DFT chain through its entry point),
 checks the results and the exact launch counts of every path (for the
 transforms, launches and fields apart), and that no plain version ran on the
-card, and prints what it measured. It needs a CUDA
+card, and prints what it measured: among it the registers, occupancy and
+SASS float/double conversions of the physics and spectral-update kernels,
+the physics kernel on the model's state after a day, the spectral update at
+B=1 and across member tiles (bitwise). It needs a CUDA
 device and exits non-zero without one; there is no CPU fallback. Every phase
 that fails raises, so the run exits non-zero.
 
@@ -36,6 +39,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -443,6 +447,13 @@ def check_physics(params, n_members, limit, card, what, sea=0, inputs=None,
               + ", ".join(f"{k} {100 * v:.1f}%" for k, v in shares.items()))
         if not timed:
             continue
+        same_b1 = first_member_bitwise(consts, args_sw, kwargs, got) and \
+            first_member_bitwise(consts, args_ns, kwargs, got_ns)
+        if not same_b1:
+            raise RuntimeError(f"grid_physics {tag}: member 0 alone differs "
+                               f"from member 0 of the batch")
+        print(f"  {tag}: member 0 alone (B=1) equals member 0 of B="
+              f"{tg.shape[0]} bitwise, both variants")
         for sw_flag, a, w, g, worst, flips in (
                 (True, args_sw, want, got, worst_sw, flips_sw),
                 (False, args_ns, want_ns, got_ns, worst_ns, flips_ns)):
@@ -471,6 +482,22 @@ def check_physics(params, n_members, limit, card, what, sea=0, inputs=None,
 
 
 check_physics.consts64 = {}
+
+
+def first_member_bitwise(consts, args, kwargs, got) -> bool:
+    """The kernel on member 0 alone (B=1) against member 0 of its batched
+    result `got`, bitwise: every output."""
+    one = lambda x: (None if x is None else tuple(one(a) for a in x)
+                     if isinstance(x, tuple) else x[:1] if x.dim() >= 3
+                     else x)
+    sw_flag = len(args[7]) == 0
+    a1 = tuple(one(x) for x in args[:8]) + (args[8][:1] if args[8].dim() else
+                                            args[8],)
+    k1 = {k: one(v) if k != "phisg" else v for k, v in kwargs.items()}
+    alone = ck.grid_physics_cuda(consts, sw_flag, *a1, **k1)
+    torch.cuda.synchronize()
+    return all(torch.equal(x, y[:1]) for x, y in zip(_flatten(alone),
+                                                     _flatten(got)))
 
 
 def state_physics_inputs(consts, state) -> dict:
@@ -1087,23 +1114,49 @@ def check_spectral_update(params, limit: float, card: str):
     launch = lambda: GK.spectral_update_cuda(consts, 2, dt, eps, specs,
                                              *state)
     outs = launch()
+    # A member's result is the same bits whatever tile or lane it lands in
+    # (the batch cut at offsets that move every member to another tile and
+    # lane), and alone (B=1).
+    offsets = (1, 5, 19)
+    for off in offsets:
+        cut = lambda xs: [x[off:] for x in xs]
+        again = GK.spectral_update_cuda(consts, 2, dt, eps, cut(specs),
+                                        *cut(state))
+        if not all(torch.equal(x, y[off:]) for x, y in zip(again, outs)):
+            raise RuntimeError(f"spectral_update T30L{p.kx} {p.precision}: "
+                               f"the batch from member {off} on changes the "
+                               f"result")
+    first = lambda xs: [x[:1] for x in xs]
+    alone = GK.spectral_update_cuda(consts, 2, dt, eps, first(specs),
+                                    *first(state))
+    if not all(torch.equal(x, y[:1]) for x, y in zip(alone, outs)):
+        raise RuntimeError(f"spectral_update T30L{p.kx} {p.precision}: "
+                           f"member 0 alone differs from member 0 of the "
+                           f"batch")
     ms = kernel_device_ms(launch, "spectral_update_kernel")
     call_ms = time_ms(launch, reps=20)
+    ms_b1 = kernel_device_ms(lambda: GK.spectral_update_cuda(
+        consts, 2, dt, eps, first(specs), *first(state)),
+        "spectral_update_kernel")
     plain_ms = time_ms(lambda: SG.spectral_update_plain(
         consts, 2, dt, eps, specs, *state), reps=3, warmup=1, windows=3)
     bound_ms, bound_by, nbytes = glue_bound(p, N_MEMBERS, (*specs, *state),
                                             outs)
+    bound_b1 = glue_bound(p, 1, (*first(specs), *first(state)), first(outs))[0]
     print(f"kernel spectral_update T30L{p.kx} {p.precision} B={N_MEMBERS}: "
           f"max rel err vs plain {worst:.3e} (limit {limit:.0e}) over the "
           f"ten outputs of 6 cases; kernel {ms:.4f} ms on the card "
           f"({call_ms:.4f} ms per wrapper call, back to back), plain "
           f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-          f"({nbytes / 1e6:.1f} MB) = {100 * bound_ms / ms:.0f}% [{card}]")
+          f"({nbytes / 1e6:.1f} MB) = {100 * bound_ms / ms:.0f}%; B=1 "
+          f"{ms_b1:.4f} ms (bound {bound_b1:.4f}); the batch from members "
+          f"{', '.join(map(str, offsets))} on and member 0 alone give the "
+          f"same bits [{card}]")
     for line in lines:
         print(line)
     return {"max_rel_err": worst, "max_abs_err": max_abs, "ms": ms,
             "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "ms_b1": ms_b1, "bound_ms_b1": bound_b1}
 
 
 def check_spectral_update_on_state(consts, state, limit: float):
@@ -1300,6 +1353,79 @@ def build_report() -> list:
     return rows
 
 
+def sass_counts(lib, bases=("grid_physics_kernel",
+                               "spectral_update_kernel")) -> dict:
+    """{mangled kernel name: (conversions between float and double, all F2F
+    conversions, instructions)} of the kernels of library `lib` whose names
+    hold one of `bases`, counted in the SASS that cuobjdump prints (F2F is
+    the conversion between floating-point types; F2F.F32.F64 and
+    F2F.F64.F32 are those between float and double)."""
+    import re
+    tool = Path(ck.find_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in text.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            name = head.group(1) if any(b in head.group(1) for b in bases) \
+                else None
+            if name:
+                counts[name] = [0, 0, 0]
+            continue
+        if name is None or not re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            continue
+        c = counts[name]
+        c[2] += 1
+        if re.search(r"\bF2F\.", line):
+            c[1] += 1
+            if re.search(r"F2F\.F(32\.F64|64\.F32)", line):
+                c[0] += 1
+    return {k: tuple(v) for k, v in counts.items()}
+
+
+def sass_report(libs) -> list:
+    """One line per kernel instantiation of `libs`: its conversions between
+    float and double, all its F2F conversions and its instruction count."""
+    import re
+    rows = []
+    for lib in libs:
+        for name, (f2f64, f2f, n) in sorted(sass_counts(lib).items()):
+            m = re.search(r"(grid_physics_kernel|spectral_update_kernel)I(.+?)EEv",
+                          name)
+            targs = m.group(2) if m else name
+            rows.append(f"{Path(str(lib)).name} {m.group(1) if m else ''}"
+                        f"<{targs}>: F2F float<->double {f2f64}, all F2F "
+                        f"{f2f}, {n} instructions")
+    return rows
+
+
+def occupancy_report(libs) -> dict:
+    """{instantiation: (resident blocks per SM, threads a block, shared
+    memory a block, registers, local memory bytes)} of the two
+    column-parallel kernels at T30 (nx = 32, one tracer), from the CUDA
+    runtime (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    import ctypes
+    rows, out = {}, (ctypes.c_int * 5)()
+    phys = ctypes.CDLL(str(libs["grid_physics"])).pyspeedy_grid_physics_occupancy
+    glue = ctypes.CDLL(str(libs["spectral_update"])).pyspeedy_spectral_update_occupancy
+    word = lambda flag: "true" if flag else "false"
+    cases = [(f"grid_physics_kernel<{t}, {kx}, {word(sw)}, {word(bf16)}>",
+              lambda es=es, bf16=bf16, kx=kx, sw=sw: phys(es, bf16, kx, sw, out))
+             for t, es, bf16 in (("float", 4, 0), ("double", 8, 0),
+                                 ("float", 4, 1))
+             for kx in (5, 7, 8) for sw in (1, 0)]
+    cases += [(f"spectral_update_kernel<{t}, {kx}>",
+               lambda es=es, kx=kx: glue(es, kx, 1, 32, out))
+              for t, es in (("float", 4), ("double", 8)) for kx in (5, 7, 8)]
+    for name, call in cases:
+        rc = call()
+        if rc != 0:
+            raise RuntimeError(f"occupancy query of {name} failed with {rc}")
+        rows[name] = tuple(out)
+    return rows
+
+
 def run_window(run, state, cal, first_step: int, n_steps: int):
     """n_steps through the batched runner; returns (state, calendar after,
     wall seconds including the final synchronize)."""
@@ -1427,6 +1553,20 @@ def main() -> None:
           + ", ".join(p.name for p in libs.values()))
     for row in build_report():
         print("  " + row)
+    print("occupancy of the two column-parallel kernels (CUDA runtime):")
+    occupancy = occupancy_report(libs)
+    for name, (blocks, threads, smem, regs, local) in occupancy.items():
+        print(f"  {name}: {regs} registers, {local} B local memory, "
+              f"{threads} threads and {smem / 1024:.1f} KB shared memory a "
+              f"block, {blocks} blocks = {blocks * threads // 32} warps per SM")
+    print("SASS of the two column-parallel kernels (cuobjdump): conversions "
+          "between float and double, all F2F, instructions")
+    for row in sass_report([libs["grid_physics"], libs["spectral_update"]]):
+        print("  " + row)
+    f2f = {k: v[0] for lib in (libs["grid_physics"], libs["spectral_update"])
+           for k, v in sass_counts(lib).items()}
+    f2f_float = lambda base: sum(
+        v for k, v in f2f.items() if base + "If" in k)
 
     # 3. grid-dynamics kernel vs plain at the main path's shapes
     f32 = dataclasses.replace(T30L8, precision="f32", fft_mode="matmul")
@@ -1569,8 +1709,10 @@ def main() -> None:
     # The physics kernel once more, on the model's own columns after that
     # day (float32, both variants, the main path's grid_phi mode and an SPPT
     # pattern).
-    check_physics(f32, N_MEMBERS, 1e-5, card, ("grid_phi", "sppt"),
-                  inputs=state_physics_inputs(consts, state))
+    state_in = state_physics_inputs(consts, state)
+    phys_state = check_physics(f32, N_MEMBERS, 1e-5, card, ("grid_phi",),
+                               inputs=state_in, timed=True)
+    check_physics(f32, N_MEMBERS, 1e-5, card, ("sppt",), inputs=state_in)
     # The spectral-update kernel on the model's own state after that day,
     # and the step's transform groups as its call sites build them there.
     glue_state = check_spectral_update_on_state(consts, state, 1e-5)
@@ -1854,6 +1996,17 @@ def main() -> None:
                              phys32[name], shape + " grid_phi"))
         kernels[-1]["ms_f64"] = phys64[name]["ms"]
         kernels[-1]["bound_ms_f64"] = phys64[name]["bound_ms"]
+        kernels[-1]["f2f_float_double_in_float"] = f2f_float(
+            "grid_physics_kernel")
+        kernels[-1]["ms_model_state"] = phys_state[name]["ms"]
+        kernels[-1]["bound_ms_model_state"] = phys_state[name]["bound_ms"]
+        sw = "true" if name == "grid_physics_sw" else "false"
+        for key, t in (("", "float"), ("_f64", "double")):
+            blocks, threads, _, regs, local = occupancy[
+                f"grid_physics_kernel<{t}, 8, {sw}, false>"]
+            kernels[-1]["registers" + key] = regs
+            kernels[-1]["local_bytes" + key] = local
+            kernels[-1]["warps_per_sm" + key] = blocks * threads // 32
         kernels[-1]["flipped_columns"] = phys32[name]["flipped_columns"]
         kernels[-1]["launches_bf16_path"] = launches_b[name + "_bf16"]
         kernels[-1].update(bf16_out[name])
@@ -1899,8 +2052,17 @@ def main() -> None:
     glue["launches_bf16_path"] = launches_b["spectral_update"]
     glue["launches_f64_day"] = launches64["spectral_update"]
     glue["max_rel_err_model_state"] = glue_state
-    for key in ("ms", "call_ms", "plain_ms", "bound_ms", "max_rel_err"):
+    for key in ("ms", "call_ms", "plain_ms", "bound_ms", "max_rel_err",
+                "ms_b1", "bound_ms_b1"):
         glue[key + "_f64"] = glue64[key]
+    glue["ms_b1"], glue["bound_ms_b1"] = glue32["ms_b1"], glue32["bound_ms_b1"]
+    glue["f2f_float_double_in_float"] = f2f_float("spectral_update_kernel")
+    for key, t in (("", "float"), ("_f64", "double")):
+        blocks, threads, _, regs, local = occupancy[
+            f"spectral_update_kernel<{t}, 8>"]
+        glue["registers" + key] = regs
+        glue["local_bytes" + key] = local
+        glue["warps_per_sm" + key] = blocks * threads // 32
     kernels.append(glue)
     # The DFT chain is not on the model's path: its launches are those of
     # the DFT-chain path above.

@@ -34,29 +34,74 @@
 // reads 18 level stacks (9 flux spectra, vor, div, T at both time levels, phi,
 // the tracer at both levels) and five (2, mx, nx) planes, and writes 8 level
 // stacks and two planes: 218 MB at 128 members in float, 0.065 ms at
-// 3.35 TB/s. The arithmetic is about 40 operations per level and value plus
-// two 8x8 matrix-vector products per point for the implicit solve.
+// 3.35 TB/s (435 MB, 0.130 ms in double). The arithmetic is about 40
+// operations per level and value plus two 8x8 matrix-vector products per
+// point for the implicit solve: 0.39 GFLOP at B = 128, under the byte time.
 //
-// Design: one thread per (member, pair part, m, n), n fastest, so that a warp
-// reads a 32-wide n row of each level (coalesced; nx = 32 at T30). The two
-// pair parts never meet except in the zonal derivative, which reads the other
-// part of a flux spectrum from memory: a thread per part halves the registers
-// a thread needs and doubles the threads in flight. The n+-1 neighbours of the
-// flux spectra are read from global memory as well (the same warp reads them,
-// so they come from L1). The kx levels of divdt, tdt, the mean-divergence
-// terms and the implicit intermediates live in registers (KX is a template
-// parameter, every level loop unrolled); vorticity and the tracers have no
-// level coupling and are streamed level by level. The per-level tables and
-// the 8x8 level matrices ride in the argument struct; the (mx, nx) tables
-// and the implicit inverses come by pointer (L2-resident), the inverses laid
-// out (kx, kx, mx, nx) so that a warp's 32 n points read 32 adjacent values
-// (in the plain version's (mx, nx, kx, kx) layout they lie kx*kx apart).
-// Every input is addressed through five element strides (member, part, level,
-// m, n), so the stride-0 member axis of a freshly broadcast state and the
-// views the other transform routes return are read in place: nothing is
-// copied. Compiled with -fmad=false and written in the plain version's order
-// of operations, so that the only differences from it are the sums of the
-// level contractions (the plain version hands them to einsum).
+// What held the first design (one thread per point, every operand fetched
+// from device memory through five 64-bit strides) at 36 % of the bound in
+// float: each flux-spectrum element was fetched by about three load
+// instructions (the point, its n-1 / n+1 neighbours, and the other pair part,
+// which lay in another block), each load paid five 64-bit multiply-adds for
+// its address, and every member's threads read the 256 KB of implicit
+// inverses again from L2.
+//
+// Design: member tiles, as the TPU kernel had them.
+// * A block owns one m row, both pair parts and all n of it (2*nx points,
+//   padded to a whole number of warps: 64 threads at T30), for G member
+//   lanes side by side (G = 4 at T30: 256 threads), and walks a tile of
+//   Shape<T>::tile = 16 members, G at a time. A lane is at most one block
+//   of 256 threads, so nx is at most 128 (T126 and below; the wrapper
+//   refuses more, ops/glue_kernels.py::MAX_NX).
+//   Grid: (mx, member tiles). Each lane synchronises on a named barrier of
+//   its own, so the lanes of a block do not wait for each other.
+// * The row's tables (the eleven (mx, nx) tables, gradx and the implicit
+//   inverses xj of the row: kx*kx*nx values, 8 KB in float) are laid out by
+//   m row on the host (ops/glue_kernels.py::build_update_tables), so a
+//   block copies one contiguous slice into shared memory once and reuses it
+//   for every member of its tile.
+// * The 4 + 2*ntr flux spectra whose n-1 / n+1 neighbours and other pair
+//   part a point reads come into shared memory with cp.async, so that each
+//   element is fetched from device memory once, through a ring of slots per
+//   lane (Shape<T>): in float a whole member per slot, double-buffered, so
+//   the next member loads while this one computes; in double, where a whole
+//   member of four lanes would take 216 KB and one block per SM, two levels
+//   per slot in a ring of three. The spectra and state fields that a point
+//   reads only at itself are loaded directly.
+// * Order: with a whole member staged, the temperature and divergence
+//   tendencies of every level, the implicit correction and the leapfrog of
+//   ps, div and T, then vorticity and the tracers (the order of the first
+//   design, which lets the compiler issue a phase's loads together); with a
+//   chunk of levels staged, everything that reads that chunk's spectra
+//   (vorticity, tracers, tendencies), then the correction. Each output's
+//   arithmetic is the same in both.
+// * Addresses: each field's base for a (member, m) row is formed from its
+//   member and m strides (64-bit); the offsets inside a row are 32-bit (the
+//   wrapper refuses a layout whose row does not fit). Every input keeps its
+//   own five strides, so the stride-0 member axis of a freshly broadcast
+//   state and the views the transform routes return are read in place.
+// * A point's arithmetic depends on nothing but its own member's data and the
+//   tables: no atomics, no sum across members or tiles, so a member's result
+//   is bitwise the same whatever tile or lane it lands in, and for any B.
+// * The kx levels of divdt, tdt, the mean divergence and the implicit
+//   intermediates live in registers (KX a template parameter, every level
+//   loop unrolled), at most 128 a thread so that two blocks fit an SM. The
+//   per-level tables and the 8x8 level matrices ride in the argument struct
+//   in the model's scalar type. Compiled with -fmad=false and written in the
+//   plain version's order of operations, so that the only differences from
+//   it are the sums of the level contractions (the plain version hands them
+//   to einsum).
+//
+// Measured (chip_smoke.py on an NVIDIA H100 80GB HBM3, power limit 700 W, B =
+// 128; the first design's times from the same runs): T30L8 float 0.133 ms
+// (0.188), 49 % of the byte bound; double 0.201 ms (0.234), 65 %; T30L5
+// double 0.128 ms (0.146), 64 %; at B = 1 0.014 / 0.022 ms. 128 registers,
+// 16 warps per SM, no spill, in every instantiation. A float member tile of
+// 8 or 16 takes the same time, 32 or more leave SMs idle (chip_smoke.py
+// with Shape<T>::tile set to each). Whole members staged in float take 26 %
+// less time than a member streamed four levels at a time (0.178 ms); in
+// double the two-level ring takes 29 % less than whole members, one
+// 256-thread block per SM (0.284 ms).
 //
 // Interface: plain C, loaded with ctypes. The launch goes to the stream it is
 // given, allocates nothing and does not synchronise; the function returns
@@ -72,23 +117,27 @@ constexpr int kMaxTracers = 4;
 constexpr int kMaxSpecs = 6 + 3 * kMaxTracers;
 constexpr int kNumState = 14;
 constexpr int kMaxInputs = kMaxSpecs + kNumState;
-constexpr int kNumTables = 12;
-constexpr int kThreads = 128;
+constexpr int kNumRowTables = 11;
+constexpr int kMaxSmem = 232448;   // bytes of shared memory a block may use
 
 // The state inputs, after the 6 + 3*ntr flux spectra.
 enum StateInput {
   kPsdt, kVor0, kVor1, kDiv0, kDiv1, kT0, kT1, kPs0, kPs1, kTrf0, kTrf1,
   kPhi, kTcorh, kQcorh
 };
-// The (mx, nx) tables, then gradx (mx,).
+// The (mx, nx) tables of a row, in the order of the row layout; then gradx,
+// then the implicit inverses (kx, kx, nx).
 enum Table {
   kEl2, kTrfilt, kDmp, kDmpd, kDmps, kDmp1, kDmp1d, kDmp1s, kElz, kVddym,
-  kVddyp, kGradx
+  kVddyp
 };
 
+// A field: its member and m strides (64-bit), its pair-part, level and n
+// strides (32-bit: the offsets inside one (member, m) row).
 struct Field {
   const void* p;
-  long long s[5];  // element strides: member, pair part, level, m, n
+  long long sb, sm;
+  int sc, sk, sn;
 };
 
 // Everything a launch reads besides the fields. The tables and scalars are
@@ -97,9 +146,8 @@ struct Field {
 template <typename T>
 struct Args {
   Field in[kMaxInputs];
-  const void* tab[kNumTables];
-  const void* xj;  // (kx, kx, mx, nx) implicit inverses
-  void* out[10];   // ps, vor, div, t, trf at the two time levels, dense
+  const void* rows;  // (mx, row_len) per-row tables
+  void* out[10];     // ps, vor, div, t, trf at the two time levels, dense
   T dhs[kMaxLevels], dhsr[kMaxLevels], tref[kMaxLevels],
       tref3[kMaxLevels];                                      // column tables
   T im_tref[kMaxLevels], tref2[kMaxLevels], dhsx[kMaxLevels];  // implicit
@@ -108,209 +156,463 @@ struct Args {
   T dt, w1, w2, sdrag, rgas;  // w1 = wil*eps, w2 = (1-wil)*eps
   long long nmem;
   int j1, truncate, ntr, mx, nx;
+  int pslots;    // threads of one member lane: 2*nx rounded up to a warp
+  int row_len;   // values of one row of `rows`
 };
 
-template <typename T>
-__device__ __forceinline__ T ld(const Field& f, long long b, int c, int k,
-                                int m, int n) {
-  return static_cast<const T*>(f.p)[b * f.s[0] + c * f.s[1] + k * f.s[2] +
-                                    m * f.s[3] + n * f.s[4]];
+__device__ __forceinline__ unsigned char* dyn_smem() {
+  extern __shared__ __align__(16) unsigned char smem_[];
+  return smem_;
 }
 
-template <typename T, int KX>
-__global__ void __launch_bounds__(kThreads)
-spectral_update_kernel(const __grid_constant__ Args<T> a) {
-  const int mx = a.mx, nx = a.nx;
-  const long long idx = blockIdx.x * static_cast<long long>(kThreads) + threadIdx.x;
-  if (idx >= a.nmem * 2 * mx * nx) return;
-  const int n = static_cast<int>(idx % nx);
-  const int m = static_cast<int>((idx / nx) % mx);
-  const int c = static_cast<int>((idx / (static_cast<long long>(nx) * mx)) % 2);
-  const long long b = idx / (2LL * mx * nx);
-  const int mn = m * nx + n;
-  const int ntr = a.ntr;
-  const int base = 4 + 2 * ntr;           // ke, then ttend, then the tracers
-  const Field* st = a.in + 6 + 3 * ntr;   // the state inputs
+// One element copied from device memory to shared memory without passing
+// through registers; completed by copy_wait.
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+#if defined(__CUDA_ARCH__)
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n"
+               :: "r"(s), "l"(src), "n"(sizeof(T)));
+#else
+  *dst = *src;
+#endif
+}
 
-  auto tab = [&](int t) { return static_cast<const T*>(a.tab[t])[mn]; };
-  const T el2 = tab(kEl2), elz = tab(kElz);
-  const T ym = tab(kVddym), yp = tab(kVddyp);
-  const T gx = static_cast<const T*>(a.tab[kGradx])[m];
+__device__ __forceinline__ void copy_commit() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+// Wait until at most N of this thread's committed copy groups are pending.
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+#endif
+}
+
+// Barrier of one member lane: named barrier `id` (1 + lane) over its
+// `count` threads, so that the lanes of a block do not wait for each other.
+__device__ __forceinline__ void lane_sync(int id, int count) {
+#if defined(__CUDA_ARCH__)
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+#else
+  __syncthreads();
+#endif
+}
+
+template <typename T>
+__device__ __forceinline__ const T* row_base(const Field& f, long long b, int m) {
+  return static_cast<const T*>(f.p) + (b * f.sb + m * f.sm);
+}
+
+// Launch shape per scalar type (measured on an H100, see the note above):
+// at most `threads` threads a block (G member lanes of a row's points),
+// `min_blocks` blocks resident per SM (so at most 128 registers), `tile`
+// members a block (the row's tables are copied once per tile); a lane's
+// staged spectra pass through a ring of `ring` slots of `chunk` levels each,
+// ring - 1 chunks in flight ahead of the one computed. Float stages a whole
+// member (chunk >= kx) and double-buffers it; double, whose whole member
+// would take 216 KB for four lanes, stages two levels at a time in a ring
+// of three.
+template <typename T> struct Shape {
+  static constexpr int chunk = 8, ring = 2, threads = 256, min_blocks = 2,
+                       tile = 16;
+};
+template <> struct Shape<double> {
+  static constexpr int chunk = 2, ring = 3, threads = 256, min_blocks = 2,
+                       tile = 16;
+};
+// Levels of a chunk at KX levels: Shape<T>::chunk, at most KX.
+template <typename T, int KX>
+struct Chunk {
+  static constexpr int levels = Shape<T>::chunk < KX ? Shape<T>::chunk : KX;
+};
+
+// The flux combination (tendencies.f90:244-268) at one point from the
+// staged spectra of one level (lv: spectrum i, part, n at
+// (i * LC * 2 + part) * nx + n): the n-1 / n+1 neighbours with zero inflow
+// and the zonal derivative, a swap of the two pair parts with a sign,
+// dropped on the last n row.
+template <typename T, int LC>
+struct Level {
+  const T* lv;
+  int nx, c, n;
+  T ym, yp, gx;
+  __device__ T spec(int i, int part, int nn) const {
+    return lv[(i * LC * 2 + part) * nx + nn];
+  }
+  __device__ T dn(int i) const { return n > 0 ? spec(i, c, n - 1) : T(0); }
+  __device__ T up(int i) const { return n < nx - 1 ? spec(i, c, n + 1) : T(0); }
+  __device__ T zonal(int i) const {   // (i * gradx) * spec, part c
+    if (n == nx - 1) return T(0);
+    const T x = spec(i, 1 - c, n);
+    return c == 0 ? -(gx * x) : gx * x;
+  }
+  __device__ T divm(int iu, int iv) const {
+    return (-(ym * dn(iv)) + yp * up(iv)) + zonal(iu);
+  }
+  __device__ T vorm(int iu, int iv) const {
+    return (ym * dn(iu) - yp * up(iu)) + zonal(iv);
+  }
+};
+
+template <typename T, int KX>
+__global__ void __launch_bounds__(Shape<T>::threads, Shape<T>::min_blocks)
+spectral_update_kernel(const __grid_constant__ Args<T> a) {
+  constexpr int kRing = Shape<T>::ring;
+  constexpr int kTile = Shape<T>::tile;
+  constexpr int kAhead = kRing - 1;
+  constexpr int LC = Chunk<T, KX>::levels;       // levels of a chunk
+  constexpr int NCH = (KX + LC - 1) / LC;         // chunks of a member
+  const int mx = a.mx, nx = a.nx, ntr = a.ntr;
+  const int m = blockIdx.x;
+  const int P = a.pslots;
+  const int G = blockDim.x / P;            // member lanes
+  const int g = threadIdx.x / P;
+  const int p = threadIdx.x - g * P;
+  const bool point = p < 2 * nx;
+  const int c = point ? p / nx : 0;
+  const int n = point ? p - c * nx : 0;
+  const int mn = m * nx + n;
+  const int nstaged = 4 + 2 * ntr;          // spectra read at n-1, n+1 and 1-c
+  const int base = 4 + 2 * ntr;             // ke, then ttend, then the tracers
+  const Field* st = a.in + 6 + 3 * ntr;     // the state inputs
+  const int slot_len = nstaged * LC * 2 * nx;   // one chunk of a lane's spectra
+
+  T* const rows = reinterpret_cast<T*>(dyn_smem());
+  T* const ring = rows + a.row_len;   // [slot][lane][spectrum][part][n]
+  const long long first = static_cast<long long>(blockIdx.y) * kTile;
+  const long long last = min(first + kTile, a.nmem);
+  const int iters = static_cast<int>((last - first + G - 1) / G);
+  const int items = iters * NCH;            // (member, chunk) items of a lane
+
+  // Copy item q (the lane's member q / NCH, chunk q % NCH) into slot
+  // q % kRing, as one commit group (empty past the last item).
+  auto issue = [&](int q) {
+    const long long b = first + static_cast<long long>(q / NCH) * G + g;
+    if (q < items && point && b < last) {
+      const int k0 = (q % NCH) * LC;
+      T* dst = ring + ((q % kRing) * G + g) * slot_len + c * nx + n;
+      for (int i = 0; i < nstaged; ++i) {
+        const Field& f = a.in[i];
+        const T* src = row_base<T>(f, b, m) + (c * f.sc + n * f.sn);
+#pragma unroll
+        for (int kk = 0; kk < LC; ++kk)
+          if (k0 + kk < KX)
+            copy_async(dst + (i * LC + kk) * 2 * nx, src + (k0 + kk) * f.sk);
+      }
+    }
+    copy_commit();
+  };
+
+  // The row's tables join the first item's group.
+  {
+    const T* src = static_cast<const T*>(a.rows) + static_cast<long long>(m) * a.row_len;
+    for (int e = threadIdx.x; e < a.row_len; e += blockDim.x) copy_async(rows + e, src + e);
+  }
+  for (int q = 0; q < kAhead; ++q) issue(q);
+
   const T dt = a.dt, w1 = a.w1, w2 = a.w2, sdrag = a.sdrag, rgas = a.rgas;
   const bool drag = m == 0;   // the stratospheric drag acts on level 0, m = 0
-
-  // Flux combination at level k of spectra iu (u-like) and iv (v-like).
-  auto spec = [&](int i, int k, int part, int nn) {
-    return ld<T>(a.in[i], b, part, k, m, nn);
-  };
-  auto dn = [&](int i, int k) { return n > 0 ? spec(i, k, c, n - 1) : T(0); };
-  auto up = [&](int i, int k) { return n < nx - 1 ? spec(i, k, c, n + 1) : T(0); };
-  auto zonal = [&](int i, int k) {   // (i * gradx) * spec, part c
-    if (n == nx - 1) return T(0);
-    const T x = spec(i, k, 1 - c, n);
-    return c == 0 ? -(gx * x) : gx * x;
-  };
-  auto divm = [&](int iu, int iv, int k) {
-    return (-(ym * dn(iv, k)) + yp * up(iv, k)) + zonal(iu, k);
-  };
-  auto vorm = [&](int iu, int iv, int k) {
-    return (ym * dn(iu, k) - yp * up(iu, k)) + zonal(iv, k);
-  };
-  auto state = [&](int i, int k) { return ld<T>(st[i], b, c, k, m, n); };
-
+  const long long plane = static_cast<long long>(mx) * nx;
+  auto tab = [&](int t) { return rows[t * nx + n]; };
   // Leapfrog + Robert-Williams filter; returns the two new time levels.
-  const T trf = a.truncate ? tab(kTrfilt) : T(1);
   auto leapfrog = [&](T f0, T f1, T fdt, T& g1, T& g2) {
-    if (a.truncate) fdt = fdt * trf;
+    if (a.truncate) fdt = fdt * tab(kTrfilt);
     const T fj = a.j1 == 1 ? f0 : f1;
     const T fnew = f0 + dt * fdt;
     g1 = fj + w1 * ((f0 - T(2) * fj) + fnew);
     g2 = fnew - w2 * ((g1 - T(2) * fj) + fnew);
   };
-  const long long plane = static_cast<long long>(mx) * nx;
-  auto put3 = [&](int o, int nlev, int k, T v) {
-    static_cast<T*>(a.out[o])[((b * 2 + c) * nlev + k) * plane + mn] = v;
-  };
 
-  // --- linear tendencies: mean divergence, log-ps, sigma-dot ---
-  T div0[KX];
-  T dmeanc = 0;
-#pragma unroll
-  for (int k = 0; k < KX; ++k) {
-    div0[k] = state(kDiv0, k);
-    dmeanc = dmeanc + a.dhs[k] * div0[k];
-  }
-  T psdt = state(kPsdt, 0) - dmeanc;
-  if (m == 0 && n == 0) psdt = 0;
-  T sig[KX + 1];
-  sig[0] = 0;
-  sig[KX] = 0;
-  T run = 0;
-#pragma unroll
-  for (int k = 0; k < KX - 1; ++k) {
-    run = run + a.dhs[k] * (div0[k] - dmeanc);
-    sig[k + 1] = -run;
-  }
-  T dumk[KX + 1];
-  dumk[0] = 0;
-  dumk[KX] = 0;
-#pragma unroll
-  for (int h = 1; h < KX; ++h)
-    dumk[h] = sig[h] * (a.tref[h] - a.tref[h - 1]);
+  for (int it = 0; it < iters; ++it) {
+    const long long b = first + static_cast<long long>(it) * G + g;
+    const bool live = point && b < last;
+    // The fields' bases at this point of the member's row: each formed once
+    // per member, read at 32-bit level offsets.
+    auto at = [&](const Field& f) {
+      return row_base<T>(f, b, m) + (c * f.sc + n * f.sn);
+    };
+    auto out_row = [&](int o, int nlev) {
+      return static_cast<T*>(a.out[o]) + (b * 2 * nlev * plane + m * nx) +
+             c * nlev * plane + n;
+    };
 
-  const T ps0 = state(kPs0, 0);
-  T tdt[KX], divdt[KX];
+    // --- the member's mean divergence and log-ps tendency (state only) ---
+    T div0[KX];
+    T dmeanc = 0, psdt = 0, ps0 = 0;
+    if (live) {
+      const Field& f = st[kDiv0];
+      const T* q = at(f);
 #pragma unroll
-  for (int k = 0; k < KX; ++k) {
-    const T td = divm(2, 3, k) + spec(base + 1, k, c, n);
-    tdt[k] = ((td - (dumk[k + 1] + dumk[k]) * a.dhsr[k]) +
-              a.tref3[k] * (sig[k + 1] + sig[k])) -
-             a.tref2[k] * dmeanc;
-    T dd = divm(0, 1, k);
-    dd = dd - (-spec(base, k, c, n)) * el2;
-    const T ph = state(kPhi, k) + (rgas * a.tref[k]) * ps0;
-    divdt[k] = dd - (-ph) * el2;
-  }
-
-  // --- semi-implicit correction ---
-  T y[KX];
-#pragma unroll
-  for (int k = 0; k < KX; ++k) {
-    T s = 0;
-#pragma unroll
-    for (int l = 0; l < KX; ++l) s = s + a.xd[k][l] * tdt[l];
-    y[k] = divdt[k] + elz * (s + (rgas * a.im_tref[k]) * psdt);
-  }
-  const T* xj = static_cast<const T*>(a.xj) + mn;
-  T sdiv = 0;
-#pragma unroll
-  for (int k = 0; k < KX; ++k) {
-    T s = 0;
-#pragma unroll
-    for (int l = 0; l < KX; ++l) s = s + xj[(k * KX + l) * plane] * y[l];
-    divdt[k] = s;
-    sdiv = sdiv + a.dhsx[k] * s;
-  }
-  psdt = psdt - sdiv;
-#pragma unroll
-  for (int k = 0; k < KX; ++k) {
-    T s = 0;
-#pragma unroll
-    for (int l = 0; l < KX; ++l) s = s + a.xc[k][l] * divdt[l];
-    tdt[k] = tdt[k] + s;
-  }
-
-  // --- diffusion and leapfrog of ps, div, T ---
-  T g1, g2;
-  leapfrog(ps0, state(kPs1, 0), psdt, g1, g2);
-  {
-    const long long o = (b * 2 + c) * plane + mn;
-    static_cast<T*>(a.out[0])[o] = g1;
-    static_cast<T*>(a.out[1])[o] = g2;
-  }
-  const T dmp = tab(kDmp), dmpd = tab(kDmpd), dmps = tab(kDmps);
-  const T dmp1 = tab(kDmp1), dmp1d = tab(kDmp1d), dmp1s = tab(kDmp1s);
-  const T tcorh = state(kTcorh, 0);
-#pragma unroll
-  for (int k = 0; k < KX; ++k) {
-    T dd = (divdt[k] - dmpd * div0[k]) * dmp1d;
-    if (k == 0 && drag) dd = dd - sdrag * div0[0];
-    dd = (dd - dmps * div0[k]) * dmp1s;
-    leapfrog(div0[k], state(kDiv1, k), dd, g1, g2);
-    put3(4, KX, k, g1);
-    put3(5, KX, k, g2);
-
-    const T t0 = state(kT0, k);
-    const T tcor = t0 + tcorh * a.tcorv[k];
-    T td = (tdt[k] - dmp * tcor) * dmp1;
-    td = (td - dmps * tcor) * dmp1s;
-    leapfrog(t0, state(kT1, k), td, g1, g2);
-    put3(6, KX, k, g1);
-    put3(7, KX, k, g2);
-  }
-
-  // --- vorticity, level by level ---
-#pragma unroll
-  for (int k = 0; k < KX; ++k) {
-    const T v0 = state(kVor0, k);
-    T vd = vorm(0, 1, k);
-    vd = (vd - dmp * v0) * dmp1;
-    if (k == 0 && drag) vd = vd - sdrag * v0;
-    vd = (vd - dmps * v0) * dmp1s;
-    leapfrog(v0, state(kVor1, k), vd, g1, g2);
-    put3(2, KX, k, g1);
-    put3(3, KX, k, g2);
-  }
-
-  // --- tracers, level by level: humidity with its orographic correction ---
-  const T qcorh = state(kQcorh, 0);
-  for (int itr = 0; itr < ntr; ++itr) {
-#pragma unroll
-    for (int k = 0; k < KX; ++k) {
-      const int lev = itr * KX + k;
-      T trd = divm(4 + 2 * itr, 5 + 2 * itr, k) + spec(base + 2 + itr, k, c, n);
-      const T f0 = state(kTrf0, lev);
-      if (itr == 0) {
-        const T q = f0 + qcorh * a.qcorv[k];
-        trd = (trd - dmpd * q) * dmp1d;
-      } else {
-        trd = (trd - dmp * f0) * dmp1;
+      for (int k = 0; k < KX; ++k) {
+        div0[k] = q[k * f.sk];
+        dmeanc = dmeanc + a.dhs[k] * div0[k];
       }
-      leapfrog(f0, state(kTrf1, lev), trd, g1, g2);
-      put3(8, ntr * KX, lev, g1);
-      put3(9, ntr * KX, lev, g2);
+      psdt = *at(st[kPsdt]) - dmeanc;
+      if (m == 0 && n == 0) psdt = 0;
+      ps0 = *at(st[kPs0]);
+    }
+    // sigma-dot and the vertical advection term, built level by level in
+    // the order of the plain version's sums.
+    T run = 0, sig_k = 0, dumk_k = 0;
+    T tdt[KX], divdt[KX];
+
+    // The staged spectra of level k: lv points at its chunk slot and level.
+    auto level = [&](int k) {
+      const int q = it * NCH + k / LC;
+      return ring + ((q % kRing) * G + g) * slot_len + (k % LC) * 2 * nx;
+    };
+    // Wait for chunk q, then refill the slot read one chunk ago.
+    auto next_chunk = [&](int q) {
+      copy_wait<kAhead - 1>();
+      // Chunk q is in and the slot refilled next was read, for the lane;
+      // the first time, the row's tables all lanes copied, for the block.
+      if (q == 0)
+        __syncthreads();
+      else
+        lane_sync(1 + g, P);
+      issue(q + kAhead);
+    };
+    // The flux combination from the staged spectra of level k.
+    auto flux = [&](int k) {
+      return Level<T, Chunk<T, KX>::levels>{level(k), nx, c, n, tab(kVddym),
+                                            tab(kVddyp), rows[kNumRowTables * nx]};
+    };
+    T g1, g2;
+
+    // Temperature and divergence tendencies at level k.
+    auto tendencies = [&](int k) {
+      const auto comb = flux(k);
+      T sig_k1 = 0, dumk_k1 = 0;
+      if (k < KX - 1) {
+        run = run + a.dhs[k] * (div0[k] - dmeanc);
+        sig_k1 = -run;
+        dumk_k1 = sig_k1 * (a.tref[k + 1] - a.tref[k]);
+      }
+      const Field& ftt = a.in[base + 1];
+      const Field& fke = a.in[base];
+      const Field& fphi = st[kPhi];
+      const T td = comb.divm(2, 3) + at(ftt)[k * ftt.sk];
+      tdt[k] = ((td - (dumk_k1 + dumk_k) * a.dhsr[k]) +
+                a.tref3[k] * (sig_k1 + sig_k)) -
+               a.tref2[k] * dmeanc;
+      T dd = comb.divm(0, 1);
+      dd = dd - (-at(fke)[k * fke.sk]) * tab(kEl2);
+      const T ph = at(fphi)[k * fphi.sk] + (rgas * a.tref[k]) * ps0;
+      divdt[k] = dd - (-ph) * tab(kEl2);
+      sig_k = sig_k1;
+      dumk_k = dumk_k1;
+    };
+
+    // Vorticity and the tracers at level k: no level coupling.
+    auto streamed = [&](int k) {
+      const auto comb = flux(k);
+      const T dmp = tab(kDmp), dmps = tab(kDmps);
+      const T dmp1 = tab(kDmp1), dmp1s = tab(kDmp1s);
+      {
+        const Field& f0 = st[kVor0];
+        const Field& f1 = st[kVor1];
+        const T v0 = at(f0)[k * f0.sk];
+        T vd = comb.vorm(0, 1);
+        vd = (vd - dmp * v0) * dmp1;
+        if (k == 0 && drag) vd = vd - sdrag * v0;
+        vd = (vd - dmps * v0) * dmp1s;
+        leapfrog(v0, at(f1)[k * f1.sk], vd, g1, g2);
+        out_row(2, KX)[k * plane] = g1;
+        out_row(3, KX)[k * plane] = g2;
+      }
+      // Humidity with its orographic correction, the others like vorticity.
+      const Field& f0 = st[kTrf0];
+      const Field& f1 = st[kTrf1];
+      for (int itr = 0; itr < ntr; ++itr) {
+        const int l = itr * KX + k;
+        const Field& ft = a.in[base + 2 + itr];
+        T trd = comb.divm(4 + 2 * itr, 5 + 2 * itr) + at(ft)[k * ft.sk];
+        const T tr0 = at(f0)[l * f0.sk];
+        if (itr == 0) {
+          const T q0 = tr0 + *at(st[kQcorh]) * a.qcorv[k];
+          trd = (trd - tab(kDmpd) * q0) * tab(kDmp1d);
+        } else {
+          trd = (trd - dmp * tr0) * dmp1;
+        }
+        leapfrog(tr0, at(f1)[l * f1.sk], trd, g1, g2);
+        out_row(8, ntr * KX)[l * plane] = g1;
+        out_row(9, ntr * KX)[l * plane] = g2;
+      }
+    };
+
+    // The semi-implicit correction and the leapfrog of ps, div and T.
+    auto finish = [&]() {
+      const T elz = tab(kElz);
+      const T* xj = rows + kNumRowTables * nx + 1 + n;   // (k, l) at (k*KX + l)*nx
+      T y[KX];
+#pragma unroll
+      for (int k = 0; k < KX; ++k) {
+        T s = 0;
+#pragma unroll
+        for (int l = 0; l < KX; ++l) s = s + a.xd[k][l] * tdt[l];
+        y[k] = divdt[k] + elz * (s + (rgas * a.im_tref[k]) * psdt);
+      }
+      T sdiv = 0;
+#pragma unroll
+      for (int k = 0; k < KX; ++k) {
+        T s = 0;
+#pragma unroll
+        for (int l = 0; l < KX; ++l) s = s + xj[(k * KX + l) * nx] * y[l];
+        divdt[k] = s;
+        sdiv = sdiv + a.dhsx[k] * s;
+      }
+      psdt = psdt - sdiv;
+#pragma unroll
+      for (int k = 0; k < KX; ++k) {
+        T s = 0;
+#pragma unroll
+        for (int l = 0; l < KX; ++l) s = s + a.xc[k][l] * divdt[l];
+        tdt[k] = tdt[k] + s;
+      }
+
+      leapfrog(ps0, *at(st[kPs1]), psdt, g1, g2);
+      {
+        const long long o = (b * 2 + c) * plane + mn;
+        static_cast<T*>(a.out[0])[o] = g1;
+        static_cast<T*>(a.out[1])[o] = g2;
+      }
+      const T dmp = tab(kDmp), dmpd = tab(kDmpd), dmps = tab(kDmps);
+      const T dmp1 = tab(kDmp1), dmp1d = tab(kDmp1d), dmp1s = tab(kDmp1s);
+      const T tcorh = *at(st[kTcorh]);
+      const Field& fdiv1 = st[kDiv1];
+      const Field& ft0 = st[kT0];
+      const Field& ft1 = st[kT1];
+      const T* pdiv1 = at(fdiv1);
+      const T* pt0 = at(ft0);
+      const T* pt1 = at(ft1);
+      T* od0 = out_row(4, KX);
+      T* od1 = out_row(5, KX);
+      T* ot0 = out_row(6, KX);
+      T* ot1 = out_row(7, KX);
+#pragma unroll
+      for (int k = 0; k < KX; ++k) {
+        T dd = (divdt[k] - dmpd * div0[k]) * dmp1d;
+        if (k == 0 && drag) dd = dd - sdrag * div0[0];
+        dd = (dd - dmps * div0[k]) * dmp1s;
+        leapfrog(div0[k], pdiv1[k * fdiv1.sk], dd, g1, g2);
+        od0[k * plane] = g1;
+        od1[k * plane] = g2;
+
+        const T t0 = pt0[k * ft0.sk];
+        const T tcor = t0 + tcorh * a.tcorv[k];
+        T td = (tdt[k] - dmp * tcor) * dmp1;
+        td = (td - dmps * tcor) * dmp1s;
+        leapfrog(t0, pt1[k * ft1.sk], td, g1, g2);
+        ot0[k * plane] = g1;
+        ot1[k * plane] = g2;
+      }
+    };
+
+    if constexpr (LC == KX) {
+      // The whole member is staged at once: the tendencies of every level,
+      // the implicit correction, then vorticity and the tracers.
+      next_chunk(it);
+      if (!live) continue;
+#pragma unroll
+      for (int k = 0; k < KX; ++k) tendencies(k);
+      finish();
+#pragma unroll
+      for (int k = 0; k < KX; ++k) streamed(k);
+    } else {
+      // Chunks of levels: everything that reads a level's spectra while its
+      // chunk is staged, then the implicit correction.
+#pragma unroll
+      for (int k = 0; k < KX; ++k) {
+        if (k % LC == 0) next_chunk(it * NCH + k / LC);
+        if (!live) continue;
+        streamed(k);
+        tendencies(k);
+      }
+      if (!live) continue;
+      finish();
     }
   }
+  copy_wait<0>();
+}
+
+// Shared memory of a launch with G lanes: the row tables and the ring.
+template <typename T>
+long long smem_bytes(int G, int row_len, int slot_len) {
+  return (static_cast<long long>(row_len) + static_cast<long long>(Shape<T>::ring) * G * slot_len) *
+         static_cast<long long>(sizeof(T));
+}
+
+// The launch shape for ntr tracers at nx: threads a block (G lanes of
+// pslots threads), its dynamic shared memory, and the row's table length.
+// Returns 0, or -5 if even one lane does not fit.
+template <typename T, int KX>
+int plan(int ntr, int nx, int* threads, int* pslots, long long* smem, int* row_len) {
+  *pslots = (2 * nx + 31) / 32 * 32;
+  if (*pslots > Shape<T>::threads) return -5;
+  *row_len = kNumRowTables * nx + 1 + KX * KX * nx;
+  const int slot_len = (4 + 2 * ntr) * Chunk<T, KX>::levels * 2 * nx;
+  // As many member lanes as fit the block's threads and the shared memory.
+  int G = Shape<T>::threads / *pslots;
+  while (G > 1 && smem_bytes<T>(G, *row_len, slot_len) > kMaxSmem) --G;
+  *smem = smem_bytes<T>(G, *row_len, slot_len);
+  *threads = G * *pslots;
+  return *smem > kMaxSmem ? -5 : 0;
+}
+
+// Allow the dynamic shared memory (the largest asked for so far) and ask
+// for the largest shared-memory carveout.
+template <typename T, int KX>
+int prepare(long long smem) {
+  static long long allowed = 0;
+  if (smem <= allowed) return 0;
+  int rc = static_cast<int>(cudaFuncSetAttribute(
+      spectral_update_kernel<T, KX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+  if (rc == 0)
+    rc = static_cast<int>(cudaFuncSetAttribute(
+        spectral_update_kernel<T, KX>, cudaFuncAttributePreferredSharedMemoryCarveout, 100));
+  if (rc == 0) allowed = smem;
+  return rc;
 }
 
 template <typename T, int KX>
-int launch(const Args<T>& a, cudaStream_t stream) {
-  const long long npoints = a.nmem * 2 * a.mx * a.nx;
-  if (npoints <= 0) return 0;
-  const long long nblocks = (npoints + kThreads - 1) / kThreads;
-  if (nblocks > 2147483647LL) return -4;
-  spectral_update_kernel<T, KX><<<static_cast<unsigned>(nblocks), kThreads, 0, stream>>>(a);
+int launch(Args<T> a, cudaStream_t stream) {
+  int threads = 0;
+  long long smem = 0;
+  int rc = plan<T, KX>(a.ntr, a.nx, &threads, &a.pslots, &smem, &a.row_len);
+  if (rc != 0) return rc;
+  if (a.nmem <= 0) return 0;
+  const long long tiles = (a.nmem + Shape<T>::tile - 1) / Shape<T>::tile;
+  if (tiles > 65535) return -4;
+  rc = prepare<T, KX>(smem);
+  if (rc != 0) return rc;
+  dim3 grid(static_cast<unsigned>(a.mx), static_cast<unsigned>(tiles));
+  spectral_update_kernel<T, KX><<<grid, threads, static_cast<size_t>(smem), stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// out: resident blocks per SM, threads a block, dynamic shared memory a
+// block, registers a thread, local memory a thread, as the runtime gives them.
+template <typename T, int KX>
+int occupancy_of(int ntr, int nx, int* out) {
+  int threads = 0, pslots = 0, row_len = 0;
+  long long smem = 0;
+  int rc = plan<T, KX>(ntr, nx, &threads, &pslots, &smem, &row_len);
+  if (rc == 0) rc = prepare<T, KX>(smem);
+  cudaFuncAttributes attr = {};
+  if (rc == 0)
+    rc = static_cast<int>(cudaFuncGetAttributes(&attr, spectral_update_kernel<T, KX>));
+  int blocks = 0;
+  if (rc == 0)
+    rc = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, spectral_update_kernel<T, KX>, threads, static_cast<size_t>(smem)));
+  out[0] = blocks; out[1] = threads; out[2] = static_cast<int>(smem);
+  out[3] = attr.numRegs; out[4] = static_cast<int>(attr.localSizeBytes);
+  return rc;
 }
 
 template <typename T>
@@ -328,19 +630,21 @@ int launch_kx(int kx, const Args<T>& a, cudaStream_t stream) {
 // in:      6 + 3*ntr flux spectra (B, 2, kx, mx, nx), then psdt, vor0, vor1,
 //          div0, div1, t0, t1, ps0, ps1, trf0, trf1 (tracers flat: ntr*kx
 //          levels), phi, tcorh, qcorh; each with five element strides in
-//          `strides` (member, part, level, m, n; level 0 for the planes).
-// tables:  el2, trfilt, dmp, dmpd, dmps, dmp1, dmp1d, dmp1s, elz, vddym,
-//          vddyp (mx, nx); gradx (mx,); xj (kx, kx, mx, nx). Contiguous.
+//          `strides` (member, part, level, m, n; level 0 for the planes). The
+//          part, level and n strides must be offsets that fit 32 bits.
+// rows:    (mx, 11*nx + 1 + kx*kx*nx) per-row tables, contiguous: el2,
+//          trfilt, dmp, dmpd, dmps, dmp1, dmp1d, dmp1s, elz, vddym, vddyp
+//          (nx each), gradx, the implicit inverses xj (kx, kx, nx).
 // out:     ps0, ps1 (B, 2, mx, nx), vor0, vor1, div0, div1, t0, t1
 //          (B, 2, kx, mx, nx), trf0, trf1 (B, 2, ntr*kx, mx, nx). Dense.
-// levels:  9*kx + 2*kx*kx doubles on the host: dhs, dhsr, tref, tref3 (the
-//          column tables), tref, tref2, dhsx (the implicit tables of this dt),
-//          tcorv, qcorv, then xd and xc row by row.
+// levels:  9*kx + 2*kx*kx values of the scalar type: dhs, dhsr, tref, tref3
+//          (the column tables), tref, tref2, dhsx (the implicit tables of this
+//          dt), tcorv, qcorv, then xd and xc row by row.
 // elem_size: 4 (float) or 8 (double).
 extern "C" int pyspeedy_spectral_update(
     int elem_size, int kx, int ntr, long long nmem, int mx, int nx,
-    const void* const* in, const long long* strides, const void* const* tables,
-    void* const* out, const double* levels, int j1, int truncate, double dt,
+    const void* const* in, const long long* strides, const void* rows,
+    void* const* out, const void* levels, int j1, int truncate, double dt,
     double w1, double w2, double sdrag, double rgas, void* stream) {
   if (kx < 1 || kx > kMaxLevels) return -2;
   if (ntr < 1 || ntr > kMaxTracers) return -3;
@@ -349,26 +653,30 @@ extern "C" int pyspeedy_spectral_update(
     using T = decltype(a.dt);
     const int nin = 6 + 3 * ntr + kNumState;
     for (int i = 0; i < nin; ++i) {
+      const long long* sd = strides + 5 * i;
       a.in[i].p = in[i];
-      for (int d = 0; d < 5; ++d) a.in[i].s[d] = strides[5 * i + d];
+      a.in[i].sb = sd[0];
+      a.in[i].sc = static_cast<int>(sd[1]);
+      a.in[i].sk = static_cast<int>(sd[2]);
+      a.in[i].sm = sd[3];
+      a.in[i].sn = static_cast<int>(sd[4]);
     }
-    for (int t = 0; t < kNumTables; ++t) a.tab[t] = tables[t];
-    a.xj = tables[kNumTables];
+    a.rows = rows;
     for (int o = 0; o < 10; ++o) a.out[o] = out[o];
-    const double* lv = levels;
+    const T* lv = static_cast<const T*>(levels);
     for (int k = 0; k < kx; ++k) {
-      a.dhs[k] = static_cast<T>(lv[0 * kx + k]);
-      a.dhsr[k] = static_cast<T>(lv[1 * kx + k]);
-      a.tref[k] = static_cast<T>(lv[2 * kx + k]);
-      a.tref3[k] = static_cast<T>(lv[3 * kx + k]);
-      a.im_tref[k] = static_cast<T>(lv[4 * kx + k]);
-      a.tref2[k] = static_cast<T>(lv[5 * kx + k]);
-      a.dhsx[k] = static_cast<T>(lv[6 * kx + k]);
-      a.tcorv[k] = static_cast<T>(lv[7 * kx + k]);
-      a.qcorv[k] = static_cast<T>(lv[8 * kx + k]);
+      a.dhs[k] = lv[0 * kx + k];
+      a.dhsr[k] = lv[1 * kx + k];
+      a.tref[k] = lv[2 * kx + k];
+      a.tref3[k] = lv[3 * kx + k];
+      a.im_tref[k] = lv[4 * kx + k];
+      a.tref2[k] = lv[5 * kx + k];
+      a.dhsx[k] = lv[6 * kx + k];
+      a.tcorv[k] = lv[7 * kx + k];
+      a.qcorv[k] = lv[8 * kx + k];
       for (int l = 0; l < kx; ++l) {
-        a.xd[k][l] = static_cast<T>(lv[9 * kx + k * kx + l]);
-        a.xc[k][l] = static_cast<T>(lv[9 * kx + kx * kx + k * kx + l]);
+        a.xd[k][l] = lv[9 * kx + k * kx + l];
+        a.xc[k][l] = lv[9 * kx + kx * kx + k * kx + l];
       }
     }
     a.dt = static_cast<T>(dt);
@@ -386,5 +694,22 @@ extern "C" int pyspeedy_spectral_update(
   };
   if (elem_size == 4) return run(Args<float>{});
   if (elem_size == 8) return run(Args<double>{});
+  return -1;
+}
+
+// The occupancy of one instantiation (see occupancy_of): out holds 5 ints.
+extern "C" int pyspeedy_spectral_update_occupancy(int elem_size, int kx, int ntr, int nx,
+                                                   int* out) {
+  auto by_kx = [&](auto zero) -> int {
+    using T = decltype(zero);
+    switch (kx) {
+      case 5: return occupancy_of<T, 5>(ntr, nx, out);
+      case 7: return occupancy_of<T, 7>(ntr, nx, out);
+      case 8: return occupancy_of<T, 8>(ntr, nx, out);
+      default: return -2;
+    }
+  };
+  if (elem_size == 4) return by_kx(0.0f);
+  if (elem_size == 8) return by_kx(0.0);
   return -1;
 }

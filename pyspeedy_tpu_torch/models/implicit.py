@@ -102,9 +102,6 @@ class ImplicitTables(NamedTuple):
     elz: torch.Tensor    # (mx, nx) l(l+1) * xi / a^2
     xj_mn: torch.Tensor  # (mx, nx, kx, kx) gathered inverse matrices; zero
                          # rows at l=0 so the correction vanishes there.
-    # xj_mn laid out (kx, kx, mx, nx): the spectral-update kernel reads the
-    # matrix of its (m, n) point with the n neighbours of a warp adjacent.
-    xj_klmn: torch.Tensor
     # tref, tref2, dhsx, xd and xc (row by row) once more on the host,
     # float64 holding the model-dtype values: the spectral-update kernel
     # takes them in its argument struct.
@@ -190,7 +187,6 @@ def build_implicit(params: ModelParams, geom: Geometry, hd: HorDiffusion,
         dmp1=a(dmp1), dmp1d=a(dmp1d), dmp1s=a(dmp1s),
         tref=a(tref), tref2=a(tref2), tref3=a(tref3), dhsx=a(dhsx),
         xc=a(xc), xd=a(xd), elz=a(elz), xj_mn=a(xj_mn),
-        xj_klmn=a(np.moveaxis(xj_mn, (2, 3), (0, 1))),
         levels_host=_host_copy(params, tref, tref2, dhsx, xd, xc),
     )
 

@@ -12,6 +12,7 @@ scalars of each step stay on the host.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
@@ -23,6 +24,7 @@ from ..coupling.coupler import couple_sea_land, initialize_coupler
 from ..coupling.forcing import set_forcing
 from ..coupling.land import land_model_init
 from ..coupling.sea import sea_model_init
+from ..ops import glue_kernels as GK
 from ..ops import spectral as S
 from ..ops.column_kernels import (ColumnTables, PhysicsTables,
                                   build_column_tables, build_physics_tables)
@@ -89,6 +91,14 @@ class Consts:
 
     def with_implicit(self, im) -> "Consts":
         return dataclasses.replace(self, implicit=im)
+
+    @functools.cached_property
+    def update_tables(self):
+        """The spectral-update kernel's tables for these sp, hd, implicit
+        and col (ops/glue_kernels.py::build_update_tables), built at first
+        use, once per Consts: a Consts is never changed in place, and
+        with_implicit gives each start-up time step a Consts of its own."""
+        return GK.build_update_tables(self)
 
     @property
     def device(self) -> torch.device:

@@ -358,7 +358,10 @@ class PhysicsTables(NamedTuple):
     and derived scalars on the host, in the order of the kernel's argument
     struct, and sqrt(cos(lat)) on the device."""
 
-    levels_host: np.ndarray   # (17*kx + 8,) float64
+    levels_host: np.ndarray   # (17*kx + 8,) float64, as computed
+    # levels_host rounded to the model's scalar type: what the kernel
+    # receives (its PhysTables<T>), so that it converts nothing per use.
+    levels: np.ndarray        # (17*kx + 8,) float32 or float64
     sqrtcoa: torch.Tensor     # (il,)
     kx: int
 
@@ -392,10 +395,11 @@ def build_physics_tables(geom, gp, device) -> PhysicsTables:
     ]
     levels = np.concatenate([f64(r) for r in rows] + [f64(scalars)])
     assert levels.shape == (17 * kx + 8,)
+    dtype = np.asarray(geom.fsg).dtype
     coa = torch.as_tensor(f64(geom.coa), device=device).to(
-        torch.float64 if np.asarray(geom.coa).dtype == np.float64
-        else torch.float32)
+        torch.float64 if dtype == np.float64 else torch.float32)
     return PhysicsTables(levels_host=np.ascontiguousarray(levels),
+                         levels=np.ascontiguousarray(levels, dtype=dtype),
                          sqrtcoa=torch.sqrt(coa).contiguous(), kx=kx)
 
 
@@ -551,7 +555,7 @@ def grid_physics_cuda(consts, sw_flag, ug, vg, tg, qg, phig, pslg, bc, cache,
     ptrs += [ptr(x) for x in (*bc, *new_cache, *tends, *diag)]
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     c_strides = (ctypes.c_longlong * len(strides))(*strides)
-    levels = phys.levels_host
+    levels = phys.levels
     with torch.cuda.device(tg.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(tg.element_size(), int(bf16), kx, int(sw_flag),

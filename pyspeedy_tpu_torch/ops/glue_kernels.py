@@ -23,6 +23,7 @@ What does not have the shape the kernel expects is refused.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -31,11 +32,17 @@ from .. import constants as pc
 from .column_kernels import _SUPPORTED_KX, _load, launch_counts
 
 __all__ = ["spectral_update", "spectral_update_cuda", "kernel_levels",
-           "field_strides", "plain_calls", "reset_plain_calls",
-           "MAX_TRACERS"]
+           "UpdateTables", "build_update_tables", "field_strides",
+           "plain_calls", "reset_plain_calls", "MAX_TRACERS", "MAX_NX"]
 
 # kMaxTracers of the source: its argument struct holds 6 + 3*ntr spectra.
 MAX_TRACERS = 4
+# A member lane of the kernel is one block's 2*nx points, at most 256
+# threads (Shape<T>::threads of the source).
+MAX_NX = 128
+# The (mx, nx) tables of a row in the source's order (its enum Table).
+ROW_TABLES = ("el2", "trfilt", "dmp", "dmpd", "dmps", "dmp1", "dmp1d",
+              "dmp1s", "elz", "vddym", "vddyp")
 
 plain_calls = {"spectral_update": 0}
 
@@ -49,12 +56,18 @@ def field_strides(name: str, x: torch.Tensor, shape: tuple) -> list:
     """The five element strides (member, pair part, level, m, n) through
     which the kernel reads `x`: a (B, 2, levels, mx, nx) field, or a
     (B, 2, mx, nx) plane (level stride 0). Raises if `x` does not have
-    `shape`."""
+    `shape`, or if the offsets inside one (member, m) row do not fit the
+    kernel's 32-bit row offsets."""
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(x.shape)} with strides "
                          f"{x.stride()}, expected {tuple(shape)}")
     s = list(x.stride())
-    return s if x.dim() == 5 else s[:2] + [0] + s[2:]
+    s = s if x.dim() == 5 else s[:2] + [0] + s[2:]
+    levels = shape[2] if len(shape) == 5 else 1
+    if s[1] + (levels - 1) * s[2] + (shape[-1] - 1) * s[4] >= 2 ** 31:
+        raise ValueError(f"{name}: strides {tuple(x.stride())}: the offsets "
+                         f"inside a row exceed 32 bits")
+    return s
 
 
 def kernel_levels(consts) -> np.ndarray:
@@ -69,25 +82,55 @@ def kernel_levels(consts) -> np.ndarray:
         [col[0], col[1], col[3], col[4], im[:3 * kx], hd, im[3 * kx:]]))
 
 
+class UpdateTables(NamedTuple):
+    """What the kernel reads besides the fields, for one set of spectral,
+    diffusion, implicit and column tables."""
+
+    # (mx, 11*nx + 1 + kx*kx*nx): for each m row, contiguous, the eleven
+    # (mx, nx) tables in ROW_TABLES order, gradx, and the implicit inverses
+    # of the row laid out (kx, kx, nx); on the consts' device.
+    rows: torch.Tensor
+    levels: np.ndarray   # kernel_levels in the model's scalar type
+
+
+def build_update_tables(consts) -> UpdateTables:
+    """The kernel's tables for `consts`. Read through
+    ``Consts.update_tables``, which builds them once per Consts: each
+    start-up time step (``with_implicit``) has its own."""
+    sp, hd, im = consts.sp, consts.hd, consts.implicit
+    src = {"el2": sp.el2, "trfilt": sp.trfilt, "dmp": hd.dmp,
+           "dmpd": hd.dmpd, "dmps": hd.dmps, "dmp1": im.dmp1,
+           "dmp1d": im.dmp1d, "dmp1s": im.dmp1s, "elz": im.elz,
+           "vddym": sp.vddym, "vddyp": sp.vddyp}
+    mx = sp.mx
+    tabs = torch.stack([src[name] for name in ROW_TABLES], dim=1)
+    xj = im.xj_mn.permute(0, 2, 3, 1)            # (mx, kx, kx, nx)
+    rows = torch.cat([tabs.reshape(mx, -1), sp.gradx.reshape(mx, 1),
+                      xj.reshape(mx, -1)], dim=1).contiguous()
+    np_dtype = np.float64 if sp.rdtype == torch.float64 else np.float32
+    return UpdateTables(rows, kernel_levels(consts).astype(np_dtype))
+
+
 def spectral_update_cuda(consts, j1: int, dt: float, eps: float, specs, psdt,
                          vor0, vor1, div0, div1, t0, t1, ps0, ps1, trf0, trf1,
                          phi, tcorh, qcorh):
     """Launch the spectral-update kernel on PyTorch's current stream. Same
     arguments and results as ``models.spectral_glue.spectral_update_plain``:
     the ten new state tensors (ps, vor, div, t, trf) x (lev1, lev2), dense.
-    Raises if the inputs are not what the kernel takes, if the build fails
+    Raises if the inputs are not what the kernel takes (checked before
+    anything else), if they do not lie on a CUDA device, if the build fails
     or if the launch is refused; does not synchronise."""
-    params, sp, im, hd = consts.params, consts.sp, consts.implicit, consts.hd
+    params, sp = consts.params, consts.sp
     kx, ntr, mx, nx = params.kx, params.ntr, sp.mx, sp.nx
-    if psdt.device.type != "cuda":
-        raise ValueError(f"spectral_update_cuda needs CUDA tensors, got "
-                         f"{psdt.device}")
     if kx not in _SUPPORTED_KX:
         raise ValueError(f"kx={kx}: the kernel is built for kx in "
                          f"{_SUPPORTED_KX}")
     if not 1 <= ntr <= MAX_TRACERS:
         raise ValueError(f"ntr={ntr}: the kernel takes 1 to {MAX_TRACERS} "
                          f"tracers")
+    if nx > MAX_NX:
+        raise ValueError(f"nx={nx}: a member lane of the kernel is one block "
+                         f"of 2*nx points, so nx is at most {MAX_NX}")
     if len(specs) != 6 + 3 * ntr:
         raise ValueError(f"expected {6 + 3 * ntr} flux spectra, got "
                          f"{len(specs)}")
@@ -97,28 +140,24 @@ def spectral_update_cuda(consts, j1: int, dt: float, eps: float, specs, psdt,
     nmem = psdt.shape[0]
     lev3, plane = (nmem, 2, kx, mx, nx), (nmem, 2, mx, nx)
     trac = (nmem, 2, ntr * kx, mx, nx)
-    fields = [(f"specs[{i}]", x, lev3) for i, x in enumerate(specs)]
-    fields += [("psdt", psdt, plane), ("vor0", vor0, lev3),
-               ("vor1", vor1, lev3), ("div0", div0, lev3),
-               ("div1", div1, lev3), ("t0", t0, lev3), ("t1", t1, lev3),
-               ("ps0", ps0, plane), ("ps1", ps1, plane),
-               ("trf0", trf0, trac), ("trf1", trf1, trac),
-               ("phi", phi, lev3), ("tcorh", tcorh, plane),
-               ("qcorh", qcorh, plane)]
+    ins = (*specs, psdt, vor0, vor1, div0, div1, t0, t1, ps0, ps1, trf0,
+           trf1, phi, tcorh, qcorh)
+    shapes = ((lev3,) * len(specs) + (plane, lev3, lev3, lev3, lev3, lev3,
+                                      lev3, plane, plane, trac, trac, lev3,
+                                      plane, plane))
     strides = []
-    for name, x, shape in fields:
+    for n, (x, shape) in enumerate(zip(ins, shapes)):
         if x.dtype != dtype or x.device != psdt.device:
-            raise TypeError(f"{name}: {x.dtype} on {x.device}, expected "
-                            f"{dtype} on {psdt.device}")
-        strides += field_strides(name, x, shape)
-    tables = (sp.el2, sp.trfilt, hd.dmp, hd.dmpd, hd.dmps, im.dmp1, im.dmp1d,
-              im.dmp1s, im.elz, sp.vddym, sp.vddyp, sp.gradx, im.xj_klmn)
-    shapes = [(mx, nx)] * 11 + [(mx,), (kx, kx, mx, nx)]
-    for t, shape in zip(tables, shapes):
-        if (tuple(t.shape) != shape or t.dtype != dtype
-                or t.device != psdt.device or not t.is_contiguous()):
-            raise ValueError(f"the tables must be contiguous {dtype} on "
-                             f"{psdt.device} of shapes {shapes}")
+            raise TypeError(f"{_input_name(n, len(specs))}: {x.dtype} on "
+                            f"{x.device}, expected {dtype} on {psdt.device}")
+        strides += field_strides(_input_name(n, len(specs)), x, shape)
+    if psdt.device.type != "cuda":
+        raise ValueError(f"spectral_update_cuda needs CUDA tensors, got "
+                         f"{psdt.device}")
+    rows, levels = consts.update_tables
+    if rows.device != psdt.device:
+        raise ValueError(f"the tables lie on {rows.device}, the fields on "
+                         f"{psdt.device}")
     fn = _load("spectral_update")
 
     new = lambda shape: torch.empty(shape, dtype=dtype, device=psdt.device)
@@ -126,23 +165,16 @@ def spectral_update_cuda(consts, j1: int, dt: float, eps: float, specs, psdt,
             new(lev3), new(lev3), new(lev3), new(trac), new(trac))
     if nmem == 0:
         return outs
-    ins = [x for _, x, _ in fields]
     c_in = (ctypes.c_void_p * len(ins))(*(x.data_ptr() for x in ins))
     c_strides = (ctypes.c_longlong * len(strides))(*strides)
-    c_tab = (ctypes.c_void_p * len(tables))(*(t.data_ptr() for t in tables))
     c_out = (ctypes.c_void_p * len(outs))(*(x.data_ptr() for x in outs))
-    levels = kernel_levels(consts)
     with torch.cuda.device(psdt.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(psdt.element_size(), kx, ntr, nmem, mx, nx,
-                ctypes.cast(c_in, ctypes.c_void_p),
-                ctypes.cast(c_strides, ctypes.c_void_p),
-                ctypes.cast(c_tab, ctypes.c_void_p),
-                ctypes.cast(c_out, ctypes.c_void_p),
-                levels.ctypes.data_as(ctypes.c_void_p), int(j1),
+        rc = fn(psdt.element_size(), kx, ntr, nmem, mx, nx, c_in, c_strides,
+                rows.data_ptr(), c_out, levels.ctypes.data, int(j1),
                 int(params.ix == params.iy * 4), float(dt),
                 float(params.wil * eps), float((1.0 - params.wil) * eps),
-                1.0 / (pc.TDRS * 3600.0), pc.RGAS, ctypes.c_void_p(stream))
+                1.0 / (pc.TDRS * 3600.0), pc.RGAS, stream)
     if rc != 0:
         raise RuntimeError(
             f"spectral_update kernel launch failed with code {rc} "
@@ -150,6 +182,14 @@ def spectral_update_cuda(consts, j1: int, dt: float, eps: float, specs, psdt,
             f"{dtype})")
     launch_counts["spectral_update"] += 1
     return outs
+
+
+_STATE_NAMES = ("psdt", "vor0", "vor1", "div0", "div1", "t0", "t1", "ps0",
+                "ps1", "trf0", "trf1", "phi", "tcorh", "qcorh")
+
+
+def _input_name(n: int, nspecs: int) -> str:
+    return f"specs[{n}]" if n < nspecs else _STATE_NAMES[n - nspecs]
 
 
 def spectral_update(plain_fn, consts, j1: int, dt: float, eps: float, specs,

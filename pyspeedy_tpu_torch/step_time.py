@@ -7,9 +7,13 @@ Run from the root of a checkout, on a machine with a CUDA device:
 It builds the kernels, initializes the demo model (synthetic boundary
 conditions), runs one warm-up day at B=128 members, then three windows of
 `N_STEPS` steps, and the same at B=1; each window ends in
-``torch.cuda.synchronize()``. It prints one JSON line: the card's name and
-power limit, where the package was imported from, and the milliseconds per
-step of every window. To compare two checkouts, copy this file into the
+``torch.cuda.synchronize()``. Then the host's time of one call of the
+physics and the spectral-update wrappers, each called `N_CALLS` times back
+to back with the arguments of one step at B=128 (the host's clock before the
+first call and after the last, before the card is waited for). It prints one
+JSON line: the card's name and power limit, where the package was imported
+from, the milliseconds per step of every window and the wrappers' host
+milliseconds per call. To compare two checkouts, copy this file into the
 other checkout's package and run both on one card in turns (parent, change,
 change, parent): the host's time per step spreads by tens of percent from
 call to call.
@@ -28,6 +32,40 @@ import torch
 
 N_STEPS = 36
 WIDTHS = (128, 1)
+N_CALLS = 50
+
+
+def wrapper_host_ms(run, state, cal, first, M, wrappers) -> dict:
+    """{wrapper: host milliseconds per call}: each (module, name) wrapper is
+    recorded during step `first`, then called N_CALLS times back to back
+    with the recorded arguments."""
+    calls = {}
+
+    def recorder(key, fn):
+        def record(*args, **kwargs):
+            calls.setdefault(key, (fn, args, kwargs))
+            return fn(*args, **kwargs)
+        return record
+
+    originals = {(mod, name): getattr(mod, name) for mod, name in wrappers}
+    for (mod, name), fn in originals.items():
+        setattr(mod, name, recorder(name, fn))
+    try:
+        ctx, _ = M.build_step_ctx(dataclasses.replace(cal), first, 1)
+        run(state, ctx)
+    finally:
+        for (mod, name), fn in originals.items():
+            setattr(mod, name, fn)
+    result = {}
+    for name, (fn, args, kwargs) in calls.items():
+        fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(N_CALLS):
+            fn(*args, **kwargs)
+        result[name] = 1e3 * (time.perf_counter() - t0) / N_CALLS
+        torch.cuda.synchronize()
+    return result
 
 
 def main() -> None:
@@ -35,6 +73,7 @@ def main() -> None:
         sys.exit("step_time needs a CUDA device")
     from .models import model as M
     from .ops import column_kernels as ck
+    from .ops import glue_kernels as GK
     from .parallel.ensemble import broadcast_state, make_run_steps_batched
     from .params import T30L8
     from .testing import make_demo_model
@@ -65,6 +104,11 @@ def main() -> None:
             state, c, ms = window(state, c, 2 + (n + 1) * N_STEPS)
             times.append(ms)
         result[f"ms_per_step_B{width}"] = times
+        if width == WIDTHS[0]:
+            # A step with shortwave: the physics writes its radiation cache.
+            host = wrapper_host_ms(run, state, c, 3 + 4 * N_STEPS, M, (
+                (ck, "grid_physics_cuda"), (GK, "spectral_update_cuda")))
+    result["host_ms_per_wrapper_call_B128"] = host
     print(json.dumps(result))
 
 

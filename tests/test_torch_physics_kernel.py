@@ -498,6 +498,10 @@ def test_level_tables_match_the_plain_schemes():
     assert phys.levels_host.shape == (17 * kx + 8,)
     assert torch.equal(phys.sqrtcoa, torch.sqrt(torch.from_numpy(
         np.asarray(geom.coa))))
+    # What the kernel receives: the same values in the model's scalar type
+    # (its PhysTables<T>), so that it converts nothing where it uses them.
+    assert phys.levels.dtype == np.float64 and phys.levels.flags.c_contiguous
+    assert np.array_equal(phys.levels, phys.levels_host)
 
 
 def test_kernel_source_and_build_command():
@@ -515,6 +519,13 @@ def test_kernel_source_and_build_command():
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert cmd[cmd.index("-o") + 1] == "out.so"
     assert "-fmad=false" not in ck.build_command("grid_dynamics", "nvcc", "x")
+    # The shared-memory design: tables in the scalar type, the column's
+    # inputs staged with cp.async, its level arrays in shared-memory slots.
+    for word in ("struct PhysTables {", "template <typename T>\nstruct PhysTables",
+                 "cp.async.ca.shared.global", "struct Slots",
+                 "pyspeedy_grid_physics_occupancy"):
+        assert word in text, word
+    assert "double fsg[" not in text
     assert set(ck.KERNEL_SOURCES) == set(ck.KERNELS) == {
         "grid_dynamics", "grid_physics", "fused_transform", "spectral_update",
         "dft_chain"}

@@ -287,6 +287,11 @@ def test_kernel_source_and_build_command():
     assert "arch=compute_90a,code=sm_90a" in cmd and "-fmad=false" in cmd
     assert len(spec.argtypes) == 19
     assert spec.counters == ("spectral_update",)
+    # The member-tiled design: the row's tables and the staged spectra in
+    # shared memory through cp.async, one barrier per lane.
+    for word in ("cp.async.ca.shared.global", "bar.sync", "struct Shape",
+                 "row_base", "Shape<T>::tile"):
+        assert word in text, word
 
 
 @pytest.mark.gpu
