@@ -15,8 +15,12 @@ random inputs and on the model's own state, the DFT chain at the JAX tool's
 shapes), drives the port's paths through the public entry points (the
 member-batched dynamics-only T30L8 model at a reduced depth; the main path:
 the full-physics T30L8 model, initialization and one model day of 128
-members; the bf16_tendencies configuration at a reduced depth; the probe
-stages on the model's own fields; the DFT chain through its entry point),
+members; the bf16_tendencies configuration at a reduced depth; the SPPT
+path: the full-physics model with stochastic physics, one day of 128
+members; the API: ``Speedy`` in float64 for a day from the bundled boundary
+conditions, held against the golden fixture, and ``SpeedyEns`` with SPPT,
+batched against member by member; the probe stages on the model's own
+fields; the DFT chain through its entry point),
 checks the results and the exact launch counts of every path (for the
 transforms, launches and fields apart), and that no plain version ran on the
 card, and prints what it measured: among it the registers, occupancy and
@@ -38,7 +42,9 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from datetime import datetime, timedelta
 from pathlib import Path
 
 import numpy as np
@@ -48,6 +54,8 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() "
              "is False")
 
+from pyspeedy_tpu_torch import Speedy, SpeedyEns
+from pyspeedy_tpu_torch.callbacks import XarrayExporter
 from pyspeedy_tpu_torch.models import model as M
 from pyspeedy_tpu_torch.models import spectral_glue as SG
 from pyspeedy_tpu_torch.models.implicit import build_implicit
@@ -62,7 +70,9 @@ from pyspeedy_tpu_torch.parallel.ensemble import (broadcast_state,
                                                    make_run_steps_batched)
 from pyspeedy_tpu_torch.params import T30L5, T30L8
 from pyspeedy_tpu_torch.physics import driver as PD
+from pyspeedy_tpu_torch.physics import sppt as SP
 from pyspeedy_tpu_torch.testing import make_demo_model
+from pyspeedy_tpu_torch.utils.dataset import open_dataset
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate,
 # and the float32 / float64 rates outside the tensor cores.
@@ -77,6 +87,10 @@ N_STEPS_DYN = 12        # depth of the dynamics-only path
 N_STEPS_BF16 = 12       # depth of the bf16_tendencies path
 N_PROBE_ROWS = 256      # rows of the probe stages' comparison
 N_DFT_MEMBERS = 256     # members of the DFT chain (the JAX tool's default)
+N_ENS = 16              # members of the SpeedyEns phase
+# The rtol ladder of tests/test_speedy.py, down to the fixtures' 1e-6.
+FIXTURE_LADDER = (1e-1, 1e-2, 1e-3, 1e-4, 1e-6)
+FIXTURE = Path(__file__).resolve().parent / "tests/fixtures/1982-01-02_0000.nc"
 PHYS_NAMES = (("utend", "vtend", "ttend", "qtend") + PD.DIAG_FIELDS
               + PD.CACHE_FIELDS)
 # Columns of a float32 comparison that may sit on a threshold of the physics
@@ -1178,12 +1192,15 @@ def check_spectral_update_on_state(consts, state, limit: float):
     return worst
 
 
-def check_call_site_groups(consts, state, limit: float):
+def check_call_site_groups(consts, state, limit: float, extra_ctx=None):
     """The transform groups the step's call sites build (the dynamics' and
     the physics' inverse groups, the direct group) on the model's own state
     after a day, captured during one step evaluation: each launched once
     against the plain chain field by field and against its fields launched
-    one by one (bitwise)."""
+    one by one (bitwise). With SPPT (`extra_ctx` holding the step's noise,
+    "sppt_se") the physics' group carries the pattern's spectrum as a sixth
+    field. Returns (worst relative error, [(kind, fields, kcos, pdim)] of
+    the three groups)."""
     captured = []
     direct_many, inverse_many = tk.fused_grid2spec_many, tk.fused_spec2grid_many
 
@@ -1203,12 +1220,13 @@ def check_call_site_groups(consts, state, limit: float):
     try:
         grid_tendency_specs(consts, state, 1, PD.get_physical_tendencies,
                             {"compute_shortwave": True,
-                             "stepno": 2 + N_STEPS})
+                             "stepno": 2 + N_STEPS, **(extra_ctx or {})})
     finally:
         tk.fused_grid2spec_many, tk.fused_spec2grid_many = (direct_many,
                                                             inverse_many)
     sizes = [(kind, len(fields), pdim) for kind, fields, _, pdim in captured]
-    want = [("inverse", 7, 1), ("inverse", 5, 1),
+    n_phys = 5 + (1 if extra_ctx else 0)
+    want = [("inverse", 7, 1), ("inverse", n_phys, 1),
             ("direct", 7 + 3 * consts.params.ntr, 1)]
     if sizes != want:
         raise RuntimeError(f"the step's transform groups are {sizes}, "
@@ -1216,12 +1234,13 @@ def check_call_site_groups(consts, state, limit: float):
     errs = [check_group(consts.sp, kind, fields, kcos, limit)[0]
             for kind, fields, kcos, _ in captured]
     print(f"the step's transform groups as its call sites build them, on the "
-          f"model's state after a day (T30L8 f32 B={N_MEMBERS}): "
+          f"model's state after a day (T30L8 f32 B={N_MEMBERS}"
+          f"{', SPPT' if extra_ctx else ''}): "
           + ", ".join(f"{kind} of {len(f)} fields {e:.3e}"
                       for (kind, f, _, _), e in zip(captured, errs))
           + f" max rel err vs the plain chain (limit {limit:.0e}), each "
           f"bitwise equal to its fields launched one by one")
-    return max(errs)
+    return max(errs), captured
 
 
 # ---------------------------------------------------------------------------
@@ -1288,13 +1307,17 @@ def expected_transforms(consts, n_evals: int, n_forcings: int,
     7 + 3*ntr fields back (psdt, two wind and two temperature-flux fields,
     two fluxes and one tendency per tracer, kinetic energy, T) in one launch
     per MAX_SEGMENTS fields; the daily forcing 2 direct fields, one launch
-    each; the initialization itself 4 direct and 2 inverse, one launch each
+    each; with SPPT the physics' group carries the pattern's spectrum too
+    (one field more, no launch more); the initialization itself 4 direct
+    and 2 inverse, one launch each
     (the filtered orography, its spectral form and synthesis, surface
     pressure and humidity of the rest state). The fields are the arithmetic
     of the transforms; the launches follow the grouping."""
     ntr = consts.params.ntr
-    inv_fields = 7 + ((5 if consts.grid_phi else 6) if consts.physics_on
-                      else 0)
+    # With SPPT the pattern's spectrum joins the physics' group.
+    sppt = 1 if consts.params.sppt_on else 0
+    inv_fields = 7 + ((5 if consts.grid_phi else 6) + sppt
+                      if consts.physics_on else 0)
     inv_launches = 2 if consts.physics_on else 1
     dir_fields = 7 + 3 * ntr
     dir_launches = -(-dir_fields // tk.MAX_SEGMENTS)
@@ -1441,7 +1464,8 @@ def device_time_per_step(run, state, cal, first_step: int, n_steps: int):
     """(milliseconds the card is busy per step, device launches per step,
     the eight device kernels that take most of that time as
     [(name, ms per step, launches per step)], and the ms per step of the
-    matrix products and of the hand-written kernels) over a short
+    matrix products, the row reductions and the hand-written kernels) over
+    a short
     window, from torch.profiler; (None, None, [], {}) if the profiler did
     not record the window whole. The window is whole when it holds one
     record of the grid-dynamics and of the spectral-update kernel per step
@@ -1481,12 +1505,50 @@ def device_time_per_step(run, state, cal, first_step: int, n_steps: int):
                                                "spec2grid_fold_kernel"),
               "grid_physics kernel": share("grid_physics_kernel"),
               "grid_dynamics kernel": share("grid_dynamics_kernel"),
-              "spectral_update kernel": share("spectral_update_kernel")}
+              "spectral_update kernel": share("spectral_update_kernel"),
+              "row reductions": share("reduce_kernel")}
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     top = [(e.key[:60], e.self_device_time_total * 1e-3 / n_steps,
             e.count / n_steps) for e in top]
     return (busy_us * 1e-3 / n_steps, sum(e.count for e in events) / n_steps,
             top, groups)
+
+
+def device_launches(fn) -> int:
+    """Device launches (kernels, copies, fills) of one call of fn, from
+    torch.profiler; 0 if the tracer recorded none (see kernel_device_ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
+def fixture_ladder(path: str):
+    """The exported day against tests/fixtures/1982-01-02_0000.nc through
+    the rtol ladder of tests/test_speedy.py; returns {variable: largest
+    relative difference}. Raises at the first rung a variable misses."""
+    mine, ref = open_dataset(path), open_dataset(str(FIXTURE))
+    rel = {}
+    for v in ref.keys():
+        x = np.asarray(mine[v].data, dtype=np.float64)
+        y = np.asarray(ref[v].data, dtype=np.float64)
+        if x.shape != y.shape or not np.isfinite(x).all():
+            raise RuntimeError(f"API phase: {v} has shape {x.shape}, "
+                               f"expected {y.shape}, or non-finite values")
+        with np.errstate(divide="ignore", invalid="ignore"):
+            r = np.abs(x - y) / np.abs(y)
+        rel[v] = float(np.nanmax(np.where(x == y, 0.0, r)))
+    for rtol in FIXTURE_LADDER:
+        for v in ref.keys():
+            np.testing.assert_allclose(
+                np.asarray(mine[v].data, np.float64),
+                np.asarray(ref[v].data, np.float64), rtol=rtol, atol=0.0,
+                err_msg=f"API phase: {v} at rtol {rtol:g}")
+    return rel
 
 
 def check_state(state, n_members: int, what: str):
@@ -1716,7 +1778,7 @@ def main() -> None:
     # The spectral-update kernel on the model's own state after that day,
     # and the step's transform groups as its call sites build them there.
     glue_state = check_spectral_update_on_state(consts, state, 1e-5)
-    sites_err = check_call_site_groups(consts, state, 1e-5)
+    sites_err, _ = check_call_site_groups(consts, state, 1e-5)
 
     # Member independence through the kernels and the coupler: one member's
     # initial temperature perturbed, only that member may differ.
@@ -1752,7 +1814,8 @@ def main() -> None:
     check_state(s1, 1, "B=1")
     dev_ms_1 = device_time_per_step(run, s1, cal1b, 2 + 2 * N_STEPS, 6)[0]
     per_step = ("not measured" if launches_per_step is None
-                else f"{launches_per_step:.0f}")
+                else f"{launches_per_step:.2f} (a 6-step window: no start of "
+                f"a day, so no daily forcing)")
     print(f"throughput, full physics: "
           f"{report(N_MEMBERS, N_STEPS, secs, dev_ms_128)}; "
           f"{report(1, N_STEPS, secs1, dev_ms_1)}; device launches per step "
@@ -1917,6 +1980,200 @@ def main() -> None:
           f"{launches_dft['dft_chain']}, plain calls {plain_dft['dft_chain']}")
     del tabs, fre, fim, ore, oim, again
 
+    # 6e. the SPPT path at full width: the full-physics model with SPPT
+    # (T30L8 f32, grid_phi on); initialization (the stationary spectrum and
+    # both bootstrap steps with their own one-step draws, B=1), then one
+    # model day of 128 members from one broadcast state (each member its own
+    # key): the noise of the 36 steps drawn in one pass, each step's AR(1)
+    # update, the pattern in the physics' transform group, the multiply in
+    # the physics kernel.
+    reset_counts()
+    p_sppt = dataclasses.replace(f32, sppt_on=True)
+    consts_s, state_s1, cal_s = make_demo_model(p_sppt, device="cuda")
+    run_s = make_run_steps_batched(consts_s, device="cuda")
+    state_s, cal_s1, secs_s = run_window(
+        run_s, broadcast_state(state_s1, N_MEMBERS), cal_s, 2, N_STEPS)
+    launches_s = dict(ck.launch_counts)
+    fields_s = dict(tk.field_counts)
+    plain_s = dict(tk.plain_chain_calls, **GK.plain_calls)
+    check_state(state_s, N_MEMBERS, "SPPT path")
+    direct_s, inverse_s = expected_transforms(
+        consts_s, N_STEPS + 2, n_forcings, with_init=True)
+    expected_s = dict(expected)
+    expected_s.update(fused_grid2spec=direct_s[0], fused_spec2grid=inverse_s[0])
+    expected_fields_s = {"fused_grid2spec": direct_s[1],
+                         "fused_grid2spec_bf16": 0,
+                         "fused_spec2grid": inverse_s[1]}
+    if (launches_s != expected_s or fields_s != expected_fields_s
+            or any(plain_s.values())):
+        raise RuntimeError(f"SPPT path launched {launches_s}, expected "
+                           f"{expected_s}; transform fields {fields_s}, "
+                           f"expected {expected_fields_s}; plain calls "
+                           f"{plain_s}")
+    if inverse_s[1] != inverse[1] + N_STEPS + 2:
+        raise RuntimeError("the SPPT path's physics group is not one field "
+                           "wider than the main path's")
+    t_s = state_s["t"][0]
+    spread_s = float((t_s - t_s[:1]).abs().max() / t_s.abs().max())
+    if not spread_s > 1e-6:
+        raise RuntimeError(f"SPPT members did not diverge: {spread_s:.3e}")
+    keys_s = state_s["sppt_key"]
+    if len({tuple(k) for k in keys_s.tolist()}) != N_MEMBERS:
+        raise RuntimeError("SPPT members share a noise key")
+    print(f"SPPT path: T30L8 f32 with physics and SPPT, {N_MEMBERS} members "
+          f"x {N_STEPS} steps + initialization, finite, error_flag false, "
+          f"launches {launches_s} (the main path's), transform fields "
+          f"{fields_s} (fused_spec2grid {inverse_s[1]} = the main path's "
+          f"{inverse[1]} + one pattern spectrum in each of the {N_STEPS + 2} "
+          f"physics groups), plain calls {plain_s}; members from one "
+          f"broadcast state differ in t by {spread_s:.3e} (rel., more than "
+          f"1e-6), {N_MEMBERS} distinct keys; first window {secs_s:.3f} s")
+    # Launches and device time per step, a whole 36-step run call of each
+    # path from warm states, in turns; the noise draw of one run call alone.
+    state_s, cal_s2, _ = run_window(run_s, state_s, cal_s1, 2 + N_STEPS,
+                                    N_STEPS)
+    prof_main = device_time_per_step(run, state, cal_day2, 2 + 2 * N_STEPS,
+                                     N_STEPS)
+    prof_s = device_time_per_step(run_s, state_s, cal_s2, 2 + 2 * N_STEPS,
+                                  N_STEPS)
+    draw = lambda: list(SP.draw_run_noise(consts_s, state_s["sppt_key"],
+                                          2 + 2 * N_STEPS, N_STEPS))
+    draw()
+    draw_launches = device_launches(draw)
+    draw_ms = time_ms(draw, reps=3, warmup=1, windows=3)
+    _, _, secs_s_warm = run_window(run_s, state_s, cal_s2, 2 + 2 * N_STEPS,
+                                   N_STEPS)
+    _, _, secs_m_warm = run_window(run, state, cal_day2, 2 + 2 * N_STEPS,
+                                   N_STEPS)
+    if prof_main[0] is None or prof_s[0] is None:
+        sppt_launch_line = "launches per step not measured (no whole window)"
+    else:
+        sppt_extra = prof_s[1] - prof_main[1]
+        sppt_launch_line = (
+            f"device launches per step {prof_s[1]:.1f} with SPPT, "
+            f"{prof_main[1]:.1f} without: SPPT adds {sppt_extra:.1f} a step "
+            f"(the noise draw {draw_launches} launches per run call = "
+            f"{draw_launches / N_STEPS:.1f} a step at {N_STEPS} steps, the "
+            f"rest the AR(1) update and the clip of each step); device busy "
+            f"{prof_s[0]:.3f} ms/step with SPPT, {prof_main[0]:.3f} without")
+    print(f"SPPT path, warm, {N_STEPS}-step run calls at B={N_MEMBERS}: "
+          f"{sppt_launch_line}; the noise draw of one run call "
+          f"{draw_ms:.3f} ms; wall {1e3 * secs_s_warm / N_STEPS:.3f} ms/step "
+          f"with SPPT, {1e3 * secs_m_warm / N_STEPS:.3f} without [{card}]")
+    # The physics' transform group with the pattern and the physics kernel
+    # fed the model's own pattern, against their plain versions, on the
+    # SPPT state after a day.
+    se = next(SP.draw_run_noise(consts_s, state_s["sppt_key"], 2 + N_STEPS,
+                                1))
+    sites_err_s, groups_s = check_call_site_groups(consts_s, state_s, 1e-5,
+                                                   {"sppt_se": se})
+    _, phys_fields, phys_kcos, _ = groups_s[1]
+    sp_fft = S.build_spectral(f32, M.build_geometry(f32), use_matmul_fft=False,
+                              device="cuda")
+    group_s = time_group(consts_s.sp, sp_fft, "inverse, physics + SPPT",
+                         "inverse", phys_fields, phys_kcos, card,
+                         "T30L8 f32, the SPPT state after a day")
+    del phys_fields, groups_s, sp_fft
+    spec_s = SP.advance(consts_s.sppt, state_s["sppt_spec"], se[0])
+    args_s, kw_s = PD.physics_grid_inputs(consts_s, state_s, True, spec_s)
+    pattern = kw_s["sppt_pattern"]
+    pat_plain = torch.clamp(tk.spec2grid_plain(consts_s.sp, spec_s, 1, 1),
+                            -1.0, 1.0)
+    pattern_err = _rel(pattern, pat_plain)
+    if not pattern_err <= 1e-5:
+        raise RuntimeError(f"the SPPT pattern from the group differs from "
+                           f"its plain transform: {pattern_err:.3e}")
+    print(f"SPPT pattern of the model's spectrum after a day: from the "
+          f"physics group {pattern_err:.3e} rel. from the plain transform "
+          f"(limit 1e-5); std {float(pattern.std()):.4f}, largest "
+          f"{float(pattern.abs().max()):.4f}")
+    phys_sppt = check_physics(
+        f32, N_MEMBERS, 1e-5, card, ("sppt",), timed=True,
+        inputs={"args": args_s, "phisg": kw_s["phisg"],
+                "m0corr": kw_s["m0corr"], "sppt": pattern,
+                "source": "SPPT model state after a day, its own pattern"})
+    del args_s, kw_s, pattern, pat_plain, spec_s, se
+
+    # 6f. the API phase: Speedy on the card in float64 (the fixtures'
+    # precision), from the bundled boundary conditions, one day exported by
+    # XarrayExporter and held against the golden fixture.
+    reset_counts()
+    t0 = time.perf_counter()
+    api = Speedy(start_date=datetime(1982, 1, 1),
+                 end_date=datetime(1982, 1, 2))
+    api.set_bc()
+    t_init = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        api.run(callbacks=[XarrayExporter(output_dir=out_dir)])
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        launches_api = dict(ck.launch_counts)
+        plain_api = dict(tk.plain_chain_calls, **GK.plain_calls)
+        rel_api = fixture_ladder(str(Path(out_dir) / "1982-01-02_0000.nc"))
+    if (api._consts.device.type != "cuda"
+            or api._consts.params.precision != "f64"
+            or any(plain_api.values())
+            or not all(launches_api[k] > 0 for k in (
+                "grid_dynamics", "grid_physics_sw", "grid_physics_nosw",
+                "fused_grid2spec", "fused_spec2grid", "spectral_update"))):
+        raise RuntimeError(f"API phase: launches {launches_api}, plain calls "
+                           f"{plain_api}")
+    print(f"API phase: Speedy T30L8 f64 on the card, set_bc from the bundled "
+          f"files {t_init:.2f} s, 1982-01-01 -> 01-02 ({api.get_current_step()}"
+          f" steps) {t_run:.2f} s = {1e3 * t_run / api.get_current_step():.2f}"
+          f" ms/step wall; launches {launches_api}, no plain call; against "
+          f"tests/fixtures/1982-01-02_0000.nc through rtol "
+          + ", ".join(f"{r:g}" for r in FIXTURE_LADDER)
+          + ": largest rel. difference "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rel_api.items())
+          + f" [{card}]")
+    del api
+
+    # 6g. SpeedyEns on the card: 16 members with SPPT, float32, one day
+    # advanced as one member-batched run; members 0 and 1 again in a
+    # two-member ensemble stepped one member at a time, bitwise the same.
+    reset_counts()
+    p_ens = dataclasses.replace(T30L8, precision="f32", sppt_on=True)
+    t0 = time.perf_counter()
+    ens = SpeedyEns(N_ENS, start_date=datetime(1982, 1, 1),
+                    end_date=datetime(1982, 1, 2), params=p_ens)
+    for member in ens:
+        member.set_bc()
+    t_ens_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ens.run()
+    torch.cuda.synchronize()
+    t_ens = time.perf_counter() - t0
+    launches_ens = dict(ck.launch_counts)
+    seq = SpeedyEns(2, start_date=datetime(1982, 1, 1),
+                    end_date=datetime(1982, 1, 2), params=p_ens)
+    for member in seq:
+        member.set_bc()
+    seq.run(batched=False)
+    ens_rel, ens_bitwise = 0.0, True
+    for a, b in zip(ens.members[:2], seq.members):
+        for name in ("vor", "div", "t", "ps", "tr"):
+            x, y = a._state[name][0], b._state[name][0]
+            ens_bitwise &= torch.equal(x, y)
+            ens_rel = max(ens_rel, _rel(x, y))
+    t_e = torch.stack([m._state["t"][0] for m in ens.members])
+    ens_spread = float((t_e - t_e[:1]).abs().max() / t_e.abs().max())
+    # Bitwise: every operation of the step gives a member the same bits at
+    # any batch width (the kernels by design, the m=0 correction of
+    # grid_phi as a row reduction, the noise elementwise).
+    if not ens_bitwise or not ens_spread > 1e-6:
+        raise RuntimeError(f"SpeedyEns: batched vs one by one not bitwise "
+                           f"({ens_rel:.3e}), members differ by "
+                           f"{ens_spread:.3e}")
+    print(f"SpeedyEns phase: {N_ENS} members, T30L8 f32 with SPPT on the card, "
+          f"set_bc {t_ens_init:.2f} s, one day batched {t_ens:.2f} s "
+          f"({1e3 * t_ens / 36:.2f} ms/step wall for all members), launches "
+          f"{launches_ens}; members 0 and 1 against the same members stepped "
+          f"one by one: bitwise equal (vor, div, t, ps, tr); members differ "
+          f"in t by {ens_spread:.3e} (more than 1e-6) [{card}]")
+    del ens, seq, t_e
+
     # 7. float64 end to end with physics: the card (the column kernels and
     # the fused transform kernels in float64) against the CPU (their plain
     # versions: the dense matmul chain for the transforms) from the same
@@ -1971,6 +2228,48 @@ def main() -> None:
     if not worst64 <= 1e-9:
         raise RuntimeError("float64 card run disagrees with the CPU run")
 
+    # 7b. the SPPT day in float64: the card against the CPU from the same
+    # initial state and the same member keys (split from the state's), the
+    # noise drawn on each device.
+    ck.reset_launch_counts()
+    p64s = dataclasses.replace(f64, sppt_on=True)
+    consts_cs, state_cs, cal_cs = make_demo_model(p64s, device="cpu",
+                                                  grid_phi=True)
+    consts_gs, _ = M.build_consts(p64s, device="cuda", grid_phi=True)
+    ctx_s, _ = M.build_step_ctx(dataclasses.replace(cal_cs), 2, N_STEPS)
+    out_cs = make_run_steps_batched(consts_cs, device="cpu")(
+        broadcast_state(state_cs, nmem64), ctx_s)
+    GK.reset_plain_calls()
+    tk.reset_field_counts()
+    out_gs = make_run_steps_batched(consts_gs, device="cuda")(
+        broadcast_state(to_gpu(state_cs), nmem64), ctx_s)
+    torch.cuda.synchronize()
+    check_state(out_gs, nmem64, "f64 SPPT card run")
+    launches64s = dict(ck.launch_counts)
+    if (launches64s["grid_physics_sw"] + launches64s["grid_physics_nosw"]
+            != N_STEPS or any(GK.plain_calls.values())):
+        raise RuntimeError(f"f64 SPPT card run: launches {launches64s}, "
+                           f"plain calls {GK.plain_calls}")
+    worst64s, worst_name_s = 0.0, ""
+    fields_s64 = [(n, out_gs[n][0], out_cs[n][0]) for n in PROGNOSTICS]
+    fields_s64 += [(n, out_gs[n], out_cs[n]) for n in
+                   ("sppt_spec", "hfluxn", "precnv", "precls", "olr")]
+    for name, a, b in fields_s64:
+        err = float((a.cpu() - b).abs().max() / (b.abs().max() or 1.0))
+        if err > worst64s:
+            worst64s, worst_name_s = err, name
+    t_g = out_gs["t"][0]
+    spread64 = float((t_g - t_g[:1]).abs().max() / t_g.abs().max())
+    print(f"f64 SPPT day: T30L8, B={nmem64}, {N_STEPS} steps, card (kernels) "
+          f"vs CPU (plain), the same member keys: max rel err {worst64s:.3e} "
+          f"in {worst_name_s} over the prognostics, the SPPT spectrum and 4 "
+          f"physics fields (limit 1e-9); members differ in t by "
+          f"{spread64:.3e}")
+    if not worst64s <= 1e-9 or not spread64 > 1e-6:
+        raise RuntimeError("the float64 SPPT card run disagrees with the CPU "
+                           "run, or its members did not diverge")
+    del out_cs, out_gs, state_cs
+
     # 8. kernels
     def entry(name, source, replaces, n_launches, res, shape):
         return {"name": name, "route": "cuda", "source": source,
@@ -2008,6 +2307,14 @@ def main() -> None:
             kernels[-1]["local_bytes" + key] = local
             kernels[-1]["warps_per_sm" + key] = blocks * threads // 32
         kernels[-1]["flipped_columns"] = phys32[name]["flipped_columns"]
+        kernels[-1]["launches_sppt_path"] = launches_s[name]
+        kernels[-1]["ms_sppt_model_pattern"] = phys_sppt[name]["ms"]
+        kernels[-1]["bound_ms_sppt_model_pattern"] = phys_sppt[name][
+            "bound_ms"]
+        kernels[-1]["plain_ms_sppt_model_pattern"] = phys_sppt[name][
+            "plain_ms"]
+        kernels[-1]["flipped_columns_sppt_model_pattern"] = phys_sppt[name][
+            "flipped_columns"]
         kernels[-1]["launches_bf16_path"] = launches_b[name + "_bf16"]
         kernels[-1].update(bf16_out[name])
     tr_src = "pyspeedy_tpu_torch/csrc/fused_transform.cu"
@@ -2020,12 +2327,16 @@ def main() -> None:
         kernels[-1]["fields"] = fields_main[name]
         kernels[-1]["launches_dynamics_only_path"] = launches_dyn[name]
         kernels[-1]["fields_dynamics_only_path"] = fields_dyn[name]
+        kernels[-1]["launches_sppt_path"] = launches_s[name]
+        kernels[-1]["fields_sppt_path"] = fields_s[name]
+        kernels[-1]["max_rel_err_call_site_groups_sppt"] = sites_err_s
         kernels[-1]["groups"] = tr32[name]["groups"]
         kernels[-1]["groups_f64"] = tr64[name]["groups"]
         kernels[-1]["max_rel_err_call_site_groups"] = sites_err
         for key in ("ms", "call_ms", "plain_ms", "bound_ms", "max_rel_err",
                     "fft_route_ms"):
             kernels[-1][key + "_f64"] = tr64[name][key]
+    kernels[-1]["group_sppt_physics"] = group_s
     kernels[-2]["launches_bf16_path"] = launches_b["fused_grid2spec_bf16"]
     kernels[-2]["fields_bf16_path"] = fields_b["fused_grid2spec_bf16"]
     kernels[-2].update(tr_bf16)

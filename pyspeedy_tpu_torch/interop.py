@@ -24,15 +24,18 @@ def _to_tensor(a, device, dtype):
         return torch.from_numpy(a).to(device, dtype)
     if a.dtype.kind in "bi":
         return torch.from_numpy(a).to(device)
+    if a.dtype.kind == "u":
+        return torch.from_numpy(a.astype(np.int64)).to(device)
     return None
 
 
 def state_from_numpy(state_np: dict, device="cuda",
                      dtype=torch.float64) -> dict:
     """numpy state dict -> dict of tensors on `device`. Floating arrays are
-    cast to `dtype`; bool and integer arrays keep their type; entries of any
-    other type (raw random-key data of the stochastic physics) are left
-    out."""
+    cast to `dtype`; bool and signed integer arrays keep their type;
+    unsigned ones (the raw uint32 key data of the stochastic physics,
+    sppt_key) become int64 tensors holding the same words; entries of any
+    other type are left out."""
     device = resolve_device(device)
     out = {}
     for name, val in state_np.items():
@@ -49,8 +52,12 @@ def state_from_numpy(state_np: dict, device="cuda",
 
 def state_to_numpy(state: dict) -> dict:
     """Dict of tensors (tuples for leapfrog levels) -> dict of numpy arrays.
-    One device-to-host copy per tensor."""
+    One device-to-host copy per tensor. The SPPT key words come back as the
+    JAX package's raw uint32 key data."""
     conv = lambda t: t.detach().cpu().numpy()
-    return {name: (tuple(conv(a) for a in val)
-                   if isinstance(val, (tuple, list)) else conv(val))
-            for name, val in state.items()}
+    out = {name: (tuple(conv(a) for a in val)
+                  if isinstance(val, (tuple, list)) else conv(val))
+           for name, val in state.items()}
+    if "sppt_key" in out:
+        out["sppt_key"] = out["sppt_key"].astype(np.uint32)
+    return out

@@ -98,12 +98,19 @@ def hydrostatic_m0corr(gp: GeopotTables, sp, t_spec: torch.Tensor):
     the spectral temperature (one (nx -> il) product; the m=0 inverse DFT is
     the identity on the real plane, fourier.f90:72-76): corr(k, j) = corf[k]
     * sum_n (t[k+1] - t[k-1])_re[m=0, n] * P(j, 0, n). t_spec:
-    (B, 2, kx, mx, nx). Returns (B, kx, il, 1)."""
+    (B, 2, kx, mx, nx). Returns (B, kx, il, 1).
+
+    The n-sum is a product and a reduction over the last axis, not a matrix
+    product: a matrix library picks its algorithm, and with it the order of
+    the sum, by the number of rows, so a member's correction would depend on
+    how many members run beside it (on the card by 1e-7 in float32, enough
+    for a column to take another branch of the physics). The reduction of a
+    32-element row keeps its order whatever the batch."""
     t0 = t_spec[:, 0, :, 0, :]                        # (B, kx, nx) real m=0
     tpad = torch.nn.functional.pad(t0, (0, 0, 1, 1))
     dtk = tpad[:, 2:] - tpad[:, :-2]
     leg0 = sp.cpol_inv_full[:, 0, :]                  # (il, nx)
-    corr = torch.einsum("bkn,jn->bkj", gp.corf[:, None] * dtk, leg0)
+    corr = torch.sum((gp.corf[:, None] * dtk)[:, :, None, :] * leg0, dim=-1)
     return corr.unsqueeze(-1)
 
 

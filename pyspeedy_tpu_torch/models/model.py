@@ -30,6 +30,7 @@ from ..ops.column_kernels import (ColumnTables, PhysicsTables,
                                   build_column_tables, build_physics_tables)
 from ..ops.geometry import Geometry, build_geometry
 from ..params import ModelParams
+from ..physics import sppt as sppt_mod
 from ..physics.driver import get_physical_tendencies
 from ..physics.longwave_radiation import radset
 from ..physics.surface_fluxes import set_orog_land_sfc_drag
@@ -65,6 +66,7 @@ class Consts:
     fband: Any              # (301, 4)
     col: ColumnTables       # level/latitude tables of the grid-dynamics kernel
     phys: PhysicsTables     # level/latitude tables of the physics kernel
+    sppt: Any = None        # SpptTables when params.sppt_on
     # NB: increase_co2 / land_coupling_flag / sst_anomaly_coupling_flag are
     # NOT consts: they are runtime-settable state scalars (0-d device
     # tensors), matching the reference registry. See allocate_state.
@@ -114,17 +116,14 @@ def build_consts(params: ModelParams, device="cuda", physics_on: bool = True,
     defaults to on for a CUDA device and off on the CPU. bf16_tendencies
     (see Consts) is taken for precision="f32" on the dense transform route
     and refused by name otherwise: the JAX package silently widens the
-    bfloat16 operands there, which rounds for nothing. Not ported yet, and
-    refused by name: params.sppt_on=True (the SPPT pattern generator). The
-    zonal transform path follows params.fft_mode; "auto" takes the dense
-    matmul path on CUDA and torch.fft on the CPU."""
+    bfloat16 operands there, which rounds for nothing. params.sppt_on=True
+    builds the SPPT tables (Consts.sppt); with the physics on, the pattern
+    then multiplies the physics tendencies of every step. The zonal
+    transform path follows params.fft_mode; "auto" takes the dense matmul
+    path on CUDA and torch.fft on the CPU."""
     device = resolve_device(device)
     if grid_phi is None:
         grid_phi = device.type == "cuda"
-    if params.sppt_on:
-        raise NotImplementedError(
-            "sppt_on=True: stochastic physics (physics/sppt.py) is not "
-            "ported yet")
     if params.fft_mode not in ("auto", "matmul", "fft"):
         raise ValueError(
             f"fft_mode must be 'auto', 'matmul' or 'fft', got "
@@ -161,8 +160,10 @@ def build_consts(params: ModelParams, device="cuda", physics_on: bool = True,
                               params.np_dtype, device)
     geom = Geometry(*(np.asarray(a, dtype=params.np_dtype) for a in geom_np))
     phys = build_physics_tables(geom, gp, device)
+    sppt = (sppt_mod.build_sppt_tables(params, sp.el2.cpu().numpy(), device)
+            if params.sppt_on else None)
     consts = Consts(params=params, sp=sp, geom=geom, hd=hd, gp=gp,
-                    implicit=im, fband=fband, col=col, phys=phys,
+                    implicit=im, fband=fband, col=col, phys=phys, sppt=sppt,
                     sea_coupling_flag=sea_coupling_flag,
                     physics_on=physics_on, grid_phi=grid_phi,
                     bf16_tendencies=bool(bf16_tendencies))
@@ -173,7 +174,10 @@ def allocate_state(params: ModelParams, n_months: int = 1,
                    device="cuda") -> dict:
     """Zero-filled single-member model state (the analog of
     ModelState_allocate, model_state.f90:358) in internal layouts, plus
-    runtime extras, as tensors on `device`."""
+    runtime extras, as tensors on `device`. With params.sppt_on the state
+    also carries the SPPT spectrum sppt_spec (2, kx, mx, nx), zero until
+    initialize draws it, and the member's noise key sppt_key (two uint32
+    words in an int64 tensor; the JAX package's jax.random.key(0))."""
     device = resolve_device(device)
     rdt = params.dtype
     state = {}
@@ -204,6 +208,8 @@ def allocate_state(params: ModelParams, n_months: int = 1,
     state["increase_co2"] = scalar(False, torch.bool)
     state["land_coupling_flag"] = scalar(True, torch.bool)
     state["sst_anomaly_coupling_flag"] = scalar(True, torch.bool)
+    if params.sppt_on:
+        state.update(sppt_mod.init_sppt_state(params, device=device))
     return state
 
 
@@ -250,7 +256,9 @@ def _single_member_ndims() -> dict:
     """Number of axes of each state field in the single-member layout."""
     # Runtime extras that the registry does not list: the blow-up flag and
     # the forcing's spectral corrections (real pairs (2, mx, nx)).
-    nd = {"error_flag": 0, "tcorh": 3, "qcorh": 3}
+    # The SPPT spectrum is a real pair (2, kx, mx, nx), its key two words.
+    nd = {"error_flag": 0, "tcorh": 3, "qcorh": 3, "sppt_spec": 4,
+          "sppt_key": 1}
     for spec in MODEL_STATE_VARS:
         nd[spec.name] = (len(spec.dims) - (1 if is_tlev(spec) else 0)
                          + (1 if spec.kind == "c" else 0))
@@ -357,6 +365,12 @@ def initialize(consts: Consts, state: dict, host_bc: dict,
     # Prognostics from the rest state (prognostics.f90:22-120)
     state = initialize_from_rest_state(consts, state)
     state["ablco2_ref"] = state["air_absortivity_co2"]
+    # Stationary-variance SPPT spectrum (sppt.f90:92) before the bootstrap
+    # steps advance it; each of those steps draws its own noise (stepno 0
+    # and 1, one group each), as in the JAX package.
+    if params.sppt_on:
+        state["sppt_spec"] = sppt_mod.stationary_draw(consts,
+                                                      state["sppt_key"])
 
     st = add_member_axis(state, 1)
     bad0 = check_diagnostics(consts, st, 0)
@@ -457,8 +471,8 @@ def make_single_step(consts: Consts):
             (nmem,), bool(ctx_i["compute_shortwave"]))
         pctx = {"compute_shortwave": bool(ctx_i["compute_shortwave"]),
                 "stepno": int(ctx_i["stepno"])}
-        if "sppt_pattern" in ctx_i:
-            pctx["sppt_pattern"] = ctx_i["sppt_pattern"]
+        if "sppt_se" in ctx_i:
+            pctx["sppt_se"] = ctx_i["sppt_se"]
         state = step(consts, state, 2, 2, 2.0 * params.delt, pf, pctx)
 
         bad = check_diagnostics(consts, state, 1)

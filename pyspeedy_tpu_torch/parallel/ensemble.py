@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from .. import resolve_device
 from ..models import model as M
+from ..physics import sppt as SP
 
 __all__ = ["broadcast_state", "make_run_steps_batched", "pick_member_chunk"]
 
@@ -39,8 +40,14 @@ def broadcast_state(state: dict, n_members: int) -> dict:
     (EPHEMERAL_FIELDS): with the physics off nothing writes them, with the
     physics on every step rewrites them member-batched before anything reads
     them. The member axis is an expanded view, so unperturbed members cost
-    no memory until the first step."""
-    return M.add_member_axis(state, n_members)
+    no memory until the first step. With SPPT each member gets its own noise
+    key, jax.random.split of the state's key (member i's key is the key
+    folded with i), so members diverge through the stochastic physics
+    alone, as in the JAX package."""
+    out = M.add_member_axis(state, n_members)
+    if "sppt_key" in state:
+        out["sppt_key"] = SP.split_keys(state["sppt_key"], n_members)
+    return out
 
 
 def make_run_steps_batched(consts, device="cuda"):
@@ -63,6 +70,14 @@ def make_run_steps_batched(consts, device="cuda"):
     step here runs the bfloat16 instantiations of the kernels (the
     initialization, which made the state, did not).
 
+    With params.sppt_on (and the physics on) the noise is drawn grouped as
+    the JAX package's batched runner groups it (physics/sppt.py::sppt_groups),
+    so the same member keys give the JAX package's patterns, in chunks of
+    many steps (physics/sppt.py::draw_run_noise: one vectorised pass each, a
+    whole run call at the model's sizes), the next chunk when the last is
+    used up, so the noise held stays bounded however long the run; each
+    step takes its slice (ctx "sppt_se").
+
     `device` must be the one the consts were built on."""
     device = resolve_device(device)
     if device.type != consts.device.type:
@@ -74,8 +89,17 @@ def make_run_steps_batched(consts, device="cuda"):
         n_steps = len(ctx["stepno"])
         nmem = state["vor"][0].shape[0]
         state = M.ensure_member_axis(state, nmem)
+        noise = None
+        if consts.params.sppt_on and consts.physics_on and n_steps:
+            noise = SP.draw_run_noise(consts, state["sppt_key"],
+                                      int(ctx["stepno"][0]), n_steps)
         for i in range(n_steps):
-            state = single_step(state, {k: v[i] for k, v in ctx.items()})
+            # ctx_i is rebound before the next draw, so a used chunk of
+            # noise is freed before the next one is made.
+            ctx_i = {k: v[i] for k, v in ctx.items()}
+            if noise is not None:
+                ctx_i["sppt_se"] = next(noise)
+            state = single_step(state, ctx_i)
         return state
 
     return run

@@ -27,6 +27,7 @@ from . import convection as conv
 from . import large_scale_condensation as lsc
 from . import longwave_radiation as lw
 from . import shortwave_radiation as sw
+from . import sppt as SP
 from . import surface_fluxes as sflx
 from . import vertical_diffusion as vdif
 from ._levels import LEV, col, lev
@@ -210,10 +211,13 @@ def grid_physics(consts, sw_flag: bool, ug, vg, tg, qg, phig, pslg, bc, cache,
     return utend, vtend, ttend, qtend, diag, new_cache
 
 
-def physics_grid_inputs(consts, state, sw_flag: bool):
+def physics_grid_inputs(consts, state, sw_flag: bool, sppt_spec=None):
     """What `grid_physics` takes, from the member-batched state at time level
     0 (physics.f90:89-101): returns (args, kwargs) with args = (ug, vg, tg,
-    qg, phig, pslg, bc, cache, ablco2) and kwargs = {phisg, m0corr}.
+    qg, phig, pslg, bc, cache, ablco2) and kwargs = {phisg, m0corr}, and with
+    an SPPT spectrum sppt_spec (B, 2, kx, mx, nx) also sppt_pattern: that
+    spectrum taken to the grid in the same transform group (no launch of its
+    own on the card) and clipped to +-1 (sppt.f90:104-111).
 
     With consts.grid_phi the phi stack is not transformed: phig is None and
     the hydrostatic recursion runs inside grid_physics (inside the kernel on
@@ -233,6 +237,9 @@ def physics_grid_inputs(consts, state, sw_flag: bool):
     if not consts.grid_phi:
         fields.append(state["phi"])
         kcos.append(1)
+    if sppt_spec is not None:
+        fields.append(sppt_spec)
+        kcos.append(1)
     grids = [g.contiguous() for g in
              S.spec2grid_many_p(sp, fields, kcos, pdim)]
     ug, vg, tg, qg, pslg = grids[:5]
@@ -242,6 +249,9 @@ def physics_grid_inputs(consts, state, sw_flag: bool):
         m0corr = hydrostatic_m0corr(consts.gp, sp, t_spec).contiguous()
     else:
         phig = grids[5]
+    kwargs = {"phisg": phisg, "m0corr": m0corr}
+    if sppt_spec is not None:
+        kwargs["sppt_pattern"] = grids[-1].clamp_(-1.0, 1.0)
 
     bc = tuple(state[name] for name in BC_FIELDS)
     # A shortwave step never reads the cache: pass none. On the other steps
@@ -251,7 +261,7 @@ def physics_grid_inputs(consts, state, sw_flag: bool):
                                      for name in CACHE_FIELDS)
     args = (ug, vg, tg, qg, phig, pslg, bc, cache,
             state["air_absortivity_co2"])
-    return args, {"phisg": phisg, "m0corr": m0corr}
+    return args, kwargs
 
 
 def get_physical_tendencies(consts, state, ctx, utend, vtend, ttend,
@@ -261,19 +271,34 @@ def get_physical_tendencies(consts, state, ctx, utend, vtend, ttend,
     and humidity is tracer 0.
 
     ctx["compute_shortwave"] (a Python bool) selects the fresh or the cached
-    shortwave branch; ctx may carry "sppt_pattern" (B, kx, il, ix). Returns
-    (utend, vtend, ttend, trtend_flat, state); the state comes back with the
-    DIAG_FIELDS and CACHE_FIELDS written, all member-batched. With
-    consts.bf16_tendencies both sets of tendencies are bfloat16 and the adds
-    below stay in that type (one rounding per add), as in the JAX package."""
+    shortwave branch. With params.sppt_on (physics.f90:234-248) the step
+    advances the state's SPPT spectrum by one AR(1) step with the noise
+    ctx["sppt_se"] (sigma * eta, (B, 2, kx, mx, nx), which the batched
+    runner draws for a whole run call) or, without it, with the noise of a
+    one-step group at ctx["stepno"], as the JAX package draws it for a step
+    outside a group (the two bootstrap steps). The spectrum joins the
+    physics' inverse transform group, and its clipped grid multiplies the
+    physics tendencies. Returns (utend, vtend, ttend, trtend_flat, state);
+    the state comes back with the DIAG_FIELDS and CACHE_FIELDS written (and
+    sppt_spec advanced), all member-batched.
+    With consts.bf16_tendencies both sets of tendencies are bfloat16 and the
+    adds below stay in that type (one rounding per add), as in the JAX
+    package."""
     kx = consts.params.kx
     sw_flag = bool(ctx["compute_shortwave"])
-    args, kwargs = physics_grid_inputs(consts, state, sw_flag)
-    ut, vt, tt, qt, diag, new_cache = dispatch_grid_physics(
-        grid_physics, consts, sw_flag, *args, **kwargs,
-        sppt_pattern=ctx.get("sppt_pattern"))
-
     state = dict(state)
+    sppt_spec = None
+    if consts.params.sppt_on:
+        se = ctx.get("sppt_se")
+        if se is None:
+            se = next(SP.draw_run_noise(consts, state["sppt_key"],
+                                        int(ctx["stepno"]), 1))
+        sppt_spec = SP.advance(consts.sppt, state["sppt_spec"], se)
+        state["sppt_spec"] = sppt_spec
+    args, kwargs = physics_grid_inputs(consts, state, sw_flag, sppt_spec)
+    ut, vt, tt, qt, diag, new_cache = dispatch_grid_physics(
+        grid_physics, consts, sw_flag, *args, **kwargs)
+
     state.update(zip(DIAG_FIELDS, diag))
     state.update(zip(CACHE_FIELDS, new_cache))
 

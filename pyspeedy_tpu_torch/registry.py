@@ -2,9 +2,9 @@
 
 The single source of truth for the public state schema: variable names,
 Fortran-order API shapes, units and NetCDF metadata (the counterpart of the
-reference's registry/model_state_def.py). Here the table drives
-``models.model.allocate_state``; the API-array converters are not part of
-this package yet.
+reference's registry/model_state_def.py). The table drives
+``models.model.allocate_state``, the API-array converters ``to_api_array`` /
+``from_api_array`` and ``MODEL_STATE_DEF``, which the ``Speedy`` API reads.
 
 Each entry: (name, kind, dims, units, long_name, std_name, alt_name, nc_dims)
 where dims is the Fortran-order dimension tuple using symbolic sizes resolved
@@ -15,6 +15,8 @@ against ModelParams, and kind is "c" (complex), "r" (real), "i" (int),
 from __future__ import annotations
 
 from typing import NamedTuple
+
+import numpy as np
 
 
 class VarSpec(NamedTuple):
@@ -229,3 +231,78 @@ def internal_shape(params, spec: VarSpec, n_months=None):
     if perm is None:
         return ()
     return tuple(api[i] for i in perm)
+
+
+def _host(a):
+    """A tensor (on any device) or array as a numpy array on the host."""
+    if hasattr(a, "detach"):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def to_api_array(spec: VarSpec, arr, batched: bool = False):
+    """Internal layout (tuple of levels for t_levs variables; real (2, ...)
+    pairs for complex-kind variables, see ops/spectral.py) -> the
+    Fortran-order complex/real API layout, as numpy arrays on the host.
+    `arr` holds tensors (on any device) or arrays. With batched=True every
+    array carries a leading member axis, which stays the leading axis of
+    the result (member-batched state; the pair axis then follows it)."""
+    lead = 1 if batched else 0
+
+    def _complexify(a):
+        a = _host(a)
+        return a[(slice(None),) * lead + (0,)] \
+            + 1j * a[(slice(None),) * lead + (1,)]
+
+    if isinstance(arr, (tuple, list)):
+        levels = [_complexify(a) if spec.kind == "c" else _host(a)
+                  for a in arr]
+        arr = np.stack(levels, axis=lead)
+    elif spec.kind == "c":
+        arr = _complexify(arr)
+    else:
+        arr = _host(arr)
+    perm = internal_perm(spec)
+    if perm is None or list(perm) == sorted(perm):
+        return arr
+    inv = tuple(lead + int(i) for i in np.argsort(np.asarray(perm)))
+    return arr.transpose(tuple(range(lead)) + inv)
+
+
+def from_api_array(spec: VarSpec, arr):
+    """Fortran-order API layout -> internal layout (tuple of levels for
+    t_levs variables; real (2, ...) pairs for complex-kind variables), as
+    numpy arrays; the caller moves them to its device and dtype."""
+
+    def _pairify(a):
+        a = np.asarray(a)
+        return np.stack([a.real, a.imag], axis=0)
+
+    arr = np.asarray(arr)
+    perm = internal_perm(spec)
+    if perm is not None and list(perm) != sorted(perm):
+        arr = arr.transpose(perm)
+    if is_tlev(spec):
+        levels = tuple(arr[i] for i in range(arr.shape[0]))
+        if spec.kind == "c":
+            levels = tuple(_pairify(a) for a in levels)
+        return levels
+    if spec.kind == "c":
+        return _pairify(arr)
+    return arr
+
+
+# Exported for API parity with pyspeedy.speedy.MODEL_STATE_DEF.
+MODEL_STATE_DEF = {
+    name: {
+        "dtype": spec.kind,
+        "dims": spec.dims,
+        "units": spec.units,
+        "desc": spec.long_name,
+        "std_name": spec.std_name,
+        "alt_name": spec.alt_name,
+        "nc_dims": list(spec.nc_dims) if spec.nc_dims else None,
+        "time_dim": spec.time_dim,
+    }
+    for name, spec in REGISTRY.items()
+}

@@ -68,6 +68,31 @@ def wrapper_host_ms(run, state, cal, first, M, wrappers) -> dict:
     return result
 
 
+def profiled_window(run, state, cal, first, M) -> dict:
+    """Device time and launches per step of one N_STEPS window, in all and
+    by device kernel ({name: [ms per step, launches per step]}, longest
+    first), from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ctx, _ = M.build_step_ctx(dataclasses.replace(cal), first, N_STEPS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(state, ctx)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: -e.self_device_time_total)
+    kernels = {}
+    for e in events:
+        entry = kernels.setdefault(e.key[:100], [0.0, 0.0])
+        entry[0] += e.self_device_time_total * 1e-3 / N_STEPS
+        entry[1] += e.count / N_STEPS
+    return {"busy_ms_per_step": sum(v[0] for v in kernels.values()),
+            "launches_per_step": sum(v[1] for v in kernels.values()),
+            "by_kernel": kernels}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("step_time needs a CUDA device")
@@ -108,7 +133,9 @@ def main() -> None:
             # A step with shortwave: the physics writes its radiation cache.
             host = wrapper_host_ms(run, state, c, 3 + 4 * N_STEPS, M, (
                 (ck, "grid_physics_cuda"), (GK, "spectral_update_cuda")))
+            profiled = profiled_window(run, state, c, 2 + 4 * N_STEPS, M)
     result["host_ms_per_wrapper_call_B128"] = host
+    result["profiled_window_B128"] = profiled
     print(json.dumps(result))
 
 

@@ -359,19 +359,26 @@ def test_grid_mirrors_batched_equal_the_members_one_by_one(route):
                                   "sppt_on_with_physics"])
 def test_unported_paths_raise(what):
     """What is not ported yet, or does not exist (bfloat16 tendencies in
-    float64), is refused by name, never silently ignored."""
+    float64), is refused by name, never silently ignored. SPPT is ported:
+    build_consts(sppt_on=True) builds its tables, with the physics on or
+    off, and allocate_state carries its spectrum and key."""
     if what == "bf16_tendencies":
         assert T_T30L8.precision == "f64"
         with pytest.raises(ValueError, match="bf16_tendencies.*precision"):
             TM.build_consts(T_T30L8, device="cpu", bf16_tendencies=True)
-    elif what == "sppt_on_with_physics":
-        with pytest.raises(NotImplementedError, match="sppt"):
-            TM.build_consts(dataclasses.replace(T_T30L8, sppt_on=True),
-                            device="cpu")
-    elif what == "sppt_on":
-        with pytest.raises(NotImplementedError, match="sppt"):
-            TM.build_consts(dataclasses.replace(T_T30L8, sppt_on=True),
-                            device="cpu", physics_on=False)
+    elif what in ("sppt_on_with_physics", "sppt_on"):
+        params = dataclasses.replace(T_T30L8, sppt_on=True)
+        consts, _ = TM.build_consts(params, device="cpu",
+                                    physics_on=what != "sppt_on")
+        assert consts.sppt is not None and 0.0 < consts.sppt.phi < 1.0
+        assert consts.sppt.sigma.shape == (1, 1, params.mx, params.nx)
+        state = TM.allocate_state(params, device="cpu")
+        assert state["sppt_spec"].shape == (2, params.kx, params.mx,
+                                             params.nx)
+        assert state["sppt_key"].dtype == torch.int64
+        assert "sppt_spec" in TM.CARRY_FIELDS
+        assert "sppt_key" in TM.CARRY_FIELDS
+        assert "sppt_spec" not in TM.allocate_state(T_T30L8, device="cpu")
     else:
         params = dataclasses.replace(T_T30L8, alph=0.0)
         consts, _ = TM.build_consts(params, device="cpu", physics_on=False)
@@ -426,6 +433,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 25
     assert REPO / "pyspeedy_tpu_torch/ops/transform_kernels.py" in files
+    for name in ("speedy.py", "callbacks.py", "error_codes.py",
+                 "utils/dataset.py", "physics/sppt.py"):
+        assert REPO / "pyspeedy_tpu_torch" / name in files, name
     for path in files:
         for mod in _imports(path):
             root = mod.split(".")[0]
