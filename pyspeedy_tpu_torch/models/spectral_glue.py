@@ -16,13 +16,10 @@ operators, which is also the kernel's yardstick of correctness on the card.
 
 from __future__ import annotations
 
-import torch
-
-from .. import constants as pc
 from ..ops import glue_kernels as GK
 from .implicit import implicit_terms
 from .tendencies import combine_specs, spectral_linear_tendencies
-from .timestep import hordif, leapfrog_pair, sdrag_mask
+from .timestep import diffusion_and_drag, step_field
 
 __all__ = ["spectral_update", "spectral_update_plain", "update_inputs",
            "apply_spectral_update"]
@@ -50,50 +47,21 @@ def spectral_update_plain(consts, j1: int, dt: float, eps: float, specs,
     GK.plain_calls["spectral_update"] += 1
     params = consts.params
     sp = consts.sp
-    im = consts.implicit
-    hd = consts.hd
-    ntr, kx = params.ntr, params.kx
 
-    vordt, divdt, tdt, trdt = combine_specs(consts, specs, ntr, kx)
+    vordt, divdt, tdt, trdt = combine_specs(consts, specs, params.ntr,
+                                            params.kx)
 
     # --- linear spectral tendencies + implicit (tendencies.f90:24-37) ---
     divdt, tdt, psdt = spectral_linear_tendencies(
         consts, div0, ps0, phi, divdt, tdt, psdt)
-    divdt, tdt, psdt = implicit_terms(im, divdt, tdt, psdt)
+    divdt, tdt, psdt = implicit_terms(consts.implicit, divdt, tdt, psdt)
 
-    # --- horizontal diffusion (time_stepping.f90:78-122) ---
-    tcorv_c = hd.tcorv[:, None, None]
-    qcorv_c = hd.qcorv[:, None, None]
-
-    vordt = hordif(vor0, vordt, hd.dmp, im.dmp1)
-    divdt = hordif(div0, divdt, hd.dmpd, im.dmp1d)
-    tcor = t0 + tcorh[:, :, None] * tcorv_c
-    tdt = hordif(tcor, tdt, hd.dmp, im.dmp1)
-
-    sdrag = 1.0 / (pc.TDRS * 3600.0)
-    m00 = sdrag_mask(kx, vordt.shape[-2], vordt.dtype, vordt.device)
-    vordt = vordt - (sdrag * m00) * vor0
-    divdt = divdt - (sdrag * m00) * div0
-
-    vordt = hordif(vor0, vordt, hd.dmps, im.dmp1s)
-    divdt = hordif(div0, divdt, hd.dmps, im.dmp1s)
-    tdt = hordif(tcor, tdt, hd.dmps, im.dmp1s)
-
-    # Tracers (flat level axis): tracer 0 (humidity) gets the orographic
-    # correction, the rest plain del^8 diffusion.
-    qcor = trf0[:, :, :kx] + qcorh[:, :, None] * qcorv_c
-    tr_parts = [hordif(qcor, trdt[:, :, :kx], hd.dmpd, im.dmp1d)]
-    for itr in range(1, ntr):
-        sl = slice(itr * kx, (itr + 1) * kx)
-        tr_parts.append(hordif(trf0[:, :, sl], trdt[:, :, sl], hd.dmp,
-                               im.dmp1))
-    trdt = torch.cat(tr_parts, dim=2) if ntr > 1 else tr_parts[0]
+    vordt, divdt, tdt, trdt = diffusion_and_drag(
+        consts, vor0, div0, t0, trf0, tcorh, qcorh, vordt, divdt, tdt, trdt)
 
     # --- leapfrog + Robert-Williams filter (time_stepping.f90:124-144) ---
-    do_trunc = params.ix == params.iy * 4
-    trfilt = sp.trfilt
-    lf = lambda f0_, f1_, fdt_: leapfrog_pair(params, trfilt, j1, dt, eps,
-                                              f0_, f1_, fdt_, do_trunc)
+    lf = lambda f0_, f1_, fdt_: step_field(params, sp, j1, dt, eps,
+                                           (f0_, f1_), fdt_)
     ps0n, ps1n = lf(ps0, ps1, psdt)
     vor0n, vor1n = lf(vor0, vor1, vordt)
     div0n, div1n = lf(div0, div1, divdt)

@@ -18,9 +18,11 @@ from .. import constants as pc
 from ..ops import spectral as S
 from ..ops.column_kernels import ColumnTables, grid_dynamics
 from .geopotential import get_geopotential
+from .implicit import implicit_terms
 
 __all__ = ["grid_dynamics_core", "grid_tendency_specs", "combine_specs",
-           "spectral_linear_tendencies", "PDIM"]
+           "spectral_linear_tendencies", "get_grid_point_tendencies",
+           "get_spectral_tendencies", "get_tendencies", "PDIM"]
 
 # Position of the pair axis in a member-batched spectral field.
 PDIM = 1
@@ -236,13 +238,19 @@ def combine_specs(consts, specs, ntr: int, kx: int):
 def spectral_linear_tendencies(consts, div, ps, phi, divdt, tdt, psdt):
     """Linear (reference-profile) spectral tendencies on explicit tensors
     (tendencies.f90:283-352), in the reference-ordered form (sequential
-    cumulative sum). div/phi are (B, 2, kx, mx, nx), ps (B, 2, mx, nx)."""
+    cumulative sum). div/phi are (B, 2, kx, mx, nx), ps (B, 2, mx, nx).
+
+    The level mean is a product and a sum over the level axis, not a matrix
+    product: cuBLAS may choose its algorithm, and so the order of the sum,
+    by the number of rows, and a member's bits would then depend on how
+    many members run beside it (the explicit branch of timestep.step runs
+    this on the card)."""
     sp = consts.sp
     im = consts.implicit
     col = consts.col
     lev = 2   # level axis of a (B, 2, kx, mx, nx) field
 
-    dmeanc = torch.einsum("k,bckmn->bcmn", col.dhs[:, 0, 0], div)
+    dmeanc = torch.sum(col.dhs * div, dim=lev)
     psdt = psdt - dmeanc
     psdt[..., 0, 0] = 0.0
 
@@ -264,3 +272,49 @@ def spectral_linear_tendencies(consts, div, ps, phi, divdt, tdt, psdt):
         sp, phi + pc.RGAS * col.tref * ps[:, :, None])
 
     return divdt, tdt, psdt
+
+
+def get_grid_point_tendencies(consts, state, j2: int, physics_fn=None,
+                              ctx=None):
+    """Nonlinear grid-point tendencies, converted to spectral
+    (tendencies.f90:51-276). j2 is the 0-based time level for the dynamics;
+    the physics runs at time level 0 (j1=1 in the reference).
+
+    Returns (vordt, divdt, tdt, psdt, trdt, state): trdt is
+    (B, 2, ntr, kx, mx, nx), and state carries the updated geopotential and
+    what the physics wrote."""
+    specs, psdt, state = grid_tendency_specs(consts, state, j2, physics_fn,
+                                             ctx)
+    ntr, kx = consts.params.ntr, consts.params.kx
+    vordt, divdt, tdt, trdt_flat = combine_specs(consts, specs, ntr, kx)
+    return vordt, divdt, tdt, psdt, trdt_flat.unflatten(2, (ntr, kx)), state
+
+
+def get_spectral_tendencies(consts, state, divdt, tdt, psdt, j2: int):
+    """State-dict wrapper of spectral_linear_tendencies: updates
+    state["phi"] from time level j2 first (tendencies.f90:333-336)."""
+    state = dict(state)
+    state["phi"] = get_geopotential(consts.gp, state["t"][j2], state["phis"])
+    divdt, tdt, psdt = spectral_linear_tendencies(
+        consts, state["div"][j2], state["ps"][j2], state["phi"],
+        divdt, tdt, psdt)
+    return divdt, tdt, psdt, state
+
+
+def get_tendencies(consts, state, j2: int, physics_fn=None, ctx=None):
+    """Full tendency computation incl. the semi-implicit correction
+    (tendencies.f90:11-39). j2 is 0-based. With alph < 0.5 (the explicit
+    gravity-wave branch) the linear terms are taken at time level j2 and no
+    implicit correction follows."""
+    vordt, divdt, tdt, psdt, trdt, state = get_grid_point_tendencies(
+        consts, state, j2, physics_fn, ctx)
+
+    if consts.params.alph < 0.5:
+        divdt, tdt, psdt, state = get_spectral_tendencies(
+            consts, state, divdt, tdt, psdt, j2)
+    else:
+        divdt, tdt, psdt, state = get_spectral_tendencies(
+            consts, state, divdt, tdt, psdt, 0)
+        divdt, tdt, psdt = implicit_terms(consts.implicit, divdt, tdt, psdt)
+
+    return vordt, divdt, tdt, psdt, trdt, state

@@ -12,12 +12,17 @@ from .models import model as M
 from .params import ModelParams, T30L8
 from .utils.calendar import ModelCalendar
 
-__all__ = ["synthetic_host_bc", "make_demo_model"]
+__all__ = ["synthetic_host_bc", "make_demo_model", "DEMO_START"]
+
+# The date at which the demo model starts.
+DEMO_START = datetime(1982, 1, 1)
 
 
-def synthetic_host_bc(params: ModelParams, geom_np) -> dict:
+def synthetic_host_bc(params: ModelParams, geom_np, n_months: int = 1) -> dict:
     """Physically plausible synthetic BCs: an idealized continent, zonal SST
-    profile, moderate albedo and soil moisture."""
+    profile, moderate albedo and soil moisture. The SST anomaly record (zero)
+    covers a run of n_months calendar months, with a pad slab on each
+    side."""
     il, ix = params.il, params.ix
     lat = geom_np.radang[:, None] * np.ones((il, ix))
     lon = (2 * np.pi / ix) * np.arange(ix)[None, :] * np.ones((il, ix))
@@ -47,28 +52,30 @@ def synthetic_host_bc(params: ModelParams, geom_np) -> dict:
         "soil_wc_l3": monthly(0.2 * fmask),
         "sst12": monthly(sst),
         "sea_ice_frac12": monthly(icec),
-        "sst_anom": np.zeros((3, il, ix)),
+        "sst_anom": np.zeros((n_months + 2, il, ix)),
     }
 
 
 def make_demo_model(params: ModelParams = T30L8, device="cuda",
                     physics_on: bool = True,
                     grid_phi: bool | None = None,
-                    bf16_tendencies: bool = False, **overrides):
+                    bf16_tendencies: bool = False, n_months: int = 1,
+                    **overrides):
     """(consts, state, calendar) fully initialized from synthetic BCs, the
-    single-member state on `device`. physics_on, grid_phi and
-    bf16_tendencies go to build_consts; `overrides` replace fields of
-    `params` (precision="f32", fft_mode="matmul", ...)."""
+    single-member state on `device`, starting 1982-01-01. physics_on,
+    grid_phi and bf16_tendencies go to build_consts; n_months is the number
+    of calendar months the run may reach (the SST anomaly record's length:
+    a step past it raises); `overrides` replace fields of `params`
+    (precision="f32", fft_mode="matmul", ...)."""
     if overrides:
         params = dataclasses.replace(params, **overrides)
     consts, geom_np = M.build_consts(params, device=device,
                                      physics_on=physics_on,
                                      grid_phi=grid_phi,
                                      bf16_tendencies=bf16_tendencies)
-    host_bc = synthetic_host_bc(params, geom_np)
+    host_bc = synthetic_host_bc(params, geom_np, n_months)
     host_bc["_geom_np"] = geom_np
-    state = M.allocate_state(params, n_months=1, device=device)
-    cal = ModelCalendar.from_datetime(datetime(1982, 1, 1),
-                                      nsteps=params.nsteps)
+    state = M.allocate_state(params, n_months=n_months, device=device)
+    cal = ModelCalendar.from_datetime(DEMO_START, nsteps=params.nsteps)
     state = M.initialize(consts, state, host_bc, cal)
     return consts, state, cal

@@ -361,7 +361,9 @@ def test_unported_paths_raise(what):
     """What is not ported yet, or does not exist (bfloat16 tendencies in
     float64), is refused by name, never silently ignored. SPPT is ported:
     build_consts(sppt_on=True) builds its tables, with the physics on or
-    off, and allocate_state carries its spectrum and key."""
+    off, and allocate_state carries its spectrum and key. The explicit
+    gravity-wave branch (alph < 0.5) is ported: it steps, and its result is
+    not the semi-implicit branch's."""
     if what == "bf16_tendencies":
         assert T_T30L8.precision == "f64"
         with pytest.raises(ValueError, match="bf16_tendencies.*precision"):
@@ -380,11 +382,19 @@ def test_unported_paths_raise(what):
         assert "sppt_key" in TM.CARRY_FIELDS
         assert "sppt_spec" not in TM.allocate_state(T_T30L8, device="cpu")
     else:
-        params = dataclasses.replace(T_T30L8, alph=0.0)
-        consts, _ = TM.build_consts(params, device="cpu", physics_on=False)
+        # The explicit branch is ported: alph=0.0 steps, and steps otherwise
+        # than the semi-implicit branch from the same state.
         state = TE.broadcast_state(torch_model()[1], 1)
-        with pytest.raises(NotImplementedError, match="alph"):
-            TM.step(consts, state, 2, 2, 2.0 * params.delt)
+        out = {}
+        for alph in (0.0, 0.5):
+            params = dataclasses.replace(T_T30L8, alph=alph)
+            consts, _ = TM.build_consts(params, device="cpu",
+                                        physics_on=False)
+            out[alph] = TM.step(consts, state, 2, 2, 2.0 * params.delt)
+        for name in PROGNOSTICS:
+            assert all(bool(torch.isfinite(a).all()) for a in out[0.0][name])
+        assert not torch.equal(out[0.0]["div"][0], out[0.5]["div"][0])
+        assert not torch.equal(out[0.0]["ps"][0], out[0.5]["ps"][0])
 
 
 @pytest.mark.parametrize("entry", ["build_consts", "allocate_state",
@@ -434,7 +444,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) > 25
     assert REPO / "pyspeedy_tpu_torch/ops/transform_kernels.py" in files
     for name in ("speedy.py", "callbacks.py", "error_codes.py",
-                 "utils/dataset.py", "physics/sppt.py"):
+                 "utils/dataset.py", "physics/sppt.py", "utils/profiling.py",
+                 "validate_climatology.py", "models/timestep.py"):
         assert REPO / "pyspeedy_tpu_torch" / name in files, name
     for path in files:
         for mod in _imports(path):
