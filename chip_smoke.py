@@ -25,7 +25,13 @@ branch, alph = 0 at 144 steps a day, a day of 128 members, with no
 spectral-update launch, a member alone bitwise equal to it in a batch and
 float64 against the CPU; the T47L8 and T63L8 presets, rows 1, 2 and 6 at
 their shapes and a day of 128 members on the einsum transform route, float64
-against the CPU; the climatology check of the port's
+against the CPU; the multi-device phase: rows 1 and 2 at the band shapes
+of 24 and 12 latitudes, then four ranks of ``pyspeedy_tpu_torch.parallel``
+(one process each, gloo on a shared card, nccl with a card each) on the
+("ensemble", "space") meshes 4x1, the main path's day bitwise or within its
+limit and the main path's launches on every rank, and 2x2, latitude bands
+with one all_reduce per direct transform group, float32 and float64 against
+the unsharded runs; the climatology check of the port's
 validate_climatology at T30 through Speedy; a trace of a 3-step window of
 the main path through utils.profiling, which must name the step's kernels),
 checks the results and the exact launch counts of every path (for the
@@ -74,8 +80,13 @@ from pyspeedy_tpu_torch.ops import dft_chain as DC
 from pyspeedy_tpu_torch.ops import glue_kernels as GK
 from pyspeedy_tpu_torch.ops import spectral as S
 from pyspeedy_tpu_torch.ops import transform_kernels as tk
+from pyspeedy_tpu_torch.parallel import distributed as PDIST
+from pyspeedy_tpu_torch.parallel import mesh as PMESH
+from pyspeedy_tpu_torch.parallel import shard_transforms as PST
 from pyspeedy_tpu_torch.parallel.ensemble import (broadcast_state,
                                                    make_run_steps_batched)
+from pyspeedy_tpu_torch.parallel.launch_multihost import (free_port,
+                                                          run_workers)
 from pyspeedy_tpu_torch.params import T30L5, T30L8, T47L8, T63L8
 from pyspeedy_tpu_torch.physics import driver as PD
 from pyspeedy_tpu_torch.physics import sppt as SP
@@ -181,10 +192,12 @@ def kernel_device_ms(fn, kernel_name: str, reps: int = 20) -> float:
     return 1e-3 * sum(e.self_device_time_total for e in hits) / count
 
 
-def kernel_inputs(params, n_members: int, seed: int = 0):
-    """Seeded grid fields of plausible magnitude at the model's shapes."""
+def kernel_inputs(params, n_members: int, seed: int = 0, il=None):
+    """Seeded grid fields of plausible magnitude at the model's shapes (`il`
+    latitudes: a band's, or the sphere's)."""
     rng = np.random.default_rng(seed)
-    kx, il, ix, ntr = params.kx, params.il, params.ix, params.ntr
+    kx, ix, ntr = params.kx, params.ix, params.ntr
+    il = params.il if il is None else il
     mk = lambda k, scale, mean=0.0: torch.from_numpy(
         mean + scale * rng.standard_normal((n_members, k, il, ix))
     ).to("cuda", params.dtype).contiguous()
@@ -200,7 +213,7 @@ def grid_dynamics_bound(params, n_members: int, args, outs):
     nbytes = sum(x.numel() * x.element_size() for x in (*args, *outs))
     # Arithmetic per column, counted from grid_dynamics_core: about 70
     # operations per level, 11 per tracer level, 5 per column.
-    ops = (n_members * params.il * params.ix
+    ops = (n_members * args[0].shape[2] * params.ix
            * (params.kx * (70 + 11 * params.ntr) + 5))
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = ops / PEAK_FLOPS[params.dtype]
@@ -208,11 +221,15 @@ def grid_dynamics_bound(params, n_members: int, args, outs):
     return 1e3 * max(t_bytes, t_ops), by, nbytes
 
 
-def check_kernel(params, n_members: int, limit: float, card: str):
+def check_kernel(params, n_members: int, limit: float, card: str,
+                 n_space: int = 1):
     """Grid-dynamics kernel against its plain version on the card: all ten
-    outputs."""
+    outputs; with n_space > 1 on the first of that many latitude bands
+    (models.model.band_consts: the band's rcos and coriol)."""
     consts, _ = M.build_consts(params, device="cuda", physics_on=False)
-    args = kernel_inputs(params, n_members)
+    if n_space > 1:
+        consts = M.band_consts(consts, n_space, 0)
+    args = kernel_inputs(params, n_members, il=consts.sp.il)
     outs_k = ck.grid_dynamics_cuda(consts.col, *args)
     torch.cuda.synchronize()
     outs_p = grid_dynamics_core(consts.col, *args)
@@ -231,6 +248,8 @@ def check_kernel(params, n_members: int, limit: float, card: str):
     plain_ms = time_ms(lambda: grid_dynamics_core(consts.col, *args), reps=3,
                        warmup=1, windows=3)
     tag = f"T{params.trunc}L{params.kx} {params.precision} B={n_members}"
+    if n_space > 1:
+        tag += f" il={consts.sp.il} (band 0 of {n_space})"
     print(f"kernel grid_dynamics {tag}: max rel err vs plain {worst:.3e} "
           f"(limit {limit:.0e}), kernel {ms:.4f} ms on the card "
           f"({call_ms:.4f} ms per wrapper call, back to back), plain "
@@ -264,7 +283,7 @@ def random_physics_inputs(consts, n_members: int, seed: int = 0) -> dict:
     model hands over: shared (il, ix), zonal (il, 1) and its expanded views,
     member-batched (B, il, ix)."""
     p = consts.params
-    kx, il, ix = p.kx, p.il, p.ix
+    kx, il, ix = p.kx, consts.sp.il, p.ix
     rng = np.random.default_rng(seed)
     fsg = np.asarray(consts.geom.fsg, dtype=np.float64)
     sh2, sh3 = (n_members, il, ix), (n_members, kx, il, ix)
@@ -361,7 +380,8 @@ def physics_bound(params, sw_flag, args, kwargs, result):
     # per level without shortwave and 120 more with it (an exponential taken
     # as 20), 150 per column for the surface fluxes.
     per_level = 310 if sw_flag else 190
-    ops = tg.shape[0] * params.il * params.ix * (params.kx * per_level + 150)
+    ops = (tg.shape[0] * tg.shape[2] * params.ix
+           * (params.kx * per_level + 150))
     t_bytes = nbytes / PEAK_BYTES_PER_S
     t_ops = ops / PEAK_FLOPS[params.dtype]
     by = "bytes" if t_bytes >= t_ops else "operations"
@@ -399,8 +419,10 @@ def compare_physics(consts, sw_flag, args, kwargs, limit, tag):
         raise RuntimeError(
             f"grid_physics {tag}: {n_bad} columns over {limit:g}: {over}")
     # float32: the same inputs, widened, through both versions in float64.
+    band = consts.sp.band
     c64 = check_physics.consts64[consts.params.trunc, consts.params.kx,
-                                 consts.sea_coupling_flag]
+                                 consts.sea_coupling_flag,
+                                 band.n_space if band else 1]
     a64, k64 = _to64(args), {k: _to64(v) for k, v in kwargs.items()}
     w64 = PD.grid_physics(c64, sw_flag, *a64, **k64)
     g64 = ck.grid_physics_cuda(c64, sw_flag, *a64, **k64)
@@ -438,17 +460,21 @@ def branch_shares(consts, pslg, want):
 
 
 def check_physics(params, n_members, limit, card, what, sea=0, inputs=None,
-                  timed=False):
+                  timed=False, n_space=1):
     """The physics kernel against its plain version on the card, both
     shortwave variants, in the modes `what` names: "phig" (geopotential
-    read), "grid_phi" (integrated in the kernel), "sppt" (with a pattern).
+    read), "grid_phi" (integrated in the kernel), "sppt" (with a pattern);
+    with n_space > 1 on the first of that many latitude bands
+    (models.model.band_consts: the band's sqrtcoa and zonal fields).
     Returns {variant: measurements} for the last mode when `timed`."""
-    consts, _ = M.build_consts(params, device="cuda", sea_coupling_flag=sea)
-    key64 = (params.trunc, params.kx, sea)
+    band = lambda c: c if n_space == 1 else M.band_consts(c, n_space, 0)
+    consts = band(M.build_consts(params, device="cuda",
+                                 sea_coupling_flag=sea)[0])
+    key64 = (params.trunc, params.kx, sea, n_space)
     if key64 not in check_physics.consts64:
-        check_physics.consts64[key64] = M.build_consts(
+        check_physics.consts64[key64] = band(M.build_consts(
             dataclasses.replace(params, precision="f64"), device="cuda",
-            sea_coupling_flag=sea)[0]
+            sea_coupling_flag=sea)[0])
     x = inputs or random_physics_inputs(consts, n_members)
     ug, vg, tg, qg, phig, pslg, bc, _, ablco2 = x["args"]
     res = {}
@@ -465,7 +491,9 @@ def check_physics(params, n_members, limit, card, what, sea=0, inputs=None,
             kwargs["sppt_pattern"] = x["sppt"]
         tag = (f"T{params.trunc}L{params.kx} {params.precision} "
                f"B={tg.shape[0]} "
-               f"{x.get('source', 'random columns')} {mode} sea={sea}")
+               + (f"il={tg.shape[2]} (band 0 of {n_space}) "
+                  if n_space > 1 else "")
+               + f"{x.get('source', 'random columns')} {mode} sea={sea}")
         args_sw = (ug, vg, tg, qg, phi_in, pslg, bc, (), ablco2)
         want, got, worst_sw, flips_sw = compare_physics(
             consts, True, args_sw, kwargs, limit, tag + " sw")
@@ -1872,6 +1900,305 @@ def preset_path(name: str, base, libs, card: str, phases) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# The multi-device phase: the ("ensemble", "space") mesh in four processes
+# ---------------------------------------------------------------------------
+
+MD_WORLD = 4
+MD_STATE_FIELDS = PROGNOSTICS + ("land_temp", "sst_om")
+MD_DIAG_FIELDS = ("tt_rsw", "precnv", "hfluxn")
+MD_FIELDS = MD_STATE_FIELDS + MD_DIAG_FIELDS
+# The 2x2 mesh's float32 day against the unsharded day. Bands change the
+# order of the Legendre sums only (the all_reduce of partial sums); a day of
+# float32 steps carries such last-bit differences along, and where one puts
+# a column on the other side of a threshold of the physics (a cloud, a
+# convection top) that column's physics diagnostics differ by their own
+# size. So: the prognostic and surface state within MD_F32_LIMIT of each
+# field's largest value; of the physics diagnostics at most MD_DIAG_SHARE
+# of the values beyond that.
+MD_F32_LIMIT = 1e-3
+MD_DIAG_SHARE = 1e-2
+MD_F64_LIMIT = 1e-9
+N_STEPS_MD64 = 6
+N_MEMBERS_MD64 = 8
+
+
+def _cpu_fields(state, names):
+    return {k: (tuple(a.cpu() for a in state[k])
+                if isinstance(state[k], tuple) else state[k].cpu())
+            for k in names}
+
+
+def _field_diffs(got, want) -> dict:
+    """{field: largest |difference| relative to the field's largest value}."""
+    out = {}
+    for name, w in want.items():
+        g = got[name]
+        pairs = zip(g, w) if isinstance(w, tuple) else [(g, w)]
+        out[name] = max(float((a.cpu().double() - b.double()).abs().max()
+                              / (float(b.abs().max()) or 1.0))
+                        for a, b in pairs)
+    return out
+
+
+def _share_over(got, want, limit) -> dict:
+    """{field: share of values differing by more than `limit` of the
+    field's largest value}."""
+    out = {}
+    for name, w in want.items():
+        g = got[name].cpu().double()
+        w = w.double()
+        out[name] = float(((g - w).abs() > limit * float(w.abs().max()))
+                          .double().mean())
+    return out
+
+
+def f32_agreement(got, want) -> tuple:
+    """(largest rel. differences by field, shares over MD_F32_LIMIT of the
+    physics diagnostics, whether both are within their limits)."""
+    diffs = _field_diffs(got, want)
+    shares = _share_over(got, {k: want[k] for k in MD_DIAG_FIELDS},
+                         MD_F32_LIMIT)
+    ok = (all(diffs[k] <= MD_F32_LIMIT for k in MD_STATE_FIELDS)
+          and all(v <= MD_DIAG_SHARE for v in shares.values()))
+    return diffs, shares, ok
+
+
+def _bitwise(got, want) -> bool:
+    return all(torch.equal(a.cpu(), b) for name, w in want.items()
+               for a, b in (zip(got[name], w) if isinstance(w, tuple)
+                            else [(got[name], w)]))
+
+
+def multidevice_rank(rank: int, world: int, init: str, backend: str,
+                     tmp: str) -> None:
+    """One rank of the multi-device phase, on its own card or on the card
+    that the ranks share: the main path's day on the 4x1 mesh and on the 2x2
+    mesh (bands of 24 latitudes), 6 float64 steps on the 2x2 mesh; each held
+    to its launch and collective counts; rank 0 compares the gathered states
+    with the unsharded runs the parent made. Writes rank{rank}.json; raises
+    on a failed check."""
+    import torch.distributed as dist
+    tmp = Path(tmp)
+    PDIST.initialize_distributed(init, world, rank, backend, "cuda")
+    dev = PDIST.rank_device()
+    meshes = {"4x1": PMESH.make_mesh(4, 1), "2x2": PMESH.make_mesh(2, 2)}
+    res = {"rank": rank, "device": str(dev), "backend": dist.get_backend(),
+           "group_backends": {k: {d: dist.get_backend(m.get_group(d))
+                                  for d in PMESH.AXES}
+                              for k, m in meshes.items()}}
+    ref = torch.load(tmp / "ref.pt", weights_only=False)
+
+    # 4x1: the main path as a user runs it, initialization included: every
+    # rank builds the same single-member state and keeps its 32 members.
+    reset_counts()
+    consts, state1, cal = make_demo_model(T30L8, device=dev, precision="f32",
+                                          fft_mode="matmul")
+    mesh = meshes["4x1"]
+    run = make_run_steps_batched(consts, device=dev, mesh=mesh)
+    local = PDIST.make_global_ensemble(state1, N_MEMBERS, mesh)
+    local, cal_day, secs = run_window(run, local, cal, 2, N_STEPS)
+    launches = read_path_counts(f"mesh 4x1, rank {rank}", consts, 2, N_STEPS)
+    whole = PMESH.gather_state(mesh, local, names=MD_FIELDS + ("error_flag",))
+    if bool(whole["error_flag"].any()):
+        raise RuntimeError("mesh 4x1: error_flag set")
+    _, _, warm = run_window(run, local, cal_day, 2 + N_STEPS, N_STEPS)
+    res["4x1"] = {"launches": launches, "first_window_s": secs,
+                  "ms_per_step": 1e3 * warm / N_STEPS,
+                  "members": N_MEMBERS // 4}
+    if rank == 0:
+        res["4x1"]["initial_state_bitwise"] = _bitwise(
+            _cpu_fields(state1, PROGNOSTICS), ref["state1"])
+        res["4x1"]["bitwise"] = _bitwise(whole, ref["day"])
+        (res["4x1"]["diffs"], res["4x1"]["shares"],
+         res["4x1"]["within_f32_limits"]) = f32_agreement(whole, ref["day"])
+    del local, whole
+
+    # 2x2: the same day on bands of 24 latitudes, 64 members a rank.
+    mesh = meshes["2x2"]
+    run = make_run_steps_batched(consts, device=dev, mesh=mesh)
+    local = PDIST.make_global_ensemble(state1, N_MEMBERS, mesh)
+    reset_counts()
+    PST.reset_counts()
+    local, cal_day, secs = run_window(run, local, cal, 2, N_STEPS)
+    launches = dict(ck.launch_counts)
+    fields = dict(tk.field_counts)
+    plain = dict(tk.plain_chain_calls, **GK.plain_calls)
+    coll = dict(PST.counts)
+    steps = range(2, 2 + N_STEPS)
+    n_sw = sum(1 for s in steps if s % 3 == 0)
+    n_forc = sum(1 for s in steps if s % T30L8.nsteps == 0)
+    want = dict.fromkeys(ck.launch_counts, 0)
+    want.update(grid_dynamics=N_STEPS, spectral_update=N_STEPS,
+                grid_physics_sw=n_sw, grid_physics_nosw=N_STEPS - n_sw)
+    groups = N_STEPS + 2 * n_forc
+    if (launches != want or any(fields.values()) or any(plain.values())
+            or coll["direct_calls"] != groups
+            or coll["all_reduce"] != groups
+            or coll["inverse_calls"] != 2 * N_STEPS):
+        raise RuntimeError(
+            f"mesh 2x2, rank {rank}: launches {launches}, expected {want}; "
+            f"fused transform fields {fields}; plain calls {plain}; band "
+            f"transform counts {coll}, expected {groups} direct groups with "
+            f"one all_reduce each and {2 * N_STEPS} inverse groups with none")
+    if not PMESH.replicas_agree(mesh, local, PROGNOSTICS):
+        raise RuntimeError("mesh 2x2: the bands of a row hold different "
+                           "spectral states")
+    whole = PMESH.gather_state(mesh, local, names=MD_FIELDS + ("error_flag",))
+    if bool(whole["error_flag"].any()):
+        raise RuntimeError("mesh 2x2: error_flag set")
+    PST.reset_counts()
+    _, _, warm = run_window(run, local, cal_day, 2 + N_STEPS, N_STEPS)
+    warm_coll = dict(PST.counts)
+    # One all_reduce of a step's bytes, alone, between synchronizations.
+    step_bytes = warm_coll["all_reduce_bytes"] // N_STEPS
+    buf = torch.zeros(step_bytes // 4, dtype=torch.float32, device=dev)
+    group = mesh.get_group("space")
+    times = []
+    for i in range(8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(buf, group=group)
+        torch.cuda.synchronize()
+        if i >= 3:
+            times.append(1e3 * (time.perf_counter() - t0))
+    res["2x2"] = {"launches": launches, "collectives": coll,
+                  "first_window_s": secs,
+                  "ms_per_step": 1e3 * warm / N_STEPS,
+                  "all_reduce_per_step": warm_coll["all_reduce"] / N_STEPS,
+                  "all_reduce_bytes_per_step": step_bytes,
+                  "all_reduce_ms_per_step": statistics.median(times),
+                  "members": N_MEMBERS // 2, "il": consts.sp.il // 2}
+    if rank == 0:
+        diffs, shares, ok = f32_agreement(whole, ref["day"])
+        res["2x2"]["diffs"], res["2x2"]["shares"] = diffs, shares
+        if not ok:
+            raise RuntimeError(f"mesh 2x2 float32 day differs from the "
+                               f"unsharded day: largest {diffs}, shares "
+                               f"over {MD_F32_LIMIT:g} {shares}")
+    del local, whole, buf
+
+    # 2x2 in float64, 6 steps, against the unsharded float64 run.
+    consts64, s64, cal64 = make_demo_model(T30L8, device=dev,
+                                           fft_mode="matmul")
+    run64 = make_run_steps_batched(consts64, device=dev, mesh=mesh)
+    local = PDIST.make_global_ensemble(s64, N_MEMBERS_MD64, mesh)
+    local, _, _ = run_window(run64, local, cal64, 2, N_STEPS_MD64)
+    whole = PMESH.gather_state(mesh, local, names=MD_FIELDS)
+    if rank == 0:
+        diffs = _field_diffs(whole, ref["f64"])
+        res["2x2_f64"] = {"diffs": diffs}
+        if not max(diffs.values()) <= MD_F64_LIMIT:
+            raise RuntimeError(f"mesh 2x2 float64 run differs from the "
+                               f"unsharded run: {diffs}")
+    dist.barrier()
+    dist.destroy_process_group()
+    (tmp / f"rank{rank}.json").write_text(json.dumps(res))
+
+
+def multidevice_phase(card: str, state1, day, main_launches) -> dict:
+    """The multi-device phase: rows 1 and 2 against their plain versions at
+    the band shapes (24 latitudes, the 2x2 mesh's 64 members a rank; 12, a
+    1x4 mesh's 128), then four ranks (gloo on one shared card, nccl with a
+    card each) through multidevice_rank, held to the main path's day (`day`,
+    from `state1`) and its launches."""
+    f32 = dataclasses.replace(T30L8, precision="f32", fft_mode="matmul")
+    f64 = dataclasses.replace(T30L8, fft_mode="matmul")
+    bands = {"il24": {}, "il12": {}}
+    bands["il24"]["grid_dynamics"] = check_kernel(f32, N_MEMBERS // 2, 1e-5,
+                                                  card, n_space=2)
+    check_kernel(f64, N_MEMBERS // 2, 1e-12, card, n_space=2)
+    bands["il12"]["grid_dynamics"] = check_kernel(f32, N_MEMBERS, 1e-5, card,
+                                                  n_space=4)
+    bands["il24"].update(check_physics(f32, N_MEMBERS // 2, 1e-5, card,
+                                       ("grid_phi",), timed=True, n_space=2))
+    check_physics(f64, N_MEMBERS // 2, 1e-12, card, ("grid_phi",),
+                  n_space=2)
+    bands["il12"].update(check_physics(f32, N_MEMBERS, 1e-5, card,
+                                       ("grid_phi",), timed=True, n_space=4))
+
+    # The unsharded float64 reference, then the ranks.
+    consts64, s64, cal64 = make_demo_model(T30L8, device="cuda",
+                                           fft_mode="matmul")
+    out64, _, _ = run_window(make_run_steps_batched(consts64, device="cuda"),
+                             broadcast_state(s64, N_MEMBERS_MD64), cal64, 2,
+                             N_STEPS_MD64)
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= MD_WORLD else "gloo"
+    sharing = (f"{MD_WORLD} ranks on one card over gloo" if n_cards == 1 else
+               f"{MD_WORLD} ranks on {min(n_cards, MD_WORLD)} cards over "
+               f"{backend}")
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"state1": _cpu_fields(state1, PROGNOSTICS), "day": day,
+                    "f64": _cpu_fields(out64, MD_FIELDS)},
+                   Path(tmp) / "ref.pt")
+        del out64
+        t0 = time.perf_counter()
+        codes = run_workers(multidevice_rank, MD_WORLD,
+                            (MD_WORLD, f"tcp://127.0.0.1:{free_port()}",
+                             backend, tmp), timeout_s=600)
+        wall = time.perf_counter() - t0
+        if codes != [0] * MD_WORLD:
+            raise RuntimeError(f"multi-device phase: rank exit codes {codes}")
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(MD_WORLD)]
+    for r in ranks:
+        if r["4x1"]["launches"] != main_launches:
+            raise RuntimeError(f"mesh 4x1 rank {r['rank']}: launches "
+                               f"{r['4x1']['launches']}, the main path's "
+                               f"{main_launches}")
+    r0 = ranks[0]
+    print(f"multi-device: {sharing} ({wall:.1f} s for the ranks, spawn "
+          f"included); default group {r0['backend']}, sub-groups "
+          + "; ".join(f"{k} {v}" for k, v in r0["group_backends"].items()))
+    bit = r0["4x1"]["bitwise"]
+    print(f"mesh 4x1 (ensemble only): T30L8 f32 with physics, {N_MEMBERS} "
+          f"members ({N_MEMBERS // 4} a rank) x {N_STEPS} steps + "
+          f"initialization, each rank's launches equal the main path's "
+          f"{main_launches}; the gathered day "
+          + ("bitwise equal to" if bit else "NOT bitwise equal to")
+          + f" the main path's unsharded day (initial state bitwise: "
+          f"{r0['4x1']['initial_state_bitwise']}); largest rel. difference "
+          "by field " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                 r0["4x1"]["diffs"].items()))
+    if not bit:
+        print(f"  mesh 4x1: shares of the physics diagnostics over "
+              f"{MD_F32_LIMIT:g}: {r0['4x1']['shares']} (a ROADMAP Queue 3 "
+              f"finding)")
+        if not r0["4x1"]["within_f32_limits"]:
+            raise RuntimeError("mesh 4x1 differs from the unsharded day "
+                               "beyond the float32 limits")
+    c = r0["2x2"]["collectives"]
+    print(f"mesh 2x2 (bands of {r0['2x2']['il']} latitudes, "
+          f"{r0['2x2']['members']} members a rank): per rank launches "
+          f"{r0['2x2']['launches']} (rows 1, 2 and 6 once a step, no fused "
+          f"transform, no plain chain), band transforms {c} (one all_reduce "
+          f"per direct group, none for the {c['inverse_calls']} inverse "
+          f"groups); the bands of a row hold the same spectral state, "
+          f"bitwise; f32 day vs unsharded, largest rel. difference by field "
+          + ", ".join(f"{k} {v:.3e}" for k, v in r0["2x2"]["diffs"].items())
+          + f" (limit {MD_F32_LIMIT:g} on {', '.join(MD_STATE_FIELDS)}); "
+          f"share of values over it "
+          + ", ".join(f"{k} {v:.2e}" for k, v in r0["2x2"]["shares"].items())
+          + f" (limit {MD_DIAG_SHARE:g}); f64 {N_STEPS_MD64} steps of "
+          f"{N_MEMBERS_MD64} members vs the unsharded f64 run on the card "
+          + ", ".join(f"{k} {v:.3e}" for k, v in
+                      r0["2x2_f64"]["diffs"].items())
+          + f" (limit {MD_F64_LIMIT:g})")
+    for mesh in ("4x1", "2x2"):
+        print(f"mesh {mesh} timings, {sharing}: ms/step by rank (a warm "
+              f"{N_STEPS}-step window) "
+              + ", ".join(f"{r[mesh]['ms_per_step']:.2f}" for r in ranks)
+              + (f"; all_reduce {r0['2x2']['all_reduce_per_step']:.3f} a "
+                 f"step, {r0['2x2']['all_reduce_bytes_per_step'] / 1e6:.2f} "
+                 f"MB a step, one all_reduce of a step's bytes alone "
+                 f"{r0['2x2']['all_reduce_ms_per_step']:.2f} ms (rank 0)"
+                 if mesh == "2x2" else "")
+              + f" [{card}]")
+    return {"bands": bands, "ranks": ranks, "sharing": sharing,
+            "backend": backend}
+
+
 def climatology_phase(card: str) -> dict:
     """The climatology check on the card through the port's own script
     (pyspeedy_tpu_torch/validate_climatology.py): T30 f32 through Speedy,
@@ -2081,6 +2408,7 @@ def main() -> None:
         run, broadcast_state(state1, N_MEMBERS), cal, 2, N_STEPS)
     launches = read_path_counts("main path", consts, 2, N_STEPS)
     fields_main = dict(tk.field_counts)
+    day_ref = _cpu_fields(state, MD_FIELDS)
     plain_calls = dict(tk.plain_chain_calls, **GK.plain_calls)
     check_state(state, N_MEMBERS, "main path")
     steps = range(2, 2 + N_STEPS)
@@ -2174,6 +2502,13 @@ def main() -> None:
     print(f"throughput, dynamics only: "
           f"{report(N_MEMBERS, N_STEPS_DYN, secs_dd, None)}")
     del state_dd
+
+    phases.start("multi-device phase")
+    # 6a. the ("ensemble", "space") mesh: rows 1 and 2 at the band shapes,
+    # then four ranks (their own process each) on the 4x1 and 2x2 meshes,
+    # held to the main path's day.
+    md = multidevice_phase(card, state1, day_ref, launches)
+    del day_ref
 
     phases.start("bf16_tendencies path")
     # 6b. the bf16_tendencies configuration at a reduced depth: the
@@ -2665,6 +3000,10 @@ def main() -> None:
     kernels[0]["launches_explicit_path"] = explicit["launches"]["grid_dynamics"]
     kernels[0]["presets"] = preset_entries("grid_dynamics", "dyn")
     kernels[0]["launches_bf16_path"] = launches_b["grid_dynamics_bf16"]
+    md_2x2 = md["ranks"][0]["2x2"]["launches"]
+    kernels[0]["launches_multidevice_2x2_per_rank"] = md_2x2["grid_dynamics"]
+    for il in ("il24", "il12"):
+        kernels[0]["band_" + il] = md["bands"][il]["grid_dynamics"]
     kernels[0].update(bf16_out["grid_dynamics"])
     for name in ("grid_physics_sw", "grid_physics_nosw"):
         kernels.append(entry(name, phys_src, phys_repl, launches[name],
@@ -2695,6 +3034,9 @@ def main() -> None:
         kernels[-1].update(bf16_out[name])
         kernels[-1]["launches_explicit_path"] = explicit["launches"][name]
         kernels[-1]["presets"] = preset_entries(name, "phys", name)
+        kernels[-1]["launches_multidevice_2x2_per_rank"] = md_2x2[name]
+        for il in ("il24", "il12"):
+            kernels[-1]["band_" + il] = md["bands"][il][name]
     tr_src = "pyspeedy_tpu_torch/csrc/fused_transform.cu"
     rows = f"T30 f32, {N_MEMBERS * T30L8.kx} rows (B={N_MEMBERS} x kx)"
     for name, repl in (("fused_grid2spec", "tools/exp_fused_transform.py:65"),
@@ -2708,6 +3050,7 @@ def main() -> None:
         kernels[-1]["fields_dynamics_only_path"] = fields_dyn[name]
         kernels[-1]["launches_sppt_path"] = launches_s[name]
         kernels[-1]["fields_sppt_path"] = fields_s[name]
+        kernels[-1]["launches_multidevice_2x2_per_rank"] = md_2x2[name]
         kernels[-1]["max_rel_err_call_site_groups_sppt"] = sites_err_s
         kernels[-1]["groups"] = tr32[name]["groups"]
         kernels[-1]["groups_f64"] = tr64[name]["groups"]
@@ -2745,6 +3088,7 @@ def main() -> None:
         glue["presets"][name]["launch_plan"] = presets[name]["plan"]
         glue["presets"][name]["launch_plan_f64"] = presets[name]["plan_f64"]
     glue["launches_bf16_path"] = launches_b["spectral_update"]
+    glue["launches_multidevice_2x2_per_rank"] = md_2x2["spectral_update"]
     glue["launches_f64_day"] = launches64["spectral_update"]
     glue["max_rel_err_model_state"] = glue_state
     for key in ("ms", "call_ms", "plain_ms", "bound_ms", "max_rel_err",

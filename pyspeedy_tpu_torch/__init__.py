@@ -3,11 +3,11 @@
 The package mirrors the JAX package's layout (``ops``, ``models``,
 ``coupling``, ``physics``, ``parallel``, ``utils``) so that each module's
 counterpart is found under the same name. It imports ``torch`` and ``numpy``
-(and ``scipy`` / ``h5py`` to read NetCDF) only. Ported so far: the
-member-batched model with its column physics (``physics_on=True``, the
-default) or without, SPPT, and the ``Speedy`` / ``SpeedyEns`` API with the
-bundled boundary conditions; see the README's "PyTorch/CUDA port" section
-for what waits.
+(and ``scipy`` / ``h5py`` to read NetCDF) only. Ported: the member-batched
+model with its column physics (``physics_on=True``, the default) or
+without, SPPT, the ``Speedy`` / ``SpeedyEns`` API with the bundled boundary
+conditions, and the ("ensemble", "space") mesh on ``torch.distributed``
+(``parallel``); see the README's "PyTorch/CUDA port" section.
 """
 
 from __future__ import annotations

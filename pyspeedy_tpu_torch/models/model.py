@@ -45,7 +45,8 @@ from .timestep import step
 __all__ = ["Consts", "build_consts", "allocate_state", "initialize",
            "build_step_ctx", "make_single_step", "SpeedyError",
            "DYNAMIC_FIELDS", "EPHEMERAL_FIELDS", "CARRY_FIELDS",
-           "split_state", "add_member_axis", "ensure_member_axis"]
+           "split_state", "add_member_axis", "ensure_member_axis",
+           "single_member_ndim", "band_consts", "shard_consts"]
 
 
 class SpeedyError(RuntimeError):
@@ -268,6 +269,12 @@ def _single_member_ndims() -> dict:
 _NDIM = _single_member_ndims()
 
 
+def single_member_ndim(name: str) -> int:
+    """Number of axes of state field `name` in the single-member layout (a
+    leapfrog field's per-level tensors)."""
+    return _NDIM[name]
+
+
 def split_state(state: dict, carry_fields=DYNAMIC_FIELDS):
     """(dynamic, static) partition of the state dict."""
     dyn = {k: v for k, v in state.items() if k in carry_fields}
@@ -304,6 +311,48 @@ def ensure_member_axis(state: dict, n_members: int) -> dict:
                          if a.dim() == base else a)
         out[name] = _map_levels(fix, val)
     return out
+
+
+# The per-latitude vectors of a Geometry: a band keeps its rows of them.
+_LATITUDE_FIELDS = ("radang", "coriol", "sia", "coa", "cosg", "cosgr",
+                    "cosgr2")
+
+
+def band_consts(consts: Consts, n_space: int, index: int,
+                group=None) -> Consts:
+    """The Consts of latitude band `index` of `n_space` (a space-sharded
+    mesh's step; `group` is the "space" process group its direct transforms
+    reduce over): the band transform (parallel/shard_transforms.py, never on
+    the dense route) and the band's rows of every per-latitude table, the
+    geometry's latitude vectors (the daily forcing's zonal fields, the
+    surface fluxes), the grid-dynamics kernel's rcos and coriol and the
+    physics kernel's sqrtcoa. The m=0 geopotential correction reads the
+    band transform's cpol_inv_full. Everything else (levels, spectral
+    tables, SPPT's spectral amplitudes) is the same on every band. Without
+    a group the transforms raise: such Consts serve the column kernels."""
+    from ..parallel.shard_transforms import band_transform
+
+    sp = band_transform(consts.sp, n_space, index, group)
+    rows = sp.band.rows
+    geom = consts.geom._replace(**{
+        f: getattr(consts.geom, f)[rows] for f in _LATITUDE_FIELDS})
+    col = consts.col._replace(rcos=consts.col.rcos[rows].contiguous(),
+                              coriol=consts.col.coriol[rows].contiguous())
+    phys = consts.phys._replace(
+        sqrtcoa=consts.phys.sqrtcoa[rows].contiguous())
+    return dataclasses.replace(consts, sp=sp, geom=geom, col=col, phys=phys)
+
+
+def shard_consts(consts: Consts, mesh) -> Consts:
+    """The Consts of this rank's latitude band on `mesh` (band_consts with
+    the mesh's "space" size, this rank's band and the "space" group);
+    `consts` itself where "space" has one rank."""
+    from ..parallel.mesh import space_band
+
+    n_space, index, group = space_band(mesh)
+    if n_space == 1:
+        return consts
+    return band_consts(consts, n_space, index, group)
 
 
 def _physics_fn(consts):

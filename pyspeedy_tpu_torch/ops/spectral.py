@@ -43,16 +43,24 @@ Three transform routes, chosen when the tables are built:
   T63 there too; another truncation that would pass that gate takes this
   route as well, since the kernels serve T30 alone.
 
-The last two are routes of their own, not plain versions of the kernels; their
-products go to ``torch.fft`` / ``torch.einsum`` as the JAX package left them
-to XLA. A bfloat16 grid (the ``bf16_tendencies`` configuration) takes the
-2-byte operand mode on the dense route and is widened to the tables' type on
-the other two, as in the JAX package.
+A fourth, the **band route**, serves a latitude band of a space-sharded mesh
+(``parallel/shard_transforms.py``): a transform whose ``band`` is set holds
+its band's rows of the Legendre and 1/cos tables and is never on the dense
+route; ``grid2spec_many_p`` / ``spec2grid_many_p`` hand it to the band object,
+which takes each field through the fft or einsum route on its rows and, for a
+direct group, sums the partial Legendre sums of the bands with one
+``all_reduce``.
+
+The fft and einsum routes are routes of their own, not plain versions of the
+kernels; their products go to ``torch.fft`` / ``torch.einsum`` as the JAX
+package left them to XLA. A bfloat16 grid (the ``bf16_tendencies``
+configuration) takes the 2-byte operand mode on the dense route and is
+widened to the tables' type on the others, as in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -200,6 +208,12 @@ class SpectralTransform(NamedTuple):
     fold_inv: torch.Tensor
     use_matmul_fft: bool = False
     use_dense_legendre: bool = False
+    # A latitude band of a space-sharded mesh
+    # (parallel/shard_transforms.py::LatitudeBand), or None for the full
+    # sphere. A band transform holds its band's rows of cpol_inv_full,
+    # cpol_dir_full, cosgr and cosgr2, is never on the dense route, and routes
+    # its transforms through the band object.
+    band: Any = None
 
     @property
     def iy(self):
@@ -438,6 +452,8 @@ def grid2spec_many_p(sp: SpectralTransform, grids, pdim: int = 0) -> list:
     (the plain chain, field by field, on the CPU); on the other routes one
     field at a time."""
     grids = list(grids)
+    if sp.band is not None:
+        return sp.band.grid2spec_many_p(sp, grids, pdim)
     if not _dense(sp):
         return [_grid2spec_routes(sp, g, pdim) for g in grids]
     n = TK.MAX_SEGMENTS
@@ -454,6 +470,8 @@ def spec2grid_many_p(sp: SpectralTransform, pairs, kcos=1,
     time."""
     pairs = list(pairs)
     kcos = TK.kcos_list(kcos, len(pairs))
+    if sp.band is not None:
+        return sp.band.spec2grid_many_p(sp, pairs, kcos, pdim)
     if not _dense(sp):
         return [_spec2grid_routes(sp, p, k, pdim) for p, k in zip(pairs, kcos)]
     n = TK.MAX_SEGMENTS

@@ -8,17 +8,28 @@ members). The JAX package's shortwave-aligned scan (prefix, scan of
 shortwave-first step triples, tail) exists to keep the radiation cache out of
 a scan carry and the per-step diagnostics out of a jitted signature; an eager
 Python loop has neither problem, so the runner here is that loop, for any
-number of steps from any phase of the shortwave cadence. Meshes and sharding
-are not ported.
+number of steps from any phase of the shortwave cadence.
+
+On an ("ensemble", "space") mesh (parallel/mesh.py) each rank runs the same
+loop on its piece of the state (shard_ensemble, or
+parallel/distributed.py::make_global_ensemble): its ensemble row's members
+and, when "space" has several ranks, its latitude band, with the band's
+Consts (models/model.py::shard_consts), whose direct transforms sum over the
+bands with one all_reduce a group (parallel/shard_transforms.py).
 """
 
 from __future__ import annotations
 
+import torch
+import torch.distributed as dist
+
 from .. import resolve_device
 from ..models import model as M
 from ..physics import sppt as SP
+from .mesh import local_shard
 
-__all__ = ["broadcast_state", "make_run_steps_batched", "pick_member_chunk"]
+__all__ = ["broadcast_state", "make_run_steps_batched", "pick_member_chunk",
+           "shard_ensemble"]
 
 
 def pick_member_chunk(n_members: int, chunk: int) -> int:
@@ -50,7 +61,8 @@ def broadcast_state(state: dict, n_members: int) -> dict:
     return out
 
 
-def make_run_steps_batched(consts, device="cuda"):
+def make_run_steps_batched(consts, device="cuda", mesh=None,
+                           shard_space: bool = True):
     """n-step integrator over a member-batched state (leading member axis on
     the carried fields only): run(state, ctx) -> state, with ctx from
     models.model.build_step_ctx. A Python loop over steps; nothing in it
@@ -78,11 +90,22 @@ def make_run_steps_batched(consts, device="cuda"):
     used up, so the noise held stays bounded however long the run; each
     step takes its slice (ctx "sppt_se").
 
-    `device` must be the one the consts were built on."""
+    `device` must be the one the consts were built on.
+
+    With a `mesh`, run takes and returns this rank's piece of the state
+    (shard_ensemble's layout, the same `shard_space`): the members of its
+    ensemble row and, with shard_space and more than one rank on "space",
+    its latitude band, stepped with the band's Consts. The bands' SPPT
+    noise is each member's own and the same on every band. error_flag is
+    per band: it is ORed over "space" once, at the end of the run. Without
+    a mesh, or with one rank on "space", the step is the unsharded one."""
     device = resolve_device(device)
     if device.type != consts.device.type:
         raise ValueError(
             f"consts were built on {consts.device}, runner asked for {device}")
+    if mesh is not None and shard_space:
+        consts = M.shard_consts(consts, mesh)
+    space_group = consts.sp.band.group if consts.sp.band else None
     single_step = M.make_single_step(consts)
 
     def run(state, ctx):
@@ -100,6 +123,23 @@ def make_run_steps_batched(consts, device="cuda"):
             if noise is not None:
                 ctx_i["sppt_se"] = next(noise)
             state = single_step(state, ctx_i)
+        if space_group is not None:
+            state = {**state, "error_flag": _any_over(state["error_flag"],
+                                                      space_group)}
         return state
 
     return run
+
+
+def _any_over(flag: torch.Tensor, group) -> torch.Tensor:
+    """OR of a bool tensor over the ranks of `group` (one all_reduce)."""
+    x = flag.to(torch.uint8)
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
+    return x.bool()
+
+
+def shard_ensemble(mesh, state: dict, shard_space: bool = True) -> dict:
+    """This rank's piece of a member-batched state that every rank holds
+    whole (parallel/mesh.py::local_shard): the members of its ensemble row
+    and, with shard_space, its latitude band of every grid field."""
+    return local_shard(mesh, state, shard_space)

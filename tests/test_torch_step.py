@@ -445,7 +445,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert REPO / "pyspeedy_tpu_torch/ops/transform_kernels.py" in files
     for name in ("speedy.py", "callbacks.py", "error_codes.py",
                  "utils/dataset.py", "physics/sppt.py", "utils/profiling.py",
-                 "validate_climatology.py", "models/timestep.py"):
+                 "validate_climatology.py", "models/timestep.py",
+                 "parallel/mesh.py", "parallel/shard_transforms.py",
+                 "parallel/distributed.py", "parallel/launch_multihost.py",
+                 "parallel/ensemble.py"):
         assert REPO / "pyspeedy_tpu_torch" / name in files, name
     for path in files:
         for mod in _imports(path):
