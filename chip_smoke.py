@@ -10,10 +10,13 @@ each kernel against its plain PyTorch version on the card at the shapes the
 model gives it (the two column kernels, their bfloat16-output instantiations,
 the fused spectral transforms in float32, float64 and the 2-byte operand
 mode, alone and in the step's groups of fields (each group bitwise equal to
-its fields launched one by one), the four probe stages, the spectral update in float32 and float64 on
-random inputs and on the model's own state, the DFT chain at the JAX tool's
-shapes), drives the port's paths through the public entry points (the
-member-batched dynamics-only T30L8 model at a reduced depth; the main path:
+its fields launched one by one), the four probe stages (the direct
+transform stopped after each stage) at 256 and 9,344 rows with the stage
+attribution of the direct transform, the spectral update in float32 and
+float64 on random inputs and on the model's own state, the DFT chain at the
+JAX tool's shapes, a member alone bitwise as in the batch), drives the
+port's paths through the public entry points (the member-batched
+dynamics-only T30L8 model at a reduced depth; the main path:
 the full-physics T30L8 model, initialization and one model day of 128
 members; the bf16_tendencies configuration at a reduced depth; the SPPT
 path: the full-physics model with stochastic physics, one day of 128
@@ -100,12 +103,16 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # bfloat16 products run in the tensor cores (dense rate, same data sheet).
 PEAK_FLOPS_BF16 = 989e12
+# float64 products on the FP64 tensor cores (DMMA; same data sheet): the
+# DFT chain's float64 kernel runs there.
+PEAK_FLOPS_F64_TENSOR = 67e12
 
 N_MEMBERS = 128
 N_STEPS = 36            # one model day at T30
 N_STEPS_DYN = 12        # depth of the dynamics-only path
 N_STEPS_BF16 = 12       # depth of the bf16_tendencies path
 N_PROBE_ROWS = 256      # rows of the probe stages' comparison
+N_PROBE_ROWS_STEP = 9344   # the step's direct group at B=128: 128 x 73 fields
 N_DFT_MEMBERS = 256     # members of the DFT chain (the JAX tool's default)
 N_ENS = 16              # members of the SpeedyEns phase
 # The explicit gravity-wave branch (alph < 0.5) at T30: 144 steps a day
@@ -903,60 +910,129 @@ def check_bf16_operands(params, card: str):
             "bound_by_bf16": bound_by, "group_bf16": group}
 
 
-def check_probes(params, limit: float, card: str):
-    """Each probe stage against its plain version, and its time on the card:
-    which stage is wrong, and which stage takes the time."""
+def probe_work(sp, stage: int, n: int):
+    """(bytes, operations) each probe stage needs for n rows: the grid rows
+    read once, the output written once, the direct kernel's folded tables
+    once (p0-p2); the operations of the folded real part (the DFT of each
+    parity over half a period, 2 x (ix/2) x mx per latitude; p2 adds the
+    Legendre sums over the northern latitudes and the triangle)."""
+    il, ix, mx, nx = sp.il, sp.ix, sp.mx, sp.nx
+    size = sp.rdtype.itemsize
+    ntri = sum(nx - m for m in range(mx))
+    tables = sp.fold_dir.numel() * size
+    dft_ops = 2 * n * il * (ix // 2) * mx
+    if stage == 3:
+        return 2 * n * il * mx * size, n * il * mx
+    if stage < 2:
+        return n * il * (ix + mx) * size + tables, dft_ops
+    return (n * (il * ix + mx * nx) * size + tables,
+            dft_ops + 2 * n * (il // 2) * ntri)
+
+
+def probe_occupancy(lib, prec: str) -> dict:
+    """{stage: (blocks per SM, threads, shared bytes, registers, local
+    bytes)} of the probe kernels, from the CUDA runtime."""
+    import ctypes
+    fn = ctypes.CDLL(str(lib)).pyspeedy_fused_probe_occupancy
+    out, res = (ctypes.c_int * 5)(), {}
+    for stage in tk.PROBE_STAGES:
+        rc = fn(2 + stage, 0 if prec == "f32" else 1, out)
+        if rc != 0:
+            raise RuntimeError(f"occupancy query of probe p{stage} failed "
+                               f"with {rc}")
+        res[stage] = tuple(out)
+    return res
+
+
+PROBE_KERNELS = {0: "grid2spec_fold_kernel<T, T, false, THREADS, 0>",
+                 1: "grid2spec_fold_kernel<T, T, false, THREADS, 1>",
+                 2: "grid2spec_fold_kernel<T, T, false, THREADS, 2>",
+                 3: "split_probe_kernel<T, true>"}
+
+
+def check_probes(params, limit: float, card: str, libs, row3_group_ms=None):
+    """Each probe stage against its plain version, and its time on the card,
+    at the JAX tool's 256 rows and at 9,344 rows (the rows of the step's
+    direct group at B=128): which stage is wrong, and which stage of the
+    direct transform (row 3) takes the time. Beside the 9,344-row probes the
+    whole direct kernel on the same grid, and the step's group."""
     consts, _ = M.build_consts(params, device="cuda", physics_on=False)
     sp = consts.sp
     rng = np.random.default_rng(30)
-    g = torch.from_numpy(rng.standard_normal(
-        (N_PROBE_ROWS, sp.il, sp.ix))).to("cuda", sp.rdtype)
     what = {0: "DFT stage to device memory",
             1: "DFT stage through shared memory, stored flat",
             2: "DFT + Legendre stage, one part",
             3: "inverse-side split, times 2"}
-    il, ix, mx, nx, n = sp.il, sp.ix, sp.mx, sp.nx, N_PROBE_ROWS
-    size = sp.rdtype.itemsize
-    # Bytes (input read once, output written once, tables once) and
-    # operations of each stage, for its bound.
-    dft_bytes, dft_ops = n * il * (ix + mx) + ix * mx, 2 * n * il * ix * mx
-    work = {0: (dft_bytes, dft_ops), 1: (dft_bytes, dft_ops),
-            2: (n * (il * ix + mx * nx) + ix * mx + il * mx * nx,
-                dft_ops + 2 * n * mx * nx * il),
-            3: (2 * n * il * mx, n * il * mx)}
-    stages = []
-    for stage in tk.PROBE_STAGES:
-        got = tk.fused_probe_cuda(sp, stage, g)
-        want = tk.probe_plain(sp, stage, g)
-        err = _rel(got, want)
-        kern = "split_probe_kernel" if stage == 3 else "probe_stage_kernel"
-        launch = lambda: tk.fused_probe_cuda(sp, stage, g)
-        ms = kernel_device_ms(launch, kern)
-        call_ms = time_ms(launch, reps=20)
-        plain_ms = time_ms(lambda: tk.probe_plain(sp, stage, g), reps=10,
-                           warmup=2, windows=3)
-        t_b = work[stage][0] * size / PEAK_BYTES_PER_S
-        t_o = work[stage][1] / PEAK_FLOPS[sp.rdtype]
-        bound_ms, bound_by = 1e3 * max(t_b, t_o), (
-            "bytes" if t_b >= t_o else "operations")
-        print(f"kernel fused_probe p{stage} ({what[stage]}) T30L{params.kx} "
-              f"{params.precision} {N_PROBE_ROWS} rows: max rel err vs plain "
-              f"{err:.3e} (limit {limit:.0e}), kernel {ms:.4f} ms on the "
-              f"card ({call_ms:.4f} ms per wrapper call, back to back), bound "
-              f"{bound_ms:.5f} ms by {bound_by}, plain = PyTorch's own calls "
-              f"{plain_ms:.4f} ms [{card}]")
-        if got.shape != want.shape or not err <= limit:
-            raise RuntimeError(f"probe stage {stage} disagrees with its "
-                               f"plain version")
-        # The plain version of a stage is PyTorch's own calls and nothing
-        # else (one matmul, two for p2, a multiply for p3), so its time is
-        # also the stage's library time.
-        stages.append({"stage": f"p{stage}", "max_rel_err": err,
-                       "max_abs_err": float((got - want).abs().max()),
-                       "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-                       "library_ms": plain_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by})
-    return stages
+    occ = probe_occupancy(libs["fused_transform"], params.precision)
+    peak = PEAK_FLOPS[sp.rdtype]
+    res = {}
+    for n in (N_PROBE_ROWS, N_PROBE_ROWS_STEP):
+        g = torch.from_numpy(rng.standard_normal(
+            (n, sp.il, sp.ix))).to("cuda", sp.rdtype)
+        stages = []
+        for stage in tk.PROBE_STAGES:
+            got = tk.fused_probe_cuda(sp, stage, g)
+            want = tk.probe_plain(sp, stage, g)
+            err = _rel(got, want)
+            kern = "split_probe_kernel" if stage == 3 else \
+                "grid2spec_fold_kernel"
+            launch = lambda: tk.fused_probe_cuda(sp, stage, g)
+            ms = kernel_device_ms(launch, kern)
+            call_ms = time_ms(launch, reps=20)
+            plain_ms = time_ms(lambda: tk.probe_plain(sp, stage, g), reps=10,
+                               warmup=2, windows=3)
+            nbytes, ops = probe_work(sp, stage, n)
+            t_b, t_o = nbytes / PEAK_BYTES_PER_S, ops / peak
+            bound_ms, bound_by = 1e3 * max(t_b, t_o), (
+                "bytes" if t_b >= t_o else "operations")
+            blocks, threads, smem, regs, local = occ[stage]
+            print(f"kernel fused_probe p{stage} ({what[stage]}, "
+                  f"{PROBE_KERNELS[stage]}) T30L{params.kx} "
+                  f"{params.precision} {n} rows: max rel err vs plain "
+                  f"{err:.3e} (limit {limit:.0e}), kernel {ms:.4f} ms on the "
+                  f"card ({call_ms:.4f} ms per wrapper call, back to back), "
+                  f"bound {bound_ms:.5f} ms by {bound_by} "
+                  f"({nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP) = "
+                  f"{100 * bound_ms / ms:.0f}%, plain = PyTorch's own calls "
+                  f"{plain_ms:.4f} ms; {regs} registers, {local} B local, "
+                  f"{blocks * threads // 32} warps per SM [{card}]")
+            if got.shape != want.shape or not err <= limit:
+                raise RuntimeError(f"probe stage {stage} disagrees with its "
+                                   f"plain version at {n} rows")
+            # The plain version of a stage is PyTorch's own calls and nothing
+            # else (one matmul, two for p2, a multiply for p3), so its time is
+            # also the stage's library time.
+            stages.append({"stage": f"p{stage}", "rows": n,
+                           "kernel": PROBE_KERNELS[stage], "max_rel_err": err,
+                           "max_abs_err": float((got - want).abs().max()),
+                           "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                           "library_ms": plain_ms, "bound_ms": bound_ms,
+                           "bound_by": bound_by, "registers": regs,
+                           "local_bytes": local,
+                           "warps_per_sm": blocks * threads // 32})
+        res[n] = stages
+    # The attribution the probes exist for: row 3 on the same 9,344-row grid
+    # (one field, one launch), and its stages.
+    row3 = lambda: tk.fused_grid2spec_cuda(sp, g, 0)
+    row3_ms = kernel_device_ms(row3, "grid2spec_fold_kernel")
+    t = {x["stage"]: x["ms"] for x in res[N_PROBE_ROWS_STEP]}
+    print(f"  row 3 by stage at {N_PROBE_ROWS_STEP} rows T30L{params.kx} "
+          f"{params.precision}: the whole direct kernel on the same grid "
+          f"{row3_ms:.4f} ms"
+          + ("" if row3_group_ms is None else
+             f" (the step's direct group of 10 fields, {N_PROBE_ROWS_STEP} "
+             f"rows, {row3_group_ms:.4f} ms)")
+          + f"; p1 = copy-in, half-period fold and DFT of both parts into "
+          f"the shared intermediate, the real part stored {t['p1']:.4f} ms "
+          f"({100 * t['p1'] / row3_ms:.0f}%); p0 - p1 = the DFT's values "
+          f"stored straight from the register tiles instead "
+          f"{t['p0'] - t['p1']:+.4f} ms; p2 - p1 = hemispheric fold, the real "
+          f"part's Legendre sums and stores {t['p2'] - t['p1']:.4f} ms; row 3 "
+          f"- p1 = hemispheric fold, both parts' Legendre sums and stores "
+          f"{row3_ms - t['p1']:.4f} ms "
+          f"({100 * (row3_ms - t['p1']) / row3_ms:.0f}%) [{card}]")
+    return {"stages": res[N_PROBE_ROWS], "stages_step": res[N_PROBE_ROWS_STEP],
+            "row3_ms_step": row3_ms, "row3_group_ms": row3_group_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -1311,9 +1387,27 @@ def dft_chain_inputs(dtype, seed: int = 40):
     return DC.device_tables(dtype, "cuda"), fre, fim
 
 
-def check_dft_chain(dtype, limit: float, card: str):
+DFT_MEMBERS_ALONE = (0, 137, N_DFT_MEMBERS - 1)
+
+
+def dft_chain_occupancy(lib, dtype) -> tuple:
+    """(blocks per SM, threads, shared bytes, registers, local bytes) of the
+    DFT-chain kernel's instantiation for `dtype`, from the CUDA runtime."""
+    import ctypes
+    out = (ctypes.c_int * 5)()
+    rc = ctypes.CDLL(str(lib)).pyspeedy_dft_chain_occupancy(
+        torch.empty((), dtype=dtype).element_size(), out)
+    if rc != 0:
+        raise RuntimeError(f"occupancy query of the DFT chain failed: {rc}")
+    return tuple(out)
+
+
+def check_dft_chain(dtype, limit: float, card: str, libs):
     """The DFT-chain kernel against its plain version (12 matrix products
-    and the chain's elementwise passes) at B=256, and its time."""
+    and the chain's elementwise passes) at B=256, a member alone bitwise
+    that member of the batch, and its time against the bound of the least
+    work, folded by the half period and the mirror (float32 at the FFMA
+    peak, float64 at the FP64 tensor-core peak: the kernel runs on DMMA)."""
     tabs, fre, fim = dft_chain_inputs(dtype)
     got = DC.dft_chain_cuda(tabs, fre, fim)
     torch.cuda.synchronize()
@@ -1323,32 +1417,62 @@ def check_dft_chain(dtype, limit: float, card: str):
             raise RuntimeError("dft_chain: bad shape or values")
     err = max(_rel(a, b) for a, b in zip(got, want))
     max_abs = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    alone_ok = all(
+        torch.equal(x[0], y[m]) for m in DFT_MEMBERS_ALONE
+        for x, y in zip(DC.dft_chain_cuda(tabs, fre[m:m + 1].contiguous(),
+                                          fim[m:m + 1].contiguous()), got))
     launch = lambda: DC.dft_chain_cuda(tabs, fre, fim)
-    ms = kernel_device_ms(launch, "dft_chain_kernel", reps=10)
+    ms = kernel_device_ms(launch, "dft_chain_fold_kernel", reps=10)
     call_ms = time_ms(launch, reps=10)
     plain_ms = time_ms(lambda: DC.dft_chain_plain(tabs, fre, fim), reps=2,
                        warmup=1, windows=3)
     size = fre.element_size()
     rows = fre.numel() // DC.MX                     # (member, field, level, lat)
-    ops = rows * 8 * DC.MX * DC.IX                  # 4 mx*ix multiply-adds
+    # The least work: the tables are cos and sin, symmetric under the half
+    # period (i -> i + ix/2, sign (-1)^m) and the mirror (i -> ix - i), so
+    # each DFT needs 2 parts x mx x ix/4 multiply-adds per field row. The
+    # kernel folds by the half period only (twice this); PR 4's design by
+    # neither (four times this).
+    ops = rows * 2 * 2 * (2 * DC.MX * (DC.IX // 4))
+    ops_unfolded = rows * 8 * DC.MX * DC.IX
     nbytes = 4 * fre.numel() * size + 4 * DC.MX * DC.IX * size
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FLOPS[dtype]
+    peak = PEAK_FLOPS[dtype] if dtype == torch.float32 else \
+        PEAK_FLOPS_F64_TENSOR
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, ops / peak
     bound_ms = 1e3 * max(t_bytes, t_ops)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    blocks, threads, smem, regs, local = dft_chain_occupancy(
+        libs["dft_chain"], dtype)
     name = "f32" if dtype == torch.float32 else "f64"
-    print(f"kernel dft_chain {name} B={N_DFT_MEMBERS} ({rows} field rows): "
-          f"max rel err vs plain {err:.3e} (limit {limit:.0e}), kernel "
-          f"{ms:.4f} ms on the card ({call_ms:.4f} ms per wrapper call, back "
-          f"to back), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by "
-          f"{bound_by} ({ops / 1e9:.2f} GFLOP at "
-          f"{PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s; {nbytes / 1e6:.1f} MB = "
-          f"{1e3 * t_bytes:.4f} ms) = {100 * bound_ms / ms:.0f}% [{card}]")
+    beside = "" if dtype == torch.float32 else (
+        f"; at the {PEAK_FLOPS[dtype] / 1e12:.0f} TFLOP/s FP64 peak outside "
+        f"the tensor cores the least work takes {1e3 * ops / PEAK_FLOPS[dtype]:.4f} ms")
+    print(f"kernel dft_chain {name} B={N_DFT_MEMBERS} ({rows} field rows, "
+          f"dft_chain_fold_kernel<{'float' if name == 'f32' else 'double'}>"
+          f"): max rel err vs plain {err:.3e} (limit {limit:.0e}); members "
+          f"{', '.join(map(str, DFT_MEMBERS_ALONE))} alone bitwise as in the "
+          f"batch: {alone_ok}; kernel {ms:.4f} ms on the card ({call_ms:.4f} "
+          f"ms per wrapper call, back to back), plain {plain_ms:.3f} ms, "
+          f"bound {bound_ms:.4f} ms by {bound_by} (least work, both folds: "
+          f"{ops / 1e9:.2f} GFLOP at {peak / 1e12:.0f} TFLOP/s = "
+          f"{1e3 * t_ops:.4f} ms; {nbytes / 1e6:.1f} MB = "
+          f"{1e3 * t_bytes:.4f} ms{beside}) = {100 * bound_ms / ms:.0f}%; "
+          f"the unfolded work of PR 4's design {ops_unfolded / 1e9:.2f} "
+          f"GFLOP; {regs} registers, {local} B local, {smem / 1024:.1f} KB "
+          f"shared memory and {threads} threads a block, {blocks} blocks = "
+          f"{blocks * threads // 32} warps per SM [{card}]")
     if not err <= limit:
         raise RuntimeError(f"dft_chain kernel disagrees with its plain "
                            f"version: {err:.3e}")
+    if not alone_ok:
+        raise RuntimeError("dft_chain: a member alone differs from the same "
+                           "member in the batch")
     return {"max_rel_err": err, "max_abs_err": max_abs, "ms": ms,
             "call_ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by}
+            "bound_by": bound_by, "member_alone_bitwise": alone_ok,
+            "registers": regs, "local_bytes": local,
+            "warps_per_sm": blocks * threads // 32,
+            "kernel": f"dft_chain_fold_kernel<{'float' if name == 'f32' else 'double'}>"}
 
 
 def expected_transforms(consts, n_evals: int, n_forcings: int,
@@ -1398,8 +1522,8 @@ def build_report() -> list:
     import re
     bases = ("grid_dynamics_kernel", "grid_physics_kernel",
              "grid2spec_fold_kernel", "spec2grid_fold_kernel",
-             "probe_stage_kernel", "split_probe_kernel",
-             "spectral_update_kernel", "dft_chain_kernel")
+             "split_probe_kernel", "spectral_update_kernel",
+             "dft_chain_fold_kernel")
     words = {"f": "float", "d": "double", "13__nv_bfloat16": "bfloat16"}
     rows = []
     for name, log in ck.build_logs.items():
@@ -1461,15 +1585,16 @@ def sass_counts(lib, bases=("grid_physics_kernel",
     return {k: tuple(v) for k, v in counts.items()}
 
 
-def sass_report(libs) -> list:
-    """One line per kernel instantiation of `libs`: its conversions between
-    float and double, all its F2F conversions and its instruction count."""
+def sass_report(libs, bases=("grid_physics_kernel",
+                             "spectral_update_kernel")) -> list:
+    """One line per kernel instantiation of `libs` whose name holds one of
+    `bases`: its conversions between float and double, all its F2F
+    conversions and its instruction count."""
     import re
     rows = []
     for lib in libs:
-        for name, (f2f64, f2f, n) in sorted(sass_counts(lib).items()):
-            m = re.search(r"(grid_physics_kernel|spectral_update_kernel)I(.+?)EEv",
-                          name)
+        for name, (f2f64, f2f, n) in sorted(sass_counts(lib, bases).items()):
+            m = re.search("(" + "|".join(bases) + r")I(.+?)EEv", name)
             targs = m.group(2) if m else name
             rows.append(f"{Path(str(lib)).name} {m.group(1) if m else ''}"
                         f"<{targs}>: F2F float<->double {f2f64}, all F2F "
@@ -2313,15 +2438,34 @@ def main() -> None:
           + ", ".join(p.name for p in libs.values()))
     for row in build_report():
         print("  " + row)
-    print("occupancy of the two column-parallel kernels (CUDA runtime):")
+    print("occupancy of the two column-parallel kernels, the DFT chain and "
+          "the probes (CUDA runtime):")
     occupancy = occupancy_report(libs)
     for name, (blocks, threads, smem, regs, local) in occupancy.items():
         print(f"  {name}: {regs} registers, {local} B local memory, "
               f"{threads} threads and {smem / 1024:.1f} KB shared memory a "
               f"block, {blocks} blocks = {blocks * threads // 32} warps per SM")
-    print("SASS of the two column-parallel kernels (cuobjdump): conversions "
-          "between float and double, all F2F, instructions")
-    for row in sass_report([libs["grid_physics"], libs["spectral_update"]]):
+    for prec, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        blocks, threads, smem, regs, local = dft_chain_occupancy(
+            libs["dft_chain"], dtype)
+        print(f"  dft_chain_fold_kernel<{'float' if prec == 'f32' else 'double'}>"
+              f": {regs} registers, {local} B local memory, {threads} threads "
+              f"and {smem / 1024:.1f} KB shared memory a block, {blocks} "
+              f"blocks = {blocks * threads // 32} warps per SM")
+        for stage, (blocks, threads, smem, regs, local) in probe_occupancy(
+                libs["fused_transform"], prec).items():
+            print(f"  probe p{stage} {PROBE_KERNELS[stage]} {prec}: {regs} "
+                  f"registers, {local} B local memory, {threads} threads and "
+                  f"{smem / 1024:.1f} KB shared memory a block, {blocks} "
+                  f"blocks = {blocks * threads // 32} warps per SM")
+    print("SASS of the two column-parallel kernels, of row 5 and of rows 3 "
+          "and 7 (cuobjdump): conversions between float and double, all F2F, "
+          "instructions")
+    for row in sass_report([libs["grid_physics"], libs["spectral_update"],
+                            libs["dft_chain"], libs["fused_transform"]],
+                           ("grid_physics_kernel", "spectral_update_kernel",
+                            "dft_chain_fold_kernel", "grid2spec_fold_kernel",
+                            "split_probe_kernel")):
         print("  " + row)
     f2f = {k: v[0] for lib in (libs["grid_physics"], libs["spectral_update"])
            for k, v in sass_counts(lib).items()}
@@ -2354,8 +2498,12 @@ def main() -> None:
     tr32 = check_transforms(f32, 1e-5, card)
     tr64 = check_transforms(f64, 1e-12, card)
     tr_bf16 = check_bf16_operands(f32, card)
-    probes32 = check_probes(f32, 1e-5, card)
-    check_probes(f64, 1e-12, card)
+    probes32 = check_probes(
+        f32, 1e-5, card, libs,
+        tr32["fused_grid2spec"]["groups"]["direct"]["ms"])
+    probes64 = check_probes(
+        f64, 1e-12, card, libs,
+        tr64["fused_grid2spec"]["groups"]["direct"]["ms"])
     bf16_out = check_bf16_outputs(f32, card)
 
     # 4c. the spectral-update kernel vs plain (the three time steps of the
@@ -2365,8 +2513,8 @@ def main() -> None:
     glue64 = check_spectral_update(f64, 1e-12, card)
     check_spectral_update(dataclasses.replace(T30L5, fft_mode="matmul"),
                           1e-12, card)
-    dft32 = check_dft_chain(torch.float32, 1e-5, card)
-    dft64 = check_dft_chain(torch.float64, 1e-12, card)
+    dft32 = check_dft_chain(torch.float32, 1e-5, card, libs)
+    dft64 = check_dft_chain(torch.float64, 1e-12, card, libs)
 
     phases.start("dynamics-only path")
     # 5. the dynamics-only path, at a reduced depth: initialization (two
@@ -3064,19 +3212,28 @@ def main() -> None:
     kernels[-2].update(tr_bf16)
     # The probes are not on the model's path: their launches are those of
     # the probe path above; the entry's times and bound are those of p2, the
-    # whole chain for one part, and every stage carries its own.
-    stage2 = probes32[2]
+    # whole chain for one part, at the tool's 256 rows, and every stage
+    # carries its own there and at 9,344 rows (the step's direct group at
+    # B=128) under `stages_step`.
+    stage2 = probes32["stages"][2]
     kernels.append({
         "name": "fused_probe", "route": "cuda", "source": tr_src,
         "replaces": "tools/exp_fused_probe.py:49",
+        "kernels": [PROBE_KERNELS[q] for q in tk.PROBE_STAGES],
         "launches": launches_probe["fused_probe"],
         "launches_on": "the probe path (the model's steps do not run it)",
-        "max_abs_err": max(x["max_abs_err"] for x in probes32),
-        "max_rel_err": max(x["max_rel_err"] for x in probes32),
+        "max_abs_err": max(x["max_abs_err"] for x in probes32["stages"]),
+        "max_rel_err": max(x["max_rel_err"] for x in probes32["stages"]),
         "ms": stage2["ms"], "call_ms": stage2["call_ms"],
         "plain_ms": stage2["plain_ms"], "bound_ms": stage2["bound_ms"],
         "bound_by": stage2["bound_by"], "library_ms": stage2["library_ms"],
-        "shape": f"T30 f32, {N_PROBE_ROWS} rows, p2", "stages": probes32})
+        "shape": f"T30 f32, {N_PROBE_ROWS} rows, p2",
+        "stages": probes32["stages"], "stages_step": probes32["stages_step"],
+        "row3_ms_step": probes32["row3_ms_step"],
+        "row3_group_ms": probes32["row3_group_ms"],
+        "stages_f64": probes64["stages"],
+        "stages_step_f64": probes64["stages_step"],
+        "row3_ms_step_f64": probes64["row3_ms_step"]})
     glue = entry("spectral_update",
                  "pyspeedy_tpu_torch/csrc/spectral_update.cu",
                  "tools/exp_glue.py:39", launches["spectral_update"], glue32,
@@ -3110,7 +3267,12 @@ def main() -> None:
                 dft32, f"f32 B={N_DFT_MEMBERS} x ({DC.NFIELDS}, {DC.KX}, "
                 f"{DC.IL}, {DC.MX}) Fourier pairs")
     dft["launches_on"] = "the DFT-chain path (the model's steps do not run it)"
-    for key in ("ms", "call_ms", "plain_ms", "bound_ms", "max_rel_err"):
+    for key in ("kernel", "member_alone_bitwise", "registers", "local_bytes",
+                "warps_per_sm"):
+        dft[key] = dft32[key]
+    for key in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                "max_rel_err", "kernel", "member_alone_bitwise", "registers",
+                "local_bytes", "warps_per_sm"):
         dft[key + "_f64"] = dft64[key]
     kernels.append(dft)
     print(json.dumps({"kernels": kernels}))

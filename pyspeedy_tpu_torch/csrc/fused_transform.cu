@@ -99,12 +99,18 @@
 // between four barriers a row; registers 80 (direct) and 55 / 86 (inverse,
 // float / double), no spills.
 //
-// The probe kinds (tools/exp_fused_probe.py) keep the first version's one-block-per-
-// row template, probe_stage_kernel, for the probes alone: p0 the DFT stage written
-// straight to device memory as (N*il, mx); p1 the same values taken through
-// the shared-memory intermediate and stored flat as (N, il*mx); p2 the whole
-// chain for the real part as (N, mx*nx); p3 (split_probe_kernel) the
-// inverse-side split, (N, il*ix)[:, :il*mx] viewed as (N*il, mx), times 2.
+// The probes (tools/exp_fused_probe.py) are the direct kernel stopped after
+// one stage: grid2spec_fold_kernel<.., STOP> with STOP = 0, 1, 2 (STOP = 3 is
+// the whole transform), the same persistent blocks, folded tables, register
+// tiles and cp.async ring, one real part stored: p0 the DFT stage's real part
+// stored straight from the register tiles as (N*il, mx); p1 the same values
+// taken through the shared-memory intermediate and stored flat as
+// (N, il*mx); p2 the real part of the whole transform as (N, mx*nx), zeros
+// where m + n > 31 (the Legendre sums of the imaginary part are not formed).
+// p3 (split_probe_kernel) is the inverse-side split, (N, il*ix)[:, :il*mx]
+// viewed as (N*il, mx), times 2: a grid-stride pass of 16-byte vectors where
+// both pointers are 16-byte aligned (a row of either is a multiple of 16
+// bytes at T30), of single elements otherwise.
 //
 // Interface: plain C, loaded with ctypes; one entry point with a `kind`
 // argument. The launch goes to the stream it is given, allocates nothing and
@@ -227,7 +233,8 @@ constexpr size_t direct_shared_bytes() {
   return sizeof(E) * kIL * kIX + sizeof(T) * (kTable + 2 * kIH * kPitchA + 2 * kIL * kMX);
 }
 
-template <typename T, typename E, bool BF16, int THREADS>
+// STOP < 3: a probe, the kernel stopped after a stage (see the header).
+template <typename T, typename E, bool BF16, int THREADS, int STOP = 3>
 __global__ void __launch_bounds__(THREADS)
 grid2spec_fold_kernel(const __grid_constant__ Group g, long long total) {
   constexpr int TC = 512 / THREADS;        // wavenumber columns of a thread
@@ -294,6 +301,7 @@ grid2spec_fold_kernel(const __grid_constant__ Group g, long long total) {
 
     // Zonal DFT on the folded row: even m from the sums, odd m from the
     // differences; a thread keeps kTJ latitudes x TC columns.
+    T* out = static_cast<T*>(s.out) + b * s.out_member + kk * s.out_row;
     {
       const int par = tid / HALF, u = tid - par * HALF;
       const int jb = u / NCB, cb = u - jb * NCB;
@@ -324,11 +332,20 @@ grid2spec_fold_kernel(const __grid_constant__ Group g, long long total) {
         for (int jj = 0; jj < kTJ; ++jj) {
           T v = acc[jj][cc];
           if constexpr (BF16) v = round_bf16(v);
-          sF[(c * kIL + jb * kTJ + jj) * kMX + m] = v;
+          if constexpr (STOP == 0) {
+            if (c == 0) out[(jb * kTJ + jj) * kMX + m] = v;
+          } else {
+            sF[(c * kIL + jb * kTJ + jj) * kMX + m] = v;
+          }
         }
       }
     }
+    if constexpr (STOP == 0) continue;
     __syncthreads();
+    if constexpr (STOP == 1) {
+      for (int idx = tid; idx < kIL * kMX; idx += THREADS) out[idx] = sF[idx];
+      continue;
+    }
 
     // Hemispheric fold: F[j] <- F[j] + F[il-1-j], F[il-1-j] <- F[j] - F[il-1-j].
     for (int idx = tid; idx < 2 * kIY * kMX; idx += THREADS) {
@@ -344,7 +361,6 @@ grid2spec_fold_kernel(const __grid_constant__ Group g, long long total) {
     __syncthreads();
 
     // Legendre analysis over the northern latitudes, the triangle only.
-    T* out = static_cast<T*>(s.out) + b * s.out_member + kk * s.out_row;
 #pragma unroll
     for (int q = 0; q < MAXP; ++q) {
       const int m = pm[q];
@@ -365,13 +381,13 @@ grid2spec_fold_kernel(const __grid_constant__ Group g, long long total) {
         t1 += lo * f1[(j + 1) * step];
       }
       out[m * kNX + n] = s0 + t0;
-      out[s.out_pair + m * kNX + n] = s1 + t1;
+      if constexpr (STOP == 3) out[s.out_pair + m * kNX + n] = s1 + t1;
     }
     for (int idx = tid; idx < kPlane; idx += THREADS) {
       const int m = idx / kNX, n = idx - m * kNX;
       if (m + n >= kNX) {
         out[idx] = T(0);
-        out[s.out_pair + idx] = T(0);
+        if constexpr (STOP == 3) out[s.out_pair + idx] = T(0);
       }
     }
   }
@@ -508,80 +524,27 @@ spec2grid_fold_kernel(const __grid_constant__ Group g, long long total) {
 }
 
 // ---------------------------------------------------------------------------
-// The first version's one-block-per-row template, kept for the probe kinds
-// alone.
+// Probe p3: out[(r*il + j), m] = 2 * flat(g[r])[j*mx + m], a grid-stride pass.
 // ---------------------------------------------------------------------------
-constexpr int kProbeThreads = 256;
+constexpr int kSplitThreads = 256;
 
-template <typename T, int STAGE>
-__global__ void __launch_bounds__(kProbeThreads)
-probe_stage_kernel(const T* __restrict__ grid, const T* __restrict__ dft,
-                   const T* __restrict__ leg, T* __restrict__ out,
-                   int il, int ix, int mx, int nx) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sg = reinterpret_cast<T*>(smem_raw);          // (il, ix) the grid row
-  T* sf = sg + il * ix;                            // (il, mx) Fourier, real part
-  const int tid = threadIdx.x;
-  const long long r = blockIdx.x;
-
-  const T* gr0 = grid + r * il * ix;
-  for (int idx = tid; idx < il * ix; idx += kProbeThreads) sg[idx] = gr0[idx];
-  __syncthreads();
-
-  // Zonal DFT: item = (latitude tile, wavenumber), wavenumber fastest.
-  const int nitems = (il / kTJ) * mx;
-  for (int item = tid; item < nitems; item += kProbeThreads) {
-    const int jt = item / mx;
-    const int m = item - jt * mx;
-    const T* d = dft + m;
-    const T* gr = sg + jt * kTJ * ix;
-    T acc[kTJ];
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kSplitThreads)
+split_probe_kernel(const T* __restrict__ grid, T* __restrict__ out, long long nrows) {
+  constexpr int N = VEC ? 16 / static_cast<int>(sizeof(T)) : 1;   // elements a step
+  constexpr unsigned long long PER_ROW = kIL * kMX / N;
+  static_assert((kIL * kMX) % N == 0 && (kIL * kIX) % N == 0, "whole vectors per row");
+  const unsigned long long total = static_cast<unsigned long long>(nrows) * PER_ROW;
+  const unsigned long long stride = static_cast<unsigned long long>(gridDim.x) * kSplitThreads;
+  for (unsigned long long q = blockIdx.x * static_cast<unsigned long long>(kSplitThreads) +
+                              threadIdx.x;
+       q < total; q += stride) {
+    const unsigned long long r = q / PER_ROW, v = q - r * PER_ROW;
+    Vec<T, N> x = load_vec<T, N>(grid + r * (kIL * kIX) + v * N);
 #pragma unroll
-    for (int jj = 0; jj < kTJ; ++jj) acc[jj] = 0;
-    for (int i = 0; i < ix; ++i) {
-      const T dv = d[i * mx];
-#pragma unroll
-      for (int jj = 0; jj < kTJ; ++jj) acc[jj] += gr[jj * ix + i] * dv;
-    }
-#pragma unroll
-    for (int jj = 0; jj < kTJ; ++jj) {
-      const int j = jt * kTJ + jj;
-      if constexpr (STAGE == 0)
-        out[(r * il + j) * mx + m] = acc[jj];
-      else
-        sf[j * mx + m] = acc[jj];
-    }
+    for (int e = 0; e < N; ++e) x.v[e] = x.v[e] * static_cast<T>(2);
+    *reinterpret_cast<Vec<T, N>*>(out + r * (kIL * kMX) + v * N) = x;
   }
-  if constexpr (STAGE == 0) return;
-  __syncthreads();
-
-  if constexpr (STAGE == 1) {
-    T* o = out + r * il * mx;
-    for (int idx = tid; idx < il * mx; idx += kProbeThreads) o[idx] = sf[idx];
-    return;
-  }
-
-  // Legendre analysis: item = (wavenumber m, index n), n fastest.
-  for (int item = tid; item < mx * nx; item += kProbeThreads) {
-    const int m = item / nx;
-    const T* p = leg + item;                 // leg[j, m, n], stride mx*nx in j
-    T a0 = 0;
-#pragma unroll 4
-    for (int j = 0; j < il; ++j) a0 += sf[j * mx + m] * p[static_cast<long long>(j) * mx * nx];
-    out[r * mx * nx + item] = a0;
-  }
-}
-
-// Probe p3: out[(r*il + j), m] = 2 * flat(g[r])[j*mx + m].
-template <typename T>
-__global__ void __launch_bounds__(kProbeThreads)
-split_probe_kernel(const T* __restrict__ grid, T* __restrict__ out,
-                   long long total, int il, int ix, int mx) {
-  const long long idx = blockIdx.x * static_cast<long long>(kProbeThreads) + threadIdx.x;
-  if (idx >= total) return;
-  const long long per_row = static_cast<long long>(il) * mx;
-  const long long r = idx / per_row;
-  out[idx] = grid[r * il * ix + (idx - r * per_row)] * static_cast<T>(2);
 }
 
 // ---------------------------------------------------------------------------
@@ -623,40 +586,64 @@ int launch_persistent(int threads, size_t bytes, const Group& g,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int STAGE>
-int launch_probe(long long nrows, int il, int ix, int mx, int nx, const void* grid,
-                 const void* dft, const void* leg, void* out, cudaStream_t stream) {
-  const size_t bytes = sizeof(T) * (static_cast<size_t>(il) * ix + static_cast<size_t>(il) * mx);
-  auto kernel = probe_stage_kernel<T, STAGE>;
-  const int rc = allow_shared(kernel, bytes);
+template <typename T>
+int launch_split(long long nrows, const void* grid, void* out, cudaStream_t stream) {
+  const bool vec = (reinterpret_cast<unsigned long long>(grid) |
+                    reinterpret_cast<unsigned long long>(out)) % 16 == 0;
+  int dev = 0, sms = 0;
+  int rc = static_cast<int>(cudaGetDevice(&dev));
   if (rc != 0) return rc;
-  kernel<<<static_cast<unsigned>(nrows), kProbeThreads, bytes, stream>>>(
-      static_cast<const T*>(grid), static_cast<const T*>(dft),
-      static_cast<const T*>(leg), static_cast<T*>(out), il, ix, mx, nx);
+  rc = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+  if (rc != 0) return rc;
+  const long long per_block = kSplitThreads * (vec ? 16 / static_cast<long long>(sizeof(T)) : 1);
+  long long blocks = (nrows * kIL * kMX + per_block - 1) / per_block;
+  if (blocks > 8LL * sms) blocks = 8LL * sms;
+  const T* g = static_cast<const T*>(grid);
+  T* o = static_cast<T*>(out);
+  if (vec)
+    split_probe_kernel<T, true><<<static_cast<unsigned>(blocks), kSplitThreads, 0, stream>>>(
+        g, o, nrows);
+  else
+    split_probe_kernel<T, false><<<static_cast<unsigned>(blocks), kSplitThreads, 0, stream>>>(
+        g, o, nrows);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Probes p0..p2: the direct kernel stopped after stage STOP, on a dense
+// (N, il, ix) grid (one segment, one row per member) against the direct
+// kernel's folded tables.
+template <typename T, int STOP>
+int launch_probe(long long nrows, const void* const* ptrs, cudaStream_t stream) {
+  constexpr int threads = sizeof(T) == 4 ? 128 : 256;
+  Group g;
+  g.nseg = 1;
+  g.tables = ptrs[1];
+  g.scale = nullptr;
+  if (reinterpret_cast<unsigned long long>(g.tables) % 16 != 0) return -7;
+  Segment& s = g.seg[0];
+  s.in = ptrs[0];
+  s.out = const_cast<void*>(ptrs[2]);
+  s.first = 0;
+  s.per_member = 1;
+  s.in_member = kIL * kIX;
+  s.in_pair = s.in_row = 0;
+  s.out_member = STOP == 2 ? kPlane : kIL * kMX;
+  s.out_pair = s.out_row = 0;
+  s.flag = 0;
+  s.aligned = reinterpret_cast<unsigned long long>(ptrs[0]) % 16 == 0;
+  return launch_persistent<grid2spec_fold_kernel<T, T, false, threads, STOP>>(
+      threads, direct_shared_bytes<T, T>(), g, nrows, stream);
+}
+
 template <typename T>
-int launch_probe_stage(int stage, long long nrows, int il, int ix, int mx, int nx,
-                       const void* const* ptrs, cudaStream_t s) {
-  void* out = const_cast<void*>(ptrs[3]);
+int launch_probe_kind(int stage, long long nrows, const void* const* ptrs, cudaStream_t s) {
   switch (stage) {
-    case 0: return launch_probe<T, 0>(nrows, il, ix, mx, nx, ptrs[0], ptrs[1], ptrs[2], out, s);
-    case 1: return launch_probe<T, 1>(nrows, il, ix, mx, nx, ptrs[0], ptrs[1], ptrs[2], out, s);
-    case 2: return launch_probe<T, 2>(nrows, il, ix, mx, nx, ptrs[0], ptrs[1], ptrs[2], out, s);
-    default: return -2;
+    case 0: return launch_probe<T, 0>(nrows, ptrs, s);
+    case 1: return launch_probe<T, 1>(nrows, ptrs, s);
+    case 2: return launch_probe<T, 2>(nrows, ptrs, s);
+    case 3: return launch_split<T>(nrows, ptrs[0], const_cast<void*>(ptrs[1]), s);
+    default: return -4;
   }
-}
-
-template <typename T>
-int launch_split(long long nrows, int il, int ix, int mx, const void* grid,
-                 void* out, cudaStream_t stream) {
-  const long long total = nrows * il * mx;
-  const long long nblocks = (total + kProbeThreads - 1) / kProbeThreads;
-  if (nblocks > 2147483647LL) return -3;
-  split_probe_kernel<T><<<static_cast<unsigned>(nblocks), kProbeThreads, 0, stream>>>(
-      static_cast<const T*>(grid), static_cast<T*>(out), total, il, ix, mx);
-  return static_cast<int>(cudaGetLastError());
 }
 
 bool aligned16(long long address, long long stride, int esize) {
@@ -698,7 +685,48 @@ long long read_group(Group& g, int nseg, const long long* desc, const void* cons
   return total;
 }
 
+template <auto kernel>
+int occupancy(int threads, size_t bytes, int* out) {
+  int rc = allow_shared(kernel, bytes);
+  if (rc != 0) return rc;
+  cudaFuncAttributes attr;
+  rc = static_cast<int>(cudaFuncGetAttributes(&attr, kernel));
+  if (rc != 0) return rc;
+  int blocks = 0;
+  rc = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
+                                                                      bytes));
+  if (rc != 0) return rc;
+  out[0] = blocks;
+  out[1] = threads;
+  out[2] = static_cast<int>(bytes);
+  out[3] = attr.numRegs;
+  out[4] = static_cast<int>(attr.localSizeBytes);
+  return 0;
+}
+
+template <typename T>
+int probe_occupancy(int kind, int* out) {
+  constexpr int threads = sizeof(T) == 4 ? 128 : 256;
+  constexpr size_t bytes = direct_shared_bytes<T, T>();
+  switch (kind) {
+    case 2: return occupancy<grid2spec_fold_kernel<T, T, false, threads, 0>>(threads, bytes, out);
+    case 3: return occupancy<grid2spec_fold_kernel<T, T, false, threads, 1>>(threads, bytes, out);
+    case 4: return occupancy<grid2spec_fold_kernel<T, T, false, threads, 2>>(threads, bytes, out);
+    case 5: return occupancy<split_probe_kernel<T, true>>(kSplitThreads, 0, out);
+    default: return -4;
+  }
+}
+
 }  // namespace
+
+// out: resident blocks per SM, threads a block, shared memory a block
+// (bytes), registers, local memory (bytes) of the probe kind 2..5 in mode 0
+// (float) or 1 (double), from the CUDA runtime.
+extern "C" int pyspeedy_fused_probe_occupancy(int kind, int mode, int* out) {
+  if (mode == 0) return probe_occupancy<float>(kind, out);
+  if (mode == 1) return probe_occupancy<double>(kind, out);
+  return -1;
+}
 
 // kind: 0 direct transform of a group, 1 inverse transform of a group,
 //       2..5 the probes p0..p3.
@@ -708,12 +736,13 @@ long long read_group(Group& g, int nseg, const long long* desc, const void* cons
 //   0:       the direct kernel's folded tables (ops/spectral.py::_fold_tables;
 //            in the 2-byte mode their bfloat16 roundings, as float)
 //   1:       the inverse kernel's folded tables, 1/cos(lat) (il,)
-//   2, 3, 4: grid, dft_fwd (2, ix, mx), leg_dir (il, mx, nx), out
+//   2, 3, 4: grid, the direct kernel's folded tables, out
 //   5:       grid, out
 // desc (kinds 0, 1): 11 int64 words per segment: input and output address,
 //   rows, rows per member, input member, pair and row strides, output member,
 //   pair and row strides (elements), flag (inverse: 1 = scale by 1/cos(lat)).
-//   The probes take dense (N, il, ix) grids and write dense outputs.
+//   The probes take dense (N, il, ix) grids and write dense outputs; they
+//   are built for T30, as the transforms.
 extern "C" int pyspeedy_fused_transform(
     int kind, int mode, int count, int il, int ix, int mx, int nx,
     const void* const* tables, const long long* desc, void* stream) {
@@ -748,11 +777,7 @@ extern "C" int pyspeedy_fused_transform(
 
   if (kind < 2 || kind > 5) return -4;
   if (mode == 2) return -1;   // the probes have no 2-byte mode
-  if (il < kTJ || il % kTJ != 0 || ix < 1 || mx < 1 || nx < 1) return -2;
-  if (kind == 5) {
-    if (mode == 0) return launch_split<float>(count, il, ix, mx, tables[0], const_cast<void*>(tables[1]), s);
-    return launch_split<double>(count, il, ix, mx, tables[0], const_cast<void*>(tables[1]), s);
-  }
-  if (mode == 0) return launch_probe_stage<float>(kind - 2, count, il, ix, mx, nx, tables, s);
-  return launch_probe_stage<double>(kind - 2, count, il, ix, mx, nx, tables, s);
+  if (il != kIL || ix != kIX || mx != kMX || nx != kNX) return -2;
+  if (mode == 0) return launch_probe_kind<float>(kind - 2, count, tables, s);
+  return launch_probe_kind<double>(kind - 2, count, tables, s);
 }

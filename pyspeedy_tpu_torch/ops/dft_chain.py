@@ -6,7 +6,11 @@ Counterpart of the JAX package's ``tools/exp_dft_kernel.py``
 zonal inverse DFT of ``nf`` fields of Fourier pairs, an elementwise chain that
 mixes the fields at each grid point, and the forward DFT back, inside one
 kernel. It is a diagnostic of how a kernel carries the zonal DFT, not a part
-of the model's step. ``make_tables`` and ``chain`` are this package's own
+of the model's step. The kernel is built for the tool's one shape
+(``NFIELDS`` fields, ``IL`` latitudes, ``MX`` wavenumbers, ``IX``
+longitudes; any member and level count) and folds both DFTs by half a
+period: float32 on FFMA, float64 on the FP64 tensor cores (the design is in
+the source's note). ``make_tables`` and ``chain`` are this package's own
 copies of the tool's (a package module imports no tool).
 
 Dispatch rule (:func:`dft_chain`), the same as for the other kernels: a CPU
@@ -32,7 +36,6 @@ __all__ = ["make_tables", "device_tables", "chain", "dft_chain",
 # 8 levels, 6 fields.
 KX, IL, IX, MX = 8, 48, 96, 31
 NFIELDS = 6
-_MAX_FIELDS = 8     # kMaxFields of the source
 
 plain_calls = {"dft_chain": 0}
 
@@ -91,19 +94,24 @@ def dft_chain_plain(tabs, fre: torch.Tensor, fim: torch.Tensor):
 
 def dft_chain_cuda(tabs, fre: torch.Tensor, fim: torch.Tensor):
     """Launch the DFT-chain kernel on PyTorch's current stream. Same
-    arguments and results as dft_chain_plain; every tensor dense and of one
-    type (float32 or float64). Raises on anything else; does not
-    synchronise."""
+    arguments and results as dft_chain_plain, at the tool's shape: Fourier
+    pairs (members, NFIELDS, levels, IL, MX), tables of IX longitudes; every
+    tensor dense and of one type (float32 or float64). Raises on anything
+    else, before anything is built; does not synchronise."""
+    if (fre.dim() != 5 or (fre.shape[1], fre.shape[3], fre.shape[4])
+            != (NFIELDS, IL, MX) or tabs[0].dim() != 2
+            or tabs[0].shape[1] != IX):
+        raise ValueError(
+            f"the DFT-chain kernel is built for the tool's shape: fre "
+            f"(members, {NFIELDS}, levels, {IL}, {MX}) and {IX} longitudes, "
+            f"got fre {tuple(fre.shape)} and inv_re {tuple(tabs[0].shape)}")
     if fre.device.type != "cuda":
         raise ValueError(f"dft_chain_cuda needs CUDA tensors, got "
                          f"{fre.device}")
     if fre.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"unsupported dtype {fre.dtype}: float32 or float64")
-    if fre.dim() != 5 or not 1 <= fre.shape[1] <= _MAX_FIELDS:
-        raise ValueError(f"fre must be (members, nf <= {_MAX_FIELDS}, kx, "
-                         f"il, mx), got {tuple(fre.shape)}")
     nmem, nf, kx, il, mx = fre.shape
-    ix = tabs[0].shape[1]
+    ix = IX
     want = [("fre", fre, fre.shape), ("fim", fim, fre.shape),
             ("inv_re", tabs[0], (mx, ix)), ("inv_im", tabs[1], (mx, ix)),
             ("fwd_re", tabs[2], (ix, mx)), ("fwd_im", tabs[3], (ix, mx))]

@@ -7,8 +7,9 @@ Counterpart of the JAX package's ``tools/exp_fused_transform.py``
 fields ("segments"): persistent blocks hold the folded DFT and Legendre
 tables in shared memory and walk over the rows of every field, the zonal DFT
 and the Legendre transform of a row in one pass with the Fourier intermediate
-in shared memory (the design is in the source's note). The kernels are built
-for T30, the one truncation the dense route serves.
+in shared memory (the design is in the source's note). The probes are the
+direct kernel stopped after one stage. The kernels are built for T30, the one
+truncation the dense route serves.
 
 Dispatch rule (:func:`fused_grid2spec`, :func:`fused_spec2grid`, the grouped
 :func:`fused_grid2spec_many`, :func:`fused_spec2grid_many`, and
@@ -63,11 +64,8 @@ MAX_SEGMENTS = 16
 # (il, ix, mx, nx) the direct and inverse kernels are built for.
 T30_SHAPE = (48, 96, 31, 32)
 
-# Largest dynamic shared memory a block may ask for on sm_90.
-_MAX_SHARED = 232448
 _KIND_DIRECT, _KIND_INVERSE, _KIND_PROBE0 = 0, 1, 2
 _MODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
-_LAT_TILE = 6    # kTJ of the source: the probes need il a multiple
 
 plain_chain_calls = {"grid2spec": 0, "spec2grid": 0}
 
@@ -379,12 +377,16 @@ def kcos_list(kcos, n) -> list:
 
 def fused_probe_cuda(sp, stage: int, grid: torch.Tensor) -> torch.Tensor:
     """Launch one probe stage (see :func:`probe_plain`) on a dense
-    (N, il, ix) grid in the tables' type. Does not synchronise."""
-    _check_device([grid], "fused_probe_cuda")
+    (N, il, ix) grid in the tables' type: p0-p2 the direct kernel stopped
+    after that stage (its folded tables, ``sp.fold_dir``), p3 the split
+    pass. Built for T30, as the transforms; raises on anything else before
+    anything is built. Does not synchronise."""
     il, ix, mx, nx = sp.il, sp.ix, sp.mx, sp.nx
     if stage not in PROBE_STAGES:
         raise ValueError(f"probe stage must be one of {PROBE_STAGES}, got "
                          f"{stage}")
+    _check_t30(sp)
+    _check_device([grid], "fused_probe_cuda")
     if grid.dtype != sp.rdtype or grid.dtype not in (torch.float32,
                                                      torch.float64):
         raise TypeError(f"grid is {grid.dtype}, the tables {sp.rdtype}")
@@ -392,10 +394,6 @@ def fused_probe_cuda(sp, stage: int, grid: torch.Tensor) -> torch.Tensor:
             or not grid.is_contiguous()):
         raise ValueError(f"grid must be a contiguous (N, {il}, {ix}), got "
                          f"{tuple(grid.shape)} with strides {grid.stride()}")
-    _check_tables(grid.device, sp.dft_fwd_ri, sp.cpol_dir_full)
-    if sp.il % _LAT_TILE != 0:
-        raise ValueError(f"il={sp.il}: the probes need a multiple of "
-                         f"{_LAT_TILE} latitudes")
     n = grid.shape[0]
     shape = {0: (n * il, mx), 1: (n, il * mx), 2: (n, mx * nx),
              3: (n * il, mx)}[stage]
@@ -405,12 +403,8 @@ def fused_probe_cuda(sp, stage: int, grid: torch.Tensor) -> torch.Tensor:
     if stage == 3:
         ptrs = (grid.data_ptr(), out.data_ptr())
     else:
-        nbytes = grid.element_size() * (il * ix + il * mx)
-        if nbytes > _MAX_SHARED:
-            raise ValueError(f"fused_probe: a row needs {nbytes} bytes of "
-                             f"shared memory, a block has {_MAX_SHARED}")
-        ptrs = (grid.data_ptr(), sp.dft_fwd_ri.data_ptr(),
-                sp.cpol_dir_full.data_ptr(), out.data_ptr())
+        _check_tables(grid.device, sp.fold_dir)
+        ptrs = (grid.data_ptr(), sp.fold_dir.data_ptr(), out.data_ptr())
     _call(_KIND_PROBE0 + stage, _MODES[grid.dtype], n, sp, ptrs, (),
           grid.device, f"fused_probe stage {stage}")
     launch_counts["fused_probe"] += 1

@@ -35,6 +35,7 @@ from pyspeedy_tpu_torch.ops import geometry as tgeom
 from pyspeedy_tpu_torch.ops import spectral as TS
 from pyspeedy_tpu_torch.ops import transform_kernels as TK
 from pyspeedy_tpu_torch.params import T30L8 as T_T30L8
+from pyspeedy_tpu_torch.params import T47L8 as T_T47L8
 
 # One thread for PyTorch's CPU kernels: at these sizes more threads gain
 # nothing, and several test processes side by side (each with its own pool,
@@ -158,6 +159,68 @@ def test_probe_stages_match_their_numpy_expression(prec, stage):
         # p2 is the real part of the whole direct transform.
         whole = TK.fused_grid2spec(tsp, torch.from_numpy(grid), 0)[0]
         assert rel_err(got.reshape(n, mx, nx), whole) <= TOL[prec]
+
+
+def model_probe(tsp, stage, grid):
+    """The probe kernels' arithmetic on the tables they read: p0-p2 the
+    direct kernel (csrc/fused_transform.cu::grid2spec_fold_kernel) stopped
+    after a stage, on its folded tables (``fold_dir``): the grid folded by
+    half a period, the DFT of each parity against its half-period table
+    (even m from the sums, odd m from the differences), the real part taken;
+    p2 then the hemispheric fold and the Legendre sums over the northern
+    latitudes and the triangle, as two chains of even and odd latitudes,
+    zero elsewhere. p3 the split times 2."""
+    il, ix, mx, nx = tsp.il, tsp.ix, tsp.mx, tsp.nx
+    ih, iy = ix // 2, il // 2
+    n = grid.shape[0]
+    if stage == 3:
+        return grid.reshape(n, il * ix)[:, :il * mx].reshape(n * il, mx) * 2
+    tm, tn = zip(*[(m, q) for m in range(mx) for q in range(nx - m)])
+    tm, tn = np.array(tm), np.array(tn)
+    table = tsp.fold_dir.numpy()
+    ntri = iy * len(tm)
+    D = table[:-ntri].reshape(2, ih, 32)             # (parity, i, c*16 + q)
+    L = table[-ntri:].reshape(iy, len(tm))           # (northern j, (m, n))
+    folded = (grid[..., :ih] + grid[..., ih:], grid[..., :ih] - grid[..., ih:])
+    F = np.zeros((n, il, mx), grid.dtype)
+    for par in range(2):
+        ms = np.arange(par, mx, 2)
+        F[..., ms] = (folded[par] @ D[par])[..., :len(ms)]
+    if stage == 0:
+        return F.reshape(n * il, mx)
+    if stage == 1:
+        return F.reshape(n, il * mx)
+    north, south = F[:, :iy], F[:, ::-1][:, :iy]
+    G = np.where(tn % 2 == 0, (north + south)[..., tm], (north - south)[
+        ..., tm])                                    # (n, iy, triangle)
+    even = np.einsum("jp,njp->np", L[0::2], G[:, 0::2])
+    odd = np.einsum("jp,njp->np", L[1::2], G[:, 1::2])
+    S = np.zeros((n, mx, nx), grid.dtype)
+    S[:, tm, tn] = even + odd
+    return S.reshape(n, mx * nx)
+
+
+@pytest.mark.parametrize("stage", TK.PROBE_STAGES)
+@pytest.mark.parametrize("prec", ["f64", "f32"])
+def test_model_of_the_probe_kernels_matches_the_tools_expressions(prec, stage):
+    """The probe kernels' arithmetic through the folded tables against the
+    stages as tools/exp_fused_probe.py writes them (numpy, float64)."""
+    jsp, tsp = transforms(prec)
+    il, ix, mx = tsp.il, tsp.ix, tsp.mx
+    n = 4
+    grid = np.random.default_rng(600 + stage).standard_normal(
+        (n, il, ix)).astype(NP_DTYPE[prec])
+    dre = np.asarray(jsp.dft_fwd_re, dtype=np.float64)
+    leg = np.asarray(jsp.leg_dir_dense, dtype=np.float64)
+    g64 = grid.astype(np.float64)
+    f = g64.reshape(n * il, ix) @ dre
+    want = {0: f, 1: f.reshape(n, il * mx),
+            2: f.reshape(n, il * mx) @ leg,
+            3: g64.reshape(n, il * ix)[:, :il * mx].reshape(n * il, mx) * 2.0,
+            }[stage]
+    got = model_probe(tsp, stage, grid)
+    assert got.dtype == NP_DTYPE[prec]
+    assert rel_err(got, want) <= TOL[prec]
 
 
 def test_probe_stage_out_of_range_raises():
@@ -327,6 +390,22 @@ def test_cuda_wrappers_refuse_cpu_tensors(case, monkeypatch):
     assert ck.launch_counts == before
 
 
+@pytest.mark.parametrize("stage", TK.PROBE_STAGES)
+def test_probe_wrapper_refuses_other_truncations_before_building(
+        stage, monkeypatch):
+    """The probes are the T30 direct kernel stopped after a stage: another
+    truncation is refused before anything is built or loaded."""
+    monkeypatch.setattr(ck, "build_kernels", lambda *a, **k: pytest.fail(
+        "built"))
+    monkeypatch.setattr(TK, "_load", lambda name: pytest.fail("loaded"))
+    tp = dataclasses.replace(T_T47L8, fft_mode="matmul")
+    sp = TS.build_spectral(tp, tgeom.build_geometry(tp), use_matmul_fft=True,
+                           device="cpu")
+    with pytest.raises(ValueError, match="T30"):
+        TK.fused_probe_cuda(sp, stage, torch.zeros(2, sp.il, sp.ix,
+                                                   dtype=sp.rdtype))
+
+
 def test_kernel_source_and_build_command():
     """One CUDA C++ source in the package's csrc/, hand-written (no library
     GEMM, no PyTorch headers), built by nvcc for sm_90a through the kernel
@@ -340,8 +419,12 @@ def test_kernel_source_and_build_command():
                    "#include <cutlass"):
         assert banned not in text, banned
     for kernel in ("grid2spec_fold_kernel", "spec2grid_fold_kernel",
-                   "probe_stage_kernel", "split_probe_kernel"):
+                   "split_probe_kernel"):
         assert kernel in text
+    # The probes p0-p2 are the direct kernel stopped after a stage; the first
+    # version's one-block-per-row template is gone.
+    assert "grid2spec_fold_kernel<T, T, false, threads, STOP>" in text
+    assert "probe_stage_kernel" not in text
     for replaced in ("tools/exp_fused_transform.py:65",
                      "tools/exp_fused_transform.py:121",
                      "tools/exp_fused_probe.py:49"):
