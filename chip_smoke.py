@@ -39,7 +39,19 @@ validate_climatology at T30 through Speedy; a trace of a 3-step window of
 the main path through utils.profiling, which must name the step's kernels),
 checks the results and the exact launch counts of every path (for the
 transforms, launches and fields apart), and that no plain version ran on the
-card, and prints what it measured: among it the registers, occupancy and
+card, and prints what it measured. Every model path runs through the
+batched runner's CUDA graphs (parallel/ensemble.py::StepGraphs), as a
+user's run call on the card takes them: their wrapper counts are those of
+the initialization and of each step kind's eager warm-up and capture; the
+main path's graph day runs under the profiler, and its kernels' launches
+(the ``kernels`` line's ``launches``) are the initialization's and that
+day's device records, held to every step's; each path's graph day is then held bitwise to the eager loop's day of the same
+runner (eager=True, whose counts are every step's), the two modes are timed
+in turns (graph, eager, eager, graph) and profiled, the profiler's records
+of each window held to the launches the window makes, and the graphs'
+capture seconds and memory printed ("graphs, ..." lines and a
+``{"graphs": ...}`` JSON line); the multi-device phase keeps the eager loop
+(a mesh does) and says so. Among what it prints: the registers, occupancy and
 SASS float/double conversions of the physics and spectral-update kernels,
 the physics kernel on the model's state after a day, the spectral update at
 B=1 and across member tiles (bitwise). It needs a CUDA
@@ -47,7 +59,8 @@ device and exits non-zero without one; there is no CPU fallback. Every phase
 that fails raises, so the run exits non-zero.
 
 Output: one line (or a few) per phase; the wall time of each phase
-(utils.profiling.PhaseTimer); a ``{"kernels": [...]}`` JSON line;
+(utils.profiling.PhaseTimer); a ``{"graphs": ...}`` and a
+``{"kernels": [...]}`` JSON line;
 the card's name and power limit as nvidia-smi gives them; and as the last
 line ``{"ok": true, "device": {...}}``.
 """
@@ -87,7 +100,8 @@ from pyspeedy_tpu_torch.parallel import distributed as PDIST
 from pyspeedy_tpu_torch.parallel import mesh as PMESH
 from pyspeedy_tpu_torch.parallel import shard_transforms as PST
 from pyspeedy_tpu_torch.parallel.ensemble import (broadcast_state,
-                                                   make_run_steps_batched)
+                                                   make_run_steps_batched,
+                                                   takes_graphs)
 from pyspeedy_tpu_torch.parallel.launch_multihost import (free_port,
                                                           run_workers)
 from pyspeedy_tpu_torch.params import T30L5, T30L8, T47L8, T63L8
@@ -95,7 +109,10 @@ from pyspeedy_tpu_torch.physics import driver as PD
 from pyspeedy_tpu_torch.physics import sppt as SP
 from pyspeedy_tpu_torch.testing import make_demo_model
 from pyspeedy_tpu_torch.utils.dataset import open_dataset
-from pyspeedy_tpu_torch.utils.profiling import PhaseTimer
+from pyspeedy_tpu_torch.utils.profiling import (PhaseTimer,
+                                                kernel_device_ms,
+                                                nvidia_smi_line,
+                                                window_profile)
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate,
 # and the float32 / float64 rates outside the tensor cores.
@@ -111,6 +128,7 @@ N_MEMBERS = 128
 N_STEPS = 36            # one model day at T30
 N_STEPS_DYN = 12        # depth of the dynamics-only path
 N_STEPS_BF16 = 12       # depth of the bf16_tendencies path
+N_STEPS_PROFILED = 12   # profiled windows of the graphs against the eager loop
 N_PROBE_ROWS = 256      # rows of the probe stages' comparison
 N_PROBE_ROWS_STEP = 9344   # the step's direct group at B=128: 128 x 73 fields
 N_DFT_MEMBERS = 256     # members of the DFT chain (the JAX tool's default)
@@ -138,14 +156,6 @@ OUT_NAMES = ("utend", "vtend", "ttend", "trtend", "psdt_g", "flux_ut",
              "flux_vt", "flux_qu", "flux_qv", "ke")
 
 
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
-
-
 def time_ms(fn, reps: int, warmup: int = 3, windows: int = 5) -> float:
     """Time of one call of fn on the card: CUDA events around a run of
     `reps` calls enqueued back to back (so the host's share of one call
@@ -165,38 +175,6 @@ def time_ms(fn, reps: int, warmup: int = 3, windows: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
-
-
-def kernel_device_ms(fn, kernel_name: str, reps: int = 20) -> float:
-    """Time the card spends in one launch of the named kernel, from the
-    profiler's device-side records (CUPTI). Raises if it recorded none."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    # The tracer may drop a record now and then: the mean is over the
-    # launches it did record. On an H100 it has also returned windows without
-    # any record, several in a row, and recorded every launch again a second
-    # later: such a window is profiled again a second later, five windows at
-    # most. More records than launches is wrong.
-    for attempt in range(5):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        hits = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and kernel_name in e.key]
-        count = sum(e.count for e in hits)
-        if count > 0:
-            break
-        print(f"  (profiler window {attempt + 1} held no record of "
-              f"{kernel_name}; profiling again in a second)")
-        time.sleep(1.0)
-    if not 0 < count <= reps:
-        raise RuntimeError(
-            f"profiler recorded {count} launches of {kernel_name}, "
-            f"expected {reps}")
-    return 1e-3 * sum(e.self_device_time_total for e in hits) / count
 
 
 def kernel_inputs(params, n_members: int, seed: int = 0, il=None):
@@ -1628,60 +1606,79 @@ def occupancy_report(libs) -> dict:
     return rows
 
 
-def run_window(run, state, cal, first_step: int, n_steps: int):
-    """n_steps through the batched runner; returns (state, calendar after,
-    wall seconds including the final synchronize)."""
+def run_window(run, state, cal, first_step: int, n_steps: int,
+               eager: bool = False):
+    """n_steps through the batched runner (its CUDA graphs, or its eager
+    loop with `eager`); returns (state, calendar after, wall seconds
+    including the final synchronize)."""
     ctx, cal = M.build_step_ctx(dataclasses.replace(cal), first_step, n_steps)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state = run(state, ctx)
+    state = run(state, ctx, eager=eager)
     torch.cuda.synchronize()
     return state, cal, time.perf_counter() - t0
 
 
+# The device kernel of each launch counter (its instantiations share it).
+KERNEL_OF_COUNTER = {
+    "grid_dynamics": "grid_dynamics_kernel",
+    "grid_dynamics_bf16": "grid_dynamics_kernel",
+    "grid_physics_sw": "grid_physics_kernel",
+    "grid_physics_nosw": "grid_physics_kernel",
+    "grid_physics_sw_bf16": "grid_physics_kernel",
+    "grid_physics_nosw_bf16": "grid_physics_kernel",
+    "fused_grid2spec": "grid2spec_fold_kernel",
+    "fused_grid2spec_bf16": "grid2spec_fold_kernel",
+    "fused_spec2grid": "spec2grid_fold_kernel",
+    "spectral_update": "spectral_update_kernel"}
+
+
+def device_launches_of(consts, first: int, n_steps: int) -> dict:
+    """{device kernel: launches} of n_steps of the batched runner from step
+    `first`, in either mode: a graph replays every kernel of its step."""
+    want, _ = expected_path_launches(consts, first, n_steps, with_init=False)
+    out = {}
+    for counter, n in want.items():
+        if n and counter in KERNEL_OF_COUNTER:
+            name = KERNEL_OF_COUNTER[counter]
+            out[name] = out.get(name, 0) + n
+    return out
+
+
 def device_time_per_step(run, state, cal, first_step: int, n_steps: int,
-                         whole=("grid_dynamics_kernel",
-                                "spectral_update_kernel")):
-    """(milliseconds the card is busy per step, device launches per step,
-    the eight device kernels that take most of that time as
-    [(name, ms per step, launches per step)], and the ms per step of the
-    matrix products, the row reductions and the hand-written kernels) over
-    a short window, from torch.profiler; (None, None, [], {}) if the
-    profiler did not record the window whole. The window is whole when it
-    holds one record per step of each kernel `whole` names (by default the
-    grid-dynamics and the spectral-update kernel; the explicit branch
-    launches no spectral update). The tracer can lose every record for a
-    while (see kernel_device_ms): a window that is not whole is profiled
-    again a second later, three windows at most. The profiler slows the
-    host, so the busy share is taken against the step time of an
-    unprofiled window."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for attempt in range(3):
+                         consts, eager: bool = False) -> dict:
+    """A profiled window of n_steps in the runner's graph mode (or its
+    eager loop with `eager`), utils.profiling.window_profile: the card's
+    busy ms, device launches and the host's enqueue calls per step, the
+    eight device kernels that take most of the time as [(name, ms per step,
+    launches per step)], and the ms per step of the matrix products, the row
+    reductions and the hand-written kernels. The window's records of the
+    step's kernels must equal the launches the window makes
+    (device_launches_of): on the graph paths this is the launch-count check.
+    The tracer can lose every record for a while (see kernel_device_ms): a
+    window that is not whole is profiled again a second later, five windows
+    at most; then this raises. The profiler slows the host, so the busy
+    share is taken against the step time of an unprofiled window."""
+    want = device_launches_of(consts, first_step, n_steps)
+    for attempt in range(5):
         ctx, _ = M.build_step_ctx(dataclasses.replace(cal), first_step,
                                   n_steps)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run(state, ctx)
-            torch.cuda.synchronize()
-        # Device-side events only (kernels, copies, fills): the
-        # operator-level events carry the same device time once more.
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-        records = lambda name: sum(e.count for e in events if name in e.key)
-        if all(records(name) == n_steps for name in whole):
+        prof = window_profile(lambda: run(state, ctx, eager=eager), n_steps)
+        by = prof["by_kernel"]
+        got = {name: round(n_steps * sum(v[1] for k, v in by.items()
+                                         if name in k)) for name in want}
+        if got == want:
             break
         print(f"  (profiled window {attempt + 1} of {n_steps} steps is not "
-              f"whole: " + ", ".join(f"{records(name)} {name}"
-                                     for name in whole) + " records)")
+              f"whole: {got} records of {want})")
         time.sleep(1.0)
     else:
-        return None, None, [], {}
-    busy_us = sum(e.self_device_time_total for e in events)
-    share = lambda *keys: sum(
-        e.self_device_time_total for e in events
-        if any(k in e.key.lower() for k in keys)) * 1e-3 / n_steps
+        mode = "eager" if eager else "graphs"
+        raise RuntimeError(f"{n_steps}-step window ({mode}): the profiler "
+                           f"recorded {got} launches, the window makes "
+                           f"{want}")
+    share = lambda *keys: sum(v[0] for k, v in by.items()
+                              if any(x in k.lower() for x in keys))
     groups = {"matrix products": share("gemm", "cutlass", "xmma"),
               "fused transform kernels": share("grid2spec_fold_kernel",
                                                "spec2grid_fold_kernel"),
@@ -1689,11 +1686,11 @@ def device_time_per_step(run, state, cal, first_step: int, n_steps: int,
               "grid_dynamics kernel": share("grid_dynamics_kernel"),
               "spectral_update kernel": share("spectral_update_kernel"),
               "row reductions": share("reduce_kernel")}
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
-    top = [(e.key[:60], e.self_device_time_total * 1e-3 / n_steps,
-            e.count / n_steps) for e in top]
-    return (busy_us * 1e-3 / n_steps, sum(e.count for e in events) / n_steps,
-            top, groups)
+    top = [(k[:60], v[0], v[1]) for k, v in list(by.items())[:8]]
+    return {"busy_ms": prof["busy_ms_per_step"],
+            "launches": prof["launches_per_step"],
+            "host_calls": prof["host_calls_per_step"],
+            "top": top, "groups": groups, "kernels": got}
 
 
 def device_launches(fn) -> int:
@@ -1776,46 +1773,235 @@ def take_member(state: dict, m: int) -> dict:
                 if k in M.CARRY_FIELDS else v) for k, v in state.items()}
 
 
-def expected_path_launches(consts, first: int, n_steps: int):
-    """(kernel launches, transform fields) of an initialization (two
-    bootstrap steps with shortwave, one forcing) and n_steps of the batched
-    runner from step `first`: one grid-dynamics and, with the physics on,
-    one physics launch a step evaluation (the shortwave variant when
-    stepno % 3 == 0), one
-    spectral update a step evaluation on the semi-implicit branch and none
-    on the explicit one, and the fused transforms on the dense route only
-    (the einsum route of T47 and T63 launches none)."""
+def graph_evals(first: int, n_steps: int) -> list:
+    """The steps whose body a fresh runner's graph run calls through the
+    kernel wrappers: the first step of each shortwave kind in the window
+    twice, its eager warm-up and its capture (a capture calls every wrapper
+    once and launches nothing; the replays call none)."""
+    firsts = {}
+    for s in range(first, first + n_steps):
+        firsts.setdefault(s % 3 == 0, s)
+    return sorted(2 * list(firsts.values()))
+
+
+def expected_path_launches(consts, first: int, n_steps: int, evals=None,
+                           with_init: bool = True):
+    """(kernel launches, transform fields) of n_steps of the batched runner
+    from step `first`, through the wrappers of each step in `evals` (every
+    step: the eager loop; graph_evals: a fresh runner's graphs), the daily
+    forcing of each step that starts a day, and with_init an
+    initialization (two bootstrap steps with shortwave, one forcing): one
+    grid-dynamics and, with the physics on, one physics launch a step
+    evaluation (the shortwave variant when stepno % 3 == 0), one spectral
+    update a step evaluation on the semi-implicit branch and none on the
+    explicit one, and the fused transforms on the dense route only (the
+    einsum route of T47 and T63 launches none). With bf16_tendencies the
+    runner's evaluations take the bfloat16 instantiations (the spectral
+    update, the inverse groups and the forcing's transforms stay float32),
+    the initialization the float32 ones."""
     p = consts.params
-    steps = range(first, first + n_steps)
-    n_evals = n_steps + 2
-    n_sw = 2 + sum(1 for s in steps if s % 3 == 0)
-    n_forcings = 1 + sum(1 for s in steps if s % p.nsteps == 0)
+    evals = list(range(first, first + n_steps)) if evals is None else evals
+    n_sw = sum(1 for s in evals if s % 3 == 0)
+    n_forcings = sum(1 for s in range(first, first + n_steps)
+                     if s % p.nsteps == 0)
+    bf = "_bf16" if consts.bf16_tendencies else ""
+    semi = p.alph >= 0.5
     launches = dict.fromkeys(ck.launch_counts, 0)
-    launches.update(grid_dynamics=n_evals,
-                    spectral_update=n_evals if p.alph >= 0.5 else 0)
-    if consts.physics_on:
-        launches.update(grid_physics_sw=n_sw, grid_physics_nosw=n_evals - n_sw)
     fields = dict.fromkeys(tk.field_counts, 0)
+
+    def add(counts, name, n):
+        counts[name] += n
+
+    add(launches, "grid_dynamics" + bf, len(evals))
+    add(launches, "spectral_update", len(evals) if semi else 0)
+    if consts.physics_on:
+        add(launches, "grid_physics_sw" + bf, n_sw)
+        add(launches, "grid_physics_nosw" + bf, len(evals) - n_sw)
+    if with_init:
+        add(launches, "grid_dynamics", 2)
+        add(launches, "spectral_update", 2 if semi else 0)
+        if consts.physics_on:
+            add(launches, "grid_physics_sw", 2)
     if consts.sp.use_dense_legendre:
-        direct, inverse = expected_transforms(consts, n_evals, n_forcings,
-                                              with_init=True)
-        launches.update(fused_grid2spec=direct[0], fused_spec2grid=inverse[0])
-        fields.update(fused_grid2spec=direct[1], fused_spec2grid=inverse[1])
+        (dl, df), (il, inv_f) = expected_transforms(consts, len(evals), 0,
+                                                    False)
+        for counts, d, i in ((launches, dl, il), (fields, df, inv_f)):
+            add(counts, "fused_grid2spec" + bf, d)
+            add(counts, "fused_grid2spec", 2 * n_forcings)
+            add(counts, "fused_spec2grid", i)
+        if with_init:
+            (dl, df), (il, inv_f) = expected_transforms(consts, 2, 1, True)
+            for counts, d, i in ((launches, dl, il), (fields, df, inv_f)):
+                add(counts, "fused_grid2spec", d)
+                add(counts, "fused_spec2grid", i)
     return launches, fields
 
 
-def read_path_counts(what: str, consts, first: int, n_steps: int) -> dict:
+def read_path_counts(what: str, consts, first: int, n_steps: int,
+                     evals=None, with_init: bool = True) -> dict:
     """The launch and field counts of the path just run, held to
-    expected_path_launches, and no call of a plain version; raises
-    otherwise. Returns the launch counts."""
+    expected_path_launches (the same `evals`, `with_init`), and no call of
+    a plain version; raises otherwise. Returns the launch counts."""
     launches, fields = dict(ck.launch_counts), dict(tk.field_counts)
     plain = dict(tk.plain_chain_calls, **GK.plain_calls)
-    want, want_fields = expected_path_launches(consts, first, n_steps)
+    want, want_fields = expected_path_launches(consts, first, n_steps, evals,
+                                               with_init)
     if launches != want or fields != want_fields or any(plain.values()):
         raise RuntimeError(f"{what}: launches {launches}, expected {want}; "
                            f"transform fields {fields}, expected "
                            f"{want_fields}; plain calls {plain}")
     return launches
+
+
+def records_by_counter(by_kernel: dict, n_steps: int) -> dict:
+    """{launch counter: device records} of a profiled float32 window
+    (utils.profiling.window_profile's by_kernel over n_steps): each
+    kernel's records under its counter, the physics kernel's split by its
+    shortwave template argument (grid_physics_kernel<T, NLEV, SW, ...>)."""
+    out = dict.fromkeys(ck.launch_counts, 0)
+    for key, (_, per_step) in by_kernel.items():
+        for counter, kernel in KERNEL_OF_COUNTER.items():
+            if counter.endswith("_bf16") or kernel + "<" not in key:
+                continue
+            if kernel == "grid_physics_kernel":
+                args = key.split(kernel + "<", 1)[1].split(",")
+                if (args[2].strip() == "true") != (counter ==
+                                                   "grid_physics_sw"):
+                    continue
+            out[counter] += round(n_steps * per_step)
+    return out
+
+
+def profiled_graph_day(consts, state0, cal, n_steps: int):
+    """The main path's run call as a user makes it: a fresh runner's first
+    call, n_steps from step 2 through its CUDA graphs (each step kind's
+    eager warm-up and capture included), under the profiler
+    (window_profile). The device's records of each kernel counter must be
+    every step's (expected_path_launches without the initialization) and
+    the wrappers' calls those of the warm-ups and captures (graph_evals);
+    a window the tracer did not record whole is run again through a fresh
+    runner, three windows at most; then this raises. Returns (runner,
+    state, calendar after, wall seconds under the profiler, device records
+    by counter, wrapper calls by counter, transform fields of the wrapper
+    calls)."""
+    want = expected_path_launches(consts, 2, n_steps, with_init=False)[0]
+    for attempt in range(3):
+        reset_counts()
+        run = make_run_steps_batched(consts, device="cuda")
+        if run.graphs is None or not takes_graphs("cuda"):
+            raise RuntimeError("the runner on the card must take the graphs")
+        ctx, cal_day = M.build_step_ctx(dataclasses.replace(cal), 2, n_steps)
+        out = {}
+        t0 = time.perf_counter()
+        prof = window_profile(lambda: out.update(state=run(state0, ctx)),
+                              n_steps)
+        secs = time.perf_counter() - t0
+        calls = read_path_counts("main path, the graph day's wrapper calls",
+                                 consts, 2, n_steps, graph_evals(2, n_steps),
+                                 with_init=False)
+        got = records_by_counter(prof["by_kernel"], n_steps)
+        if got == want:
+            return (run, out["state"], cal_day, secs, got, calls,
+                    dict(tk.field_counts))
+        print(f"  (profiled graph day {attempt + 1} is not whole: {got} "
+              f"records of {want})")
+        del run, out
+        time.sleep(1.0)
+    raise RuntimeError(f"main path: the profiler recorded {got} launches of "
+                       f"the graph day, which makes {want}")
+
+
+def _levels(v):
+    return v if isinstance(v, tuple) else (v,)
+
+
+def bitwise_states(got, want) -> tuple:
+    """(every field of `want` bitwise in `got`, {field: largest difference
+    relative to its largest value} of the fields that differ)."""
+    diffs = {}
+    for name in want:
+        for a, b in zip(_levels(got[name]), _levels(want[name])):
+            if a.shape != b.shape or a.dtype != b.dtype:
+                diffs[name] = float("inf")
+            elif not torch.equal(a, b):
+                a64, b64 = a.double(), b.double()
+                diffs[name] = max(diffs.get(name, 0.0), float(
+                    (a64 - b64).abs().max() / (b64.abs().max() or 1.0)))
+    return not diffs, diffs
+
+
+TURNS = ("graph", "eager", "eager", "graph")
+
+
+def graphs_phase(name: str, consts, run, state0, cal, n_steps: int,
+                 out_graph, cal_day, captured: dict, card: str,
+                 gate: bool = True,
+                 prof_steps: int = N_STEPS_PROFILED) -> dict:
+    """The graphs against the eager loop on one path. `out_graph` is the
+    path's day (n_steps from step 2 from state0, calendar `cal`) just run
+    through the runner's graphs, `captured` the graphs' stats before it.
+    The eager day of the same runner from state0 with its launch counts
+    held to every step's (read_path_counts), every field of the two days
+    compared bitwise (a difference raises where `gate`); then windows of
+    n_steps (at most N_STEPS) in turns, graph, eager, eager, graph,
+    continuing from the graph day, and a profiled window of prof_steps in
+    each mode (busy ms, device launches held to the window's, the host's
+    enqueue calls, per step). Prints one line; returns the figures."""
+    stats = run.graphs.stats
+    cap = {k: stats[k] - captured[k] for k in
+           ("captures", "capture_s", "pool_bytes", "buffer_bytes")}
+    reset_counts()
+    out_eager, _, secs_eager_day = run_window(run, state0, cal, 2, n_steps,
+                                              eager=True)
+    eager_launches = read_path_counts(f"{name}, eager day", consts, 2,
+                                      n_steps, with_init=False)
+    same, diffs = bitwise_states(out_graph, out_eager)
+    del out_eager
+    if gate and not same:
+        raise RuntimeError(f"graphs, {name}: the graph day differs from the "
+                           f"eager day: {diffs}")
+    times = {"graph": [], "eager": []}
+    state, c, first = out_graph, cal_day, 2 + n_steps
+    n_turn = min(n_steps, N_STEPS)
+    for mode in TURNS:
+        state, c, secs = run_window(run, state, c, first, n_turn,
+                                    eager=mode == "eager")
+        times[mode].append(1e3 * secs / n_turn)
+        first += n_turn
+    check_state(state, state["vor"][0].shape[0], f"{name}, turns")
+    prof = {mode: device_time_per_step(run, state, c, first, prof_steps,
+                                       consts, eager=mode == "eager")
+            for mode in ("graph", "eager")}
+    g, e = prof["graph"], prof["eager"]
+    print(f"graphs, {name}: graph day (CUDA graphs, {cap['captures']} "
+          f"captures in {cap['capture_s']:.3f} s; pool "
+          f"{cap['pool_bytes'] / 1e6:.1f} MB, static buffers "
+          f"{cap['buffer_bytes'] / 1e6:.1f} MB) "
+          + ("bitwise equal to" if same else "NOT bitwise equal to")
+          + " the eager day" + ("" if same else f" (largest rel. difference "
+                                 + ", ".join(f"{k} {v:.3e}" for k, v in
+                                             diffs.items()) + ")")
+          + f"; eager day's launches exact; wall ms/step in turns of "
+          f"{n_turn}-step windows, graph "
+          + ", ".join(f"{x:.3f}" for x in times["graph"]) + "; eager "
+          + ", ".join(f"{x:.3f}" for x in times["eager"])
+          + f"; {prof_steps}-step profiled windows: busy ms/step graph "
+          f"{g['busy_ms']:.3f}, eager {e['busy_ms']:.3f} (in-graph copies "
+          f"and buffers {g['busy_ms'] - e['busy_ms']:+.3f}); device "
+          f"launches/step graph {g['launches']:.2f}, eager "
+          f"{e['launches']:.2f}; the host's enqueue calls/step graph "
+          f"{g['host_calls']:.2f}, eager {e['host_calls']:.2f}; busy ms "
+          f"over the fastest window's wall ms "
+          f"{100 * g['busy_ms'] / min(times['graph']):.1f} % (graph), "
+          f"{100 * e['busy_ms'] / min(times['eager']):.1f} % (eager) "
+          f"[{card}]")
+    return {"bitwise": same, "diffs": diffs, "captures": cap,
+            "ms_per_step": times, "eager_day_s": secs_eager_day,
+            "eager_launches": eager_launches,
+            "profile": {m: {k: v for k, v in x.items() if k != "top"}
+                        for m, x in prof.items()},
+            "top": {m: x["top"] for m, x in prof.items()},
+            "state": state, "cal": c, "first": first}
 
 
 def card_vs_cpu(params, n_members: int, n_steps: int, what: str):
@@ -1888,23 +2074,29 @@ def explicit_path(card: str, phases) -> dict:
     reset_counts()
     consts, state1, cal = make_demo_model(p32, device="cuda")
     run = make_run_steps_batched(consts, device="cuda")
-    state, cal_day, secs = run_window(
-        run, broadcast_state(state1, N_MEMBERS), cal, 2, n_steps)
-    launches = read_path_counts("explicit path", consts, 2, n_steps)
+    state0 = broadcast_state(state1, N_MEMBERS)
+    captured = dict(run.graphs.stats)
+    state, cal_day, secs = run_window(run, state0, cal, 2, n_steps)
+    launches = read_path_counts("explicit path", consts, 2, n_steps,
+                                graph_evals(2, n_steps))
     check_state(state, N_MEMBERS, "explicit path")
-    busy, per_step, top, _ = device_time_per_step(
-        run, state, cal_day, 2 + n_steps, 6, whole=("grid_dynamics_kernel",))
     print(f"explicit path: T30L8 f32 alph=0.0, {n_steps} steps a day (dt "
           f"{p32.delt:.0f} s), full physics, {N_MEMBERS} members x {n_steps} "
-          f"steps + initialization: finite, error_flag false; launches "
-          f"{launches} (spectral_update 0: the branch runs plain PyTorch "
-          f"after the transforms and the column kernels), no plain version "
-          f"called; wall {1e3 * secs / n_steps:.3f} ms/step; "
-          + ("device time not measured" if busy is None else
-             f"device busy {busy:.3f} ms/step, {per_step:.2f} launches a "
-             f"step (6-step window); by kernel, ms/step (launches/step): "
-             + "; ".join(f"{k} {ms:.3f} ({n:.2f})" for k, ms, n in top))
-          + f" [{card}]")
+          f"steps + initialization through the CUDA graphs: finite, "
+          f"error_flag false; launches {launches} (the initialization and "
+          f"each step kind's warm-up and capture; spectral_update 0: the "
+          f"branch runs plain PyTorch after the transforms and the column "
+          f"kernels), no plain version called; first graph day "
+          f"{1e3 * secs / n_steps:.3f} ms/step [{card}]")
+    gph = graphs_phase("explicit path", consts, run, state0, cal, n_steps,
+                       state, cal_day, captured, card)
+    gph.pop("state")
+    del state0
+    g = gph["profile"]["graph"]
+    print(f"explicit path, by kernel ({N_STEPS_PROFILED}-step graph window), "
+          f"ms/step "
+          f"(launches/step): " + "; ".join(
+              f"{k} {ms:.3f} ({n:.2f})" for k, ms, n in gph["top"]["graph"]))
 
     # A member alone against the same member of B=8, each member's
     # temperature perturbed apart: the bits may not depend on the batch.
@@ -1959,8 +2151,8 @@ def explicit_path(card: str, phases) -> dict:
           f"level sum of the linear terms on the day's divergence, member "
           f"alone against B={N_MEMBERS}: "
           + ", ".join(f"{k} {v:.3e}" for k, v in dep.items()))
-    return {"launches": launches, "busy_ms": busy,
-            "launches_per_step": per_step, "ms_per_step": 1e3 * secs / n_steps,
+    return {"launches": launches, "busy_ms": g["busy_ms"],
+            "launches_per_step": g["launches"], "graphs": gph,
             "f64_max_rel_err": worst}
 
 
@@ -1991,30 +2183,39 @@ def preset_path(name: str, base, libs, card: str, phases) -> dict:
     reset_counts()
     consts, state1, cal = make_demo_model(p32, device="cuda")
     run = make_run_steps_batched(consts, device="cuda")
-    state, cal_day, secs = run_window(
-        run, broadcast_state(state1, N_MEMBERS), cal, 2, n_steps)
-    res["launches"] = read_path_counts(f"{name} path", consts, 2, n_steps)
+    state0 = broadcast_state(state1, N_MEMBERS)
+    captured = dict(run.graphs.stats)
+    state, cal_day, secs = run_window(run, state0, cal, 2, n_steps)
+    res["launches"] = read_path_counts(f"{name} path", consts, 2, n_steps,
+                                       graph_evals(2, n_steps))
     check_state(state, N_MEMBERS, f"{name} path")
-    busy, per_step, top, groups = device_time_per_step(
-        run, state, cal_day, 2 + n_steps, 6)
-    res.update(busy_ms=busy, launches_per_step=per_step,
-               ms_per_step=1e3 * secs / n_steps)
     alone, _, _ = run_window(run, broadcast_state(state1, 1), cal, 2, n_steps)
     batch_dep = max(_rel(state[n][0][:1], alone[n][0]) for n in PROGNOSTICS)
     res["member0_b128_vs_b1"] = batch_dep
+    del alone
     print(f"{name} path: f32, full physics, {N_MEMBERS} members x {n_steps} "
-          f"steps (a model day) + initialization: finite, error_flag false; "
-          f"launches {res['launches']} (no fused transform: the einsum "
-          f"route), no plain version called; wall {res['ms_per_step']:.3f} "
-          f"ms/step; "
-          + ("device time not measured" if busy is None else
-             f"device busy {busy:.3f} ms/step, {per_step:.2f} launches a "
-             f"step (6-step window); by group, ms/step: "
-             + "; ".join(f"{k} {v:.3f}" for k, v in groups.items())
-             + "; by kernel, ms/step (launches/step): "
-             + "; ".join(f"{k} {ms:.3f} ({n:.2f})" for k, ms, n in top))
-          + f"; member 0 of B={N_MEMBERS} against it alone after the day: "
-          f"{batch_dep:.3e} rel. (not a gate) [{card}]")
+          f"steps (a model day) + initialization through the CUDA graphs: "
+          f"finite, error_flag false; launches {res['launches']} (the "
+          f"initialization and each step kind's warm-up and capture; no "
+          f"fused transform: the einsum route), no plain version called; "
+          f"first graph day {1e3 * secs / n_steps:.3f} ms/step; member 0 of "
+          f"B={N_MEMBERS} against it alone after the day: {batch_dep:.3e} "
+          f"rel. (not a gate) [{card}]")
+    # The einsum route's cuBLAS products under capture: the bits are held
+    # to the eager day's and any difference is printed, not gated.
+    gph = graphs_phase(f"{name} path", consts, run, state0, cal, n_steps,
+                       state, cal_day, captured, card, gate=False)
+    gph.pop("state")
+    del state0, state
+    g = gph["profile"]["graph"]
+    res.update(busy_ms=g["busy_ms"], launches_per_step=g["launches"],
+               ms_per_step=min(gph["ms_per_step"]["graph"]), graphs=gph)
+    print(f"{name} path ({N_STEPS_PROFILED}-step graph window): by group, "
+          f"ms/step: "
+          + "; ".join(f"{k} {v:.3f}" for k, v in g["groups"].items())
+          + "; by kernel, ms/step (launches/step): "
+          + "; ".join(f"{k} {ms:.3f} ({n:.2f})"
+                      for k, ms, n in gph["top"]["graph"]))
     phases.start(f"{name} path, f64 card vs CPU")
     worst, worst_name, _ = card_vs_cpu(
         dataclasses.replace(base, fft_mode="matmul"), 1, N_STEPS_F64_PRESET,
@@ -2121,6 +2322,8 @@ def multidevice_rank(rank: int, world: int, init: str, backend: str,
                                           fft_mode="matmul")
     mesh = meshes["4x1"]
     run = make_run_steps_batched(consts, device=dev, mesh=mesh)
+    if run.graphs is not None:
+        raise RuntimeError("a mesh must keep the runner's eager loop")
     local = PDIST.make_global_ensemble(state1, N_MEMBERS, mesh)
     local, cal_day, secs = run_window(run, local, cal, 2, N_STEPS)
     launches = read_path_counts(f"mesh 4x1, rank {rank}", consts, 2, N_STEPS)
@@ -2274,13 +2477,15 @@ def multidevice_phase(card: str, state1, day, main_launches) -> dict:
                                f"{main_launches}")
     r0 = ranks[0]
     print(f"multi-device: {sharing} ({wall:.1f} s for the ranks, spawn "
-          f"included); default group {r0['backend']}, sub-groups "
+          f"included), the runner's eager loop on every rank (a mesh keeps "
+          f"it: the band route's all_reduce is not captured); default group "
+          f"{r0['backend']}, sub-groups "
           + "; ".join(f"{k} {v}" for k, v in r0["group_backends"].items()))
     bit = r0["4x1"]["bitwise"]
     print(f"mesh 4x1 (ensemble only): T30L8 f32 with physics, {N_MEMBERS} "
           f"members ({N_MEMBERS // 4} a rank) x {N_STEPS} steps + "
-          f"initialization, each rank's launches equal the main path's "
-          f"{main_launches}; the gathered day "
+          f"initialization, each rank's launches equal the main path's in "
+          f"the eager loop {main_launches}; the gathered day "
           + ("bitwise equal to" if bit else "NOT bitwise equal to")
           + f" the main path's unsharded day (initial state bitwise: "
           f"{r0['4x1']['initial_state_bitwise']}); largest rel. difference "
@@ -2518,7 +2723,9 @@ def main() -> None:
 
     phases.start("dynamics-only path")
     # 5. the dynamics-only path, at a reduced depth: initialization (two
-    # bootstrap steps at B=1), then 12 steps of 128 members.
+    # bootstrap steps at B=1), then 12 steps of 128 members through the
+    # runner's CUDA graphs (the wrappers are called by each step kind's
+    # warm-up and capture; the replays launch the same kernels).
     reset_counts()
     consts_d, state_d, cal_d = make_demo_model(
         T30L8, device="cuda", physics_on=False, precision="f32",
@@ -2527,42 +2734,50 @@ def main() -> None:
     out_d, _, _ = run_window(run_d, broadcast_state(state_d, N_MEMBERS),
                              cal_d, 2, N_STEPS_DYN)
     launches_dyn = read_path_counts("dynamics-only path", consts_d, 2,
-                                    N_STEPS_DYN)
+                                    N_STEPS_DYN, graph_evals(2, N_STEPS_DYN))
     fields_dyn = dict(tk.field_counts)
     check_state(out_d, N_MEMBERS, "dynamics-only path")
-    direct, inverse = expected_transforms(
-        consts_d, N_STEPS_DYN + 2, 1, with_init=True)
+    prof_d = device_time_per_step(run_d, out_d, cal_d, 2 + N_STEPS_DYN,
+                                  N_STEPS_DYN, consts_d)
     print(f"dynamics-only path: T30L8 f32, {N_MEMBERS} members x "
-          f"{N_STEPS_DYN} steps + initialization, finite, error_flag false, "
-          f"grid_dynamics launches {launches_dyn['grid_dynamics']} (= steps "
-          f"+ 2), spectral_update {launches_dyn['spectral_update']}, "
-          f"fused_grid2spec {direct[0]} launches of {direct[1]} fields, "
-          f"fused_spec2grid {inverse[0]} launches of {inverse[1]} fields, "
-          f"none of the physics, of the plain chain or of the plain spectral "
-          f"update; unperturbed members differ "
-          f"from member 0 by {member_spread(out_d):.1e}")
+          f"{N_STEPS_DYN} steps + initialization through the CUDA graphs, "
+          f"finite, error_flag false, launches {launches_dyn} (the "
+          f"initialization and each step kind's warm-up and capture), "
+          f"transform fields {fields_dyn}, none of the physics, of the plain "
+          f"chain or of the plain spectral update; a {N_STEPS_DYN}-step "
+          f"graph window launches on the card {prof_d['kernels']} (one "
+          f"grid_dynamics and one spectral_update a step); unperturbed "
+          f"members differ from member 0 by {member_spread(out_d):.1e}")
     del out_d
 
     phases.start("main path")
     # 6. the main path at full width: the full-physics model (grid_phi on,
     # the default on the card). Initialization runs both bootstrap steps
-    # with shortwave at B=1; then one model day of 128 members from step 2,
-    # shortwave on steps 3, 6, ..., 36, the daily forcing at step 36.
+    # with shortwave at B=1 (eager: its wrapper counts are its launches);
+    # then one model day of 128 members from step 2, shortwave on steps 3,
+    # 6, ..., 36, the daily forcing at step 36, through a fresh runner's
+    # CUDA graphs, as a user's first run call takes them, under the
+    # profiler: the kernels' launches on the card are its records (the
+    # wrappers count only the initialization and each step kind's warm-up
+    # and capture); the day is held below to the eager loop's, bitwise.
     reset_counts()
     consts, state1, cal = make_demo_model(T30L8, device="cuda",
                                           precision="f32", fft_mode="matmul")
-    run = make_run_steps_batched(consts, device="cuda")
-    state, cal_day, secs_first = run_window(
-        run, broadcast_state(state1, N_MEMBERS), cal, 2, N_STEPS)
-    launches = read_path_counts("main path", consts, 2, N_STEPS)
-    fields_main = dict(tk.field_counts)
+    init_launches = read_path_counts("main path, initialization", consts, 2,
+                                     0, [])
+    init_fields = dict(tk.field_counts)
+    state0 = broadcast_state(state1, N_MEMBERS)
+    (run, state, cal_day, secs_first, day_records, wrapper_calls,
+     day_fields) = profiled_graph_day(consts, state0, cal, N_STEPS)
+    captured = {"captures": 0, "capture_s": 0.0, "pool_bytes": 0,
+                "buffer_bytes": 0}
+    launches = {k: init_launches[k] + day_records[k] for k in init_launches}
+    if launches != expected_path_launches(consts, 2, N_STEPS)[0]:
+        raise RuntimeError(f"main path: launches {launches}")
+    fields_main = {k: init_fields[k] + day_fields[k] for k in init_fields}
     day_ref = _cpu_fields(state, MD_FIELDS)
     plain_calls = dict(tk.plain_chain_calls, **GK.plain_calls)
     check_state(state, N_MEMBERS, "main path")
-    steps = range(2, 2 + N_STEPS)
-    n_forcings = 1 + sum(1 for s in steps if s % T30L8.nsteps == 0)
-    direct, inverse = expected_transforms(
-        consts, N_STEPS + 2, n_forcings, with_init=True)
     if not (consts.physics_on and consts.grid_phi):
         raise RuntimeError("the card's defaults are physics and grid_phi on")
     spread = member_spread(state)
@@ -2574,17 +2789,26 @@ def main() -> None:
             raise RuntimeError(f"main path: {name} not member-batched or "
                                f"not finite")
     print(f"main path: T30L8 f32 with physics, {N_MEMBERS} members x "
-          f"{N_STEPS} steps + initialization, finite, error_flag false, "
-          f"launches {launches} (grid_dynamics = spectral_update = steps + "
-          f"2; physics 14 with "
-          f"shortwave + 24 without; fused_spec2grid = 38 evaluations x 2 "
-          f"groups + 2 of the initialization, of {inverse[1]} fields = 38 x "
-          f"(7 + 5) + 2; fused_grid2spec = 38 x 1 group + 4 + 2 for each of "
-          f"{n_forcings} forcings, of {direct[1]} fields = 38 x 10 + 4 + "
-          f"{2 * n_forcings}), transform fields {fields_main}, plain chain and "
-          f"plain spectral update calls {plain_calls}; "
-          f"unperturbed members differ from member 0 by {spread:.1e}; first "
-          f"window {secs_first:.3f} s")
+          f"{N_STEPS} steps + initialization through the CUDA graphs, "
+          f"finite, error_flag false, launches {launches} (the "
+          f"initialization's wrapper counts {init_launches} and the graph "
+          f"day's device records, every step's: {day_records}); the graph "
+          f"day's wrapper calls {wrapper_calls} (steps 2 and 3 twice: the "
+          f"warm-up and the capture of each step kind), transform fields "
+          f"{fields_main}, plain chain and plain spectral update calls "
+          f"{plain_calls}; unperturbed members differ from member 0 by "
+          f"{spread:.1e}; first graph day {secs_first:.3f} s under the "
+          f"profiler")
+    main_graphs = graphs_phase("T30 B=128", consts, run, state0, cal,
+                               N_STEPS, state, cal_day, captured, card)
+    launches_eager_day = main_graphs["eager_launches"]
+    direct, inverse = expected_transforms(consts, N_STEPS, 1, False)
+    print(f"main path, eager day: launches {launches_eager_day} "
+          f"(grid_dynamics = spectral_update = {N_STEPS} steps; physics 12 "
+          f"with shortwave + 24 without; fused_spec2grid = {N_STEPS} "
+          f"evaluations x 2 groups, {inverse[1]} fields; fused_grid2spec = "
+          f"{N_STEPS} x 1 group + 2 of the forcing, {direct[1]} fields)")
+    del state0
 
     # The physics kernel once more, on the model's own columns after that
     # day (float32, both variants, the main path's grid_phi mode and an SPPT
@@ -2616,46 +2840,50 @@ def main() -> None:
         raise RuntimeError(
             f"member independence: unperturbed members differ by {same:.3e} "
             f"(hfluxn {same_flux:.3e}), the perturbed one by {diff:.3e}")
-    print(f"member independence: B=8, member {who} perturbed by 0.05 in T, "
-          f"6 steps: it differs by {diff:.3e} K (spectral), all others equal "
-          f"member 0 bitwise (T and hfluxn)")
+    print(f"member independence (CUDA graphs): B=8, member {who} perturbed "
+          f"by 0.05 in T, 6 steps: it differs by {diff:.3e} K (spectral), "
+          f"all others equal member 0 bitwise (T and hfluxn)")
 
-    # Throughput: a second day, everything warm.
-    state, cal_day2, secs = run_window(run, state, cal_day, 2 + N_STEPS,
-                                       N_STEPS)
-    check_state(state, N_MEMBERS, "second day")
-    dev_ms_128, launches_per_step, top_128, groups = device_time_per_step(
-        run, state, cal_day2, 2 + 2 * N_STEPS, 6)
-    s1 = broadcast_state(state1, 1)
-    s1, cal1, _ = run_window(run, s1, cal, 2, N_STEPS)
-    s1, cal1b, secs1 = run_window(run, s1, cal1, 2 + N_STEPS, N_STEPS)
+    # Throughput: the graphs phase's windows, everything warm, and B=1.
+    state, cal_day2 = main_graphs.pop("state"), main_graphs.pop("cal")
+    first_main = main_graphs.pop("first")
+    s1_0 = broadcast_state(state1, 1)
+    captured = dict(run.graphs.stats)
+    s1, cal1, _ = run_window(run, s1_0, cal, 2, N_STEPS)
+    b1_graphs = graphs_phase("T30 B=1", consts, run, s1_0, cal, N_STEPS, s1,
+                             cal1, captured, card)
+    b1_graphs.pop("state")
     check_state(s1, 1, "B=1")
-    dev_ms_1 = device_time_per_step(run, s1, cal1b, 2 + 2 * N_STEPS, 6)[0]
-    per_step = ("not measured" if launches_per_step is None
-                else f"{launches_per_step:.2f} (a 6-step window: no start of "
-                f"a day, so no daily forcing)")
-    print(f"throughput, full physics: "
-          f"{report(N_MEMBERS, N_STEPS, secs, dev_ms_128)}; "
-          f"{report(1, N_STEPS, secs1, dev_ms_1)}; device launches per step "
-          f"{per_step} [{card}]")
-    print(f"device time by kernel, B={N_MEMBERS}, ms/step (launches/step): "
-          + "; ".join(f"{name} {ms:.3f} ({n:.2f})" for name, ms, n in top_128))
-    print(f"device time by group, B={N_MEMBERS}, ms/step: "
-          + "; ".join(f"{k} {v:.3f}" for k, v in groups.items()))
+    g128, g1 = main_graphs["profile"]["graph"], b1_graphs["profile"]["graph"]
+    secs = min(main_graphs["ms_per_step"]["graph"]) * N_STEPS / 1e3
+    secs1 = min(b1_graphs["ms_per_step"]["graph"]) * N_STEPS / 1e3
+    print(f"throughput, full physics, the runner's CUDA graphs: "
+          f"{report(N_MEMBERS, N_STEPS, secs, g128['busy_ms'])}; "
+          f"{report(1, N_STEPS, secs1, g1['busy_ms'])}; device launches per "
+          f"step {g128['launches']:.2f} (a {N_STEPS_PROFILED}-step window), "
+          f"the step's kernels in it {g128['kernels']} [{card}]")
+    print(f"device time by kernel, B={N_MEMBERS}, graphs, ms/step "
+          f"(launches/step): " + "; ".join(
+              f"{name} {ms:.3f} ({n:.2f})"
+              for name, ms, n in main_graphs["top"]["graph"]))
+    print(f"device time by group, B={N_MEMBERS}, graphs, ms/step: "
+          + "; ".join(f"{k} {v:.3f}" for k, v in g128["groups"].items()))
     # The dynamics-only path beside it, warm, same depth as its first run.
     state_dd = broadcast_state(state_d, N_MEMBERS)
     state_dd, cal_dd, _ = run_window(run_d, state_dd, cal_d, 2, N_STEPS_DYN)
     _, _, secs_dd = run_window(run_d, state_dd, cal_dd, 2 + N_STEPS_DYN,
                                N_STEPS_DYN)
-    print(f"throughput, dynamics only: "
+    print(f"throughput, dynamics only, the runner's CUDA graphs: "
           f"{report(N_MEMBERS, N_STEPS_DYN, secs_dd, None)}")
     del state_dd
 
     phases.start("multi-device phase")
     # 6a. the ("ensemble", "space") mesh: rows 1 and 2 at the band shapes,
     # then four ranks (their own process each) on the 4x1 and 2x2 meshes,
-    # held to the main path's day.
-    md = multidevice_phase(card, state1, day_ref, launches)
+    # held to the main path's day. A mesh keeps the runner's eager loop: its
+    # launches are every step's.
+    md = multidevice_phase(card, state1, day_ref,
+                           expected_path_launches(consts, 2, N_STEPS)[0])
     del day_ref
 
     phases.start("bf16_tendencies path")
@@ -2667,36 +2895,19 @@ def main() -> None:
         T30L8, device="cuda", precision="f32", fft_mode="matmul",
         bf16_tendencies=True)
     run_b = make_run_steps_batched(consts_b, device="cuda")
-    out_b, cal_b2, _ = run_window(run_b, broadcast_state(state_b1, N_MEMBERS),
-                                  cal_b, 2, N_STEPS_BF16)
-    launches_b = dict(ck.launch_counts)
+    state_b0 = broadcast_state(state_b1, N_MEMBERS)
+    captured = dict(run_b.graphs.stats)
+    out_b, cal_b2, _ = run_window(run_b, state_b0, cal_b, 2, N_STEPS_BF16)
+    launches_b = read_path_counts("bf16_tendencies path", consts_b, 2,
+                                  N_STEPS_BF16, graph_evals(2, N_STEPS_BF16))
     fields_b = dict(tk.field_counts)
     plain_b = dict(tk.plain_chain_calls, **GK.plain_calls)
     check_state(out_b, N_MEMBERS, "bf16_tendencies path")
-    steps_b = range(2, 2 + N_STEPS_BF16)
-    n_sw_b = sum(1 for s in steps_b if s % 3 == 0)
-    n_forc_b = sum(1 for s in steps_b if s % T30L8.nsteps == 0)
-    init_d, init_i = expected_transforms(consts_b, 2, 1, True)
-    run_d2, run_i = expected_transforms(consts_b, N_STEPS_BF16, n_forc_b,
-                                        False)
-    expected_b = dict.fromkeys(ck.launch_counts, 0)
-    expected_b.update(
-        grid_dynamics=2, grid_physics_sw=2,
-        grid_dynamics_bf16=N_STEPS_BF16, grid_physics_sw_bf16=n_sw_b,
-        grid_physics_nosw_bf16=N_STEPS_BF16 - n_sw_b,
-        fused_grid2spec=init_d[0] + 2 * n_forc_b,
-        fused_grid2spec_bf16=run_d2[0] - 2 * n_forc_b,
-        fused_spec2grid=init_i[0] + run_i[0],
-        spectral_update=N_STEPS_BF16 + 2)
-    expected_fields_b = {"fused_grid2spec": init_d[1] + 2 * n_forc_b,
-                         "fused_grid2spec_bf16": run_d2[1] - 2 * n_forc_b,
-                         "fused_spec2grid": init_i[1] + run_i[1]}
-    if (launches_b != expected_b or fields_b != expected_fields_b
-            or any(plain_b.values())):
-        raise RuntimeError(f"bf16_tendencies path launched {launches_b}, "
-                           f"expected {expected_b}; transform fields "
-                           f"{fields_b}, expected {expected_fields_b}; plain "
-                           f"chain {plain_b}")
+    bf16_graphs = graphs_phase("bf16_tendencies path", consts_b, run_b,
+                               state_b0, cal_b, N_STEPS_BF16, out_b, cal_b2,
+                               captured, card)
+    bf16_graphs.pop("state")
+    del state_b0
     if not consts_b.bf16_tendencies:
         raise RuntimeError("make_demo_model dropped bf16_tendencies")
     for name in PROGNOSTICS:
@@ -2728,16 +2939,19 @@ def main() -> None:
                                        N_STEPS_BF16)
         secs_bf.append(sb)
         secs_ff.append(sf)
-    dev_ms_b, launches_per_step_b, _, groups_b = device_time_per_step(
-        run_b, out_b, cal_b2, 2 + 2 * N_STEPS_BF16, 6)
+    prof_b = bf16_graphs["profile"]["graph"]
+    dev_ms_b, launches_per_step_b = prof_b["busy_ms"], prof_b["launches"]
+    groups_b = prof_b["groups"]
     check_state(out_b, N_MEMBERS, "bf16_tendencies path, warm")
     rate = lambda secs: N_MEMBERS * N_STEPS_BF16 / secs
     print(f"bf16_tendencies path: T30L8 f32, {N_MEMBERS} members x "
-          f"{N_STEPS_BF16} steps + initialization, finite, error_flag false, "
-          f"launches {launches_b} (the bfloat16 instantiations on the "
-          f"{N_STEPS_BF16} steps, the float32 ones on the two bootstrap "
-          f"steps; the spectral update, float32 on every step, "
-          f"{launches_b['spectral_update']}), transform fields {fields_b}, "
+          f"{N_STEPS_BF16} steps + initialization through the CUDA graphs, "
+          f"finite, error_flag false, launches {launches_b} (the bfloat16 "
+          f"instantiations on each step kind's warm-up and capture, the "
+          f"float32 ones on the two bootstrap steps; the spectral update, "
+          f"float32 on every step, {launches_b['spectral_update']}; the "
+          f"eager day's {bf16_graphs['eager_launches']}), transform fields "
+          f"{fields_b}, "
           f"plain chain and plain spectral "
           f"update calls {plain_b}; same initial state bitwise; "
           f"prognostics vs the float32 run after {N_STEPS_BF16} steps, rel. "
@@ -2745,15 +2959,13 @@ def main() -> None:
           + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
           + " (bounds t, ps 1e-3; vor, div 5e-2; and more than 1e-8)")
     print(f"throughput, bf16_tendencies beside float32, {N_STEPS_BF16}-step "
-          f"windows in turns: bf16 "
+          f"windows in turns, the runner's CUDA graphs: bf16 "
           + ", ".join(f"{rate(x):.1f}" for x in secs_bf)
           + " member-steps/s; float32 "
           + ", ".join(f"{rate(x):.1f}" for x in secs_ff)
-          + f" member-steps/s; bf16 device busy "
-          + ("not measured" if dev_ms_b is None else
-             f"{dev_ms_b:.3f} ms/step, {launches_per_step_b:.0f} launches "
-             f"per step; by group " + "; ".join(
-                 f"{k} {v:.3f}" for k, v in groups_b.items()))
+          + f" member-steps/s; bf16 device busy {dev_ms_b:.3f} ms/step, "
+          f"{launches_per_step_b:.0f} launches per step; by group "
+          + "; ".join(f"{k} {v:.3f}" for k, v in groups_b.items())
           + f" [{card}]")
     del out_b, out_f
 
@@ -2819,15 +3031,16 @@ def main() -> None:
     p_sppt = dataclasses.replace(f32, sppt_on=True)
     consts_s, state_s1, cal_s = make_demo_model(p_sppt, device="cuda")
     run_s = make_run_steps_batched(consts_s, device="cuda")
-    state_s, cal_s1, secs_s = run_window(
-        run_s, broadcast_state(state_s1, N_MEMBERS), cal_s, 2, N_STEPS)
-    launches_s = read_path_counts("SPPT path", consts_s, 2, N_STEPS)
+    state_s0 = broadcast_state(state_s1, N_MEMBERS)
+    captured = dict(run_s.graphs.stats)
+    state_s, cal_s1, secs_s = run_window(run_s, state_s0, cal_s, 2, N_STEPS)
+    launches_s = read_path_counts("SPPT path", consts_s, 2, N_STEPS,
+                                  graph_evals(2, N_STEPS))
     fields_s = dict(tk.field_counts)
     plain_s = dict(tk.plain_chain_calls, **GK.plain_calls)
     check_state(state_s, N_MEMBERS, "SPPT path")
-    direct_s, inverse_s = expected_transforms(
-        consts_s, N_STEPS + 2, n_forcings, with_init=True)
-    if inverse_s[1] != inverse[1] + N_STEPS + 2:
+    direct_s, inverse_s = expected_transforms(consts_s, N_STEPS, 1, False)
+    if inverse_s[1] != inverse[1] + N_STEPS:
         raise RuntimeError("the SPPT path's physics group is not one field "
                            "wider than the main path's")
     t_s = state_s["t"][0]
@@ -2838,45 +3051,47 @@ def main() -> None:
     if len({tuple(k) for k in keys_s.tolist()}) != N_MEMBERS:
         raise RuntimeError("SPPT members share a noise key")
     print(f"SPPT path: T30L8 f32 with physics and SPPT, {N_MEMBERS} members "
-          f"x {N_STEPS} steps + initialization, finite, error_flag false, "
-          f"launches {launches_s} (the main path's), transform fields "
-          f"{fields_s} (fused_spec2grid {inverse_s[1]} = the main path's "
-          f"{inverse[1]} + one pattern spectrum in each of the {N_STEPS + 2} "
-          f"physics groups), plain calls {plain_s}; members from one "
-          f"broadcast state differ in t by {spread_s:.3e} (rel., more than "
-          f"1e-6), {N_MEMBERS} distinct keys; first window {secs_s:.3f} s")
-    # Launches and device time per step, a whole 36-step run call of each
-    # path from warm states, in turns; the noise draw of one run call alone.
-    state_s, cal_s2, _ = run_window(run_s, state_s, cal_s1, 2 + N_STEPS,
-                                    N_STEPS)
-    prof_main = device_time_per_step(run, state, cal_day2, 2 + 2 * N_STEPS,
-                                     N_STEPS)
-    prof_s = device_time_per_step(run_s, state_s, cal_s2, 2 + 2 * N_STEPS,
-                                  N_STEPS)
+          f"x {N_STEPS} steps + initialization through the CUDA graphs, "
+          f"finite, error_flag false, launches {launches_s} (the main "
+          f"path's), transform fields {fields_s}, plain calls {plain_s}; the "
+          f"eager day's inverse fields {inverse_s[1]} = the main path's "
+          f"{inverse[1]} + one pattern spectrum in each of the {N_STEPS} "
+          f"physics groups; members from one broadcast state differ in t by "
+          f"{spread_s:.3e} (rel., more than 1e-6), {N_MEMBERS} distinct "
+          f"keys; first graph day {secs_s:.3f} s")
+    sppt_graphs = graphs_phase("SPPT path", consts_s, run_s, state_s0, cal_s,
+                               N_STEPS, state_s, cal_s1, captured, card)
+    if sppt_graphs["eager_launches"] != launches_eager_day:
+        raise RuntimeError(f"SPPT path, eager day: launches "
+                           f"{sppt_graphs['eager_launches']} against the main "
+                           f"path's {launches_eager_day}")
+    del state_s0
+    # Launches and device time per step of the eager loop, a whole 36-step
+    # run call of each path from warm states, in turns; the noise draw of
+    # one run call alone.
+    state_s, cal_s2 = sppt_graphs.pop("state"), sppt_graphs.pop("cal")
+    first_s = sppt_graphs.pop("first")
+    prof_main = device_time_per_step(run, state, cal_day2, first_main,
+                                     N_STEPS, consts, eager=True)
+    prof_s = device_time_per_step(run_s, state_s, cal_s2, first_s, N_STEPS,
+                                  consts_s, eager=True)
     draw = lambda: list(SP.draw_run_noise(consts_s, state_s["sppt_key"],
-                                          2 + 2 * N_STEPS, N_STEPS))
+                                          first_s, N_STEPS))
     draw()
     draw_launches = device_launches(draw)
     draw_ms = time_ms(draw, reps=3, warmup=1, windows=3)
-    _, _, secs_s_warm = run_window(run_s, state_s, cal_s2, 2 + 2 * N_STEPS,
-                                   N_STEPS)
-    _, _, secs_m_warm = run_window(run, state, cal_day2, 2 + 2 * N_STEPS,
-                                   N_STEPS)
-    if prof_main[0] is None or prof_s[0] is None:
-        sppt_launch_line = "launches per step not measured (no whole window)"
-    else:
-        sppt_extra = prof_s[1] - prof_main[1]
-        sppt_launch_line = (
-            f"device launches per step {prof_s[1]:.1f} with SPPT, "
-            f"{prof_main[1]:.1f} without: SPPT adds {sppt_extra:.1f} a step "
-            f"(the noise draw {draw_launches} launches per run call = "
-            f"{draw_launches / N_STEPS:.1f} a step at {N_STEPS} steps, the "
-            f"rest the AR(1) update and the clip of each step); device busy "
-            f"{prof_s[0]:.3f} ms/step with SPPT, {prof_main[0]:.3f} without")
-    print(f"SPPT path, warm, {N_STEPS}-step run calls at B={N_MEMBERS}: "
-          f"{sppt_launch_line}; the noise draw of one run call "
-          f"{draw_ms:.3f} ms; wall {1e3 * secs_s_warm / N_STEPS:.3f} ms/step "
-          f"with SPPT, {1e3 * secs_m_warm / N_STEPS:.3f} without [{card}]")
+    sppt_extra = prof_s["launches"] - prof_main["launches"]
+    print(f"SPPT path, warm, {N_STEPS}-step run calls at B={N_MEMBERS}, the "
+          f"eager loop: device launches per step {prof_s['launches']:.1f} "
+          f"with SPPT, {prof_main['launches']:.1f} without: SPPT adds "
+          f"{sppt_extra:.1f} a step (the noise draw {draw_launches} launches "
+          f"per run call = {draw_launches / N_STEPS:.1f} a step at {N_STEPS} "
+          f"steps, the rest the AR(1) update and the clip of each step); "
+          f"device busy {prof_s['busy_ms']:.3f} ms/step with SPPT, "
+          f"{prof_main['busy_ms']:.3f} without; the noise draw of one run "
+          f"call {draw_ms:.3f} ms; wall ms/step through the graphs "
+          f"{min(sppt_graphs['ms_per_step']['graph']):.3f} with SPPT, "
+          f"{min(main_graphs['ms_per_step']['graph']):.3f} without [{card}]")
     # The physics' transform group with the pattern and the physics kernel
     # fed the model's own pattern, against their plain versions, on the
     # SPPT state after a day.
@@ -2929,7 +3144,9 @@ def main() -> None:
         launches_api = dict(ck.launch_counts)
         plain_api = dict(tk.plain_chain_calls, **GK.plain_calls)
         rel_api = fixture_ladder(str(Path(out_dir) / "1982-01-02_0000.nc"))
-    if (api._consts.device.type != "cuda"
+    api_mode = ("CUDA graphs" if api._run.graphs is not None
+                else "eager loop")
+    if (api._consts.device.type != "cuda" or api._run.graphs is None
             or api._consts.params.precision != "f64"
             or any(plain_api.values())
             or not all(launches_api[k] > 0 for k in (
@@ -2937,10 +3154,13 @@ def main() -> None:
                 "fused_grid2spec", "fused_spec2grid", "spectral_update"))):
         raise RuntimeError(f"API phase: launches {launches_api}, plain calls "
                            f"{plain_api}")
-    print(f"API phase: Speedy T30L8 f64 on the card, set_bc from the bundled "
-          f"files {t_init:.2f} s, 1982-01-01 -> 01-02 ({api.get_current_step()}"
-          f" steps) {t_run:.2f} s = {1e3 * t_run / api.get_current_step():.2f}"
-          f" ms/step wall; launches {launches_api}, no plain call; against "
+    print(f"API phase: Speedy T30L8 f64 on the card ({api_mode}: "
+          f"{api._run.graphs.stats['captures']} captures), set_bc from the "
+          f"bundled files {t_init:.2f} s, 1982-01-01 -> 01-02 "
+          f"({api.get_current_step()} steps) {t_run:.2f} s = "
+          f"{1e3 * t_run / api.get_current_step():.2f} ms/step wall; "
+          f"launches {launches_api} (the initialization and each step "
+          f"kind's warm-up and capture), no plain call; against "
           f"tests/fixtures/1982-01-02_0000.nc through rtol "
           + ", ".join(f"{r:g}" for r in FIXTURE_LADDER)
           + ": largest rel. difference "
@@ -2978,6 +3198,10 @@ def main() -> None:
             ens_rel = max(ens_rel, _rel(x, y))
     t_e = torch.stack([m._state["t"][0] for m in ens.members])
     ens_spread = float((t_e - t_e[:1]).abs().max() / t_e.abs().max())
+    ens_graphs = ens.members[0]._run.graphs
+    if ens_graphs is None or len(ens_graphs.plans) != 2:
+        raise RuntimeError("SpeedyEns did not run on the graphs (one buffer "
+                           "plan at 16 members, one at 1)")
     # Bitwise: every operation of the step gives a member the same bits at
     # any batch width (the kernels by design, the m=0 correction of
     # grid_phi as a row reduction, the noise elementwise).
@@ -2985,8 +3209,10 @@ def main() -> None:
         raise RuntimeError(f"SpeedyEns: batched vs one by one not bitwise "
                            f"({ens_rel:.3e}), members differ by "
                            f"{ens_spread:.3e}")
-    print(f"SpeedyEns phase: {N_ENS} members, T30L8 f32 with SPPT on the card, "
-          f"set_bc {t_ens_init:.2f} s, one day batched {t_ens:.2f} s "
+    print(f"SpeedyEns phase: {N_ENS} members, T30L8 f32 with SPPT on the "
+          f"card, CUDA graphs ({ens_graphs.stats['captures']} captures: two "
+          f"step kinds at {N_ENS} members and at 1), set_bc "
+          f"{t_ens_init:.2f} s, one day batched {t_ens:.2f} s "
           f"({1e3 * t_ens / 36:.2f} ms/step wall for all members), launches "
           f"{launches_ens}; members 0 and 1 against the same members stepped "
           f"one by one: bitwise equal (vor, div, t, ps, tr); members differ "
@@ -3010,15 +3236,18 @@ def main() -> None:
 
     # 6k. a trace of a 3-step window of the main path (utils.profiling).
     phases.start("profiling trace")
-    traced = trace_phase(run, state, cal_day2, 2 + 2 * N_STEPS)
+    traced = trace_phase(run, state, cal_day2, first_main)
 
     phases.start("float64 card vs CPU")
     # 7. float64 end to end with physics: the card (the column kernels and
     # the fused transform kernels in float64) against the CPU (their plain
     # versions: the dense matmul chain for the transforms) from the same
-    # initial state, grid_phi on in both.
+    # initial state, grid_phi on in both; the card through the runner's
+    # CUDA graphs (its wrappers called by each step kind's warm-up and
+    # capture).
     ck.reset_launch_counts()
     nmem64 = 4
+    evals64 = graph_evals(2, N_STEPS)
     consts_c, state_c, cal_c = make_demo_model(f64, device="cpu",
                                                grid_phi=True)
     consts_g, _ = M.build_consts(f64, device="cuda", grid_phi=True)
@@ -3033,18 +3262,15 @@ def main() -> None:
     check_state(out_g, nmem64, "f64 card run")
     launches64 = dict(ck.launch_counts)
     fields64 = dict(tk.field_counts)
-    d64, i64 = expected_transforms(consts_g, N_STEPS, n_forcings - 1, False)
-    got64 = ((launches64["fused_grid2spec"], fields64["fused_grid2spec"]),
-             (launches64["fused_spec2grid"], fields64["fused_spec2grid"]))
-    if got64 != (d64, i64) or not consts_c.sp.use_dense_legendre:
-        raise RuntimeError(f"f64 card run: transform (launches, fields) "
-                           f"{got64}, expected {d64} and {i64} on the dense "
-                           f"route")
-    if (launches64["spectral_update"] != N_STEPS
+    want64, want_fields64 = expected_path_launches(consts_g, 2, N_STEPS,
+                                                   evals64, with_init=False)
+    if (launches64 != want64 or fields64 != want_fields64
+            or not consts_c.sp.use_dense_legendre
             or any(GK.plain_calls.values())):
-        raise RuntimeError(f"f64 card run: spectral_update launched "
-                           f"{launches64['spectral_update']} times, expected "
-                           f"{N_STEPS}; plain calls {GK.plain_calls}")
+        raise RuntimeError(f"f64 card run: launches {launches64}, transform "
+                           f"fields {fields64}, expected {want64} and "
+                           f"{want_fields64} on the dense route; plain calls "
+                           f"{GK.plain_calls}")
     worst64, worst_name = 0.0, ""
     fields = [(n, out_g[n][0], out_c[n][0]) for n in PROGNOSTICS]
     fields += [(n, out_g[n], out_c[n]) for n in
@@ -3057,13 +3283,15 @@ def main() -> None:
     # The limit of the dynamics-only comparison holds with the physics: no
     # column changed branch between the kernel and the plain version.
     print(f"f64 end to end with physics: T30L8, B={nmem64}, {N_STEPS} steps,"
-          f" card (kernels) vs CPU (plain): max rel err {worst64:.3e} in "
+          f" card (kernels, CUDA graphs) vs CPU (plain): max rel err "
+          f"{worst64:.3e} in "
           f"{worst_name} over the prognostics and 8 physics fields (limit "
           f"1e-9); float64 transform kernels launched "
           f"{launches64['fused_grid2spec']} + {launches64['fused_spec2grid']}"
           f" times for {fields64['fused_grid2spec']} + "
           f"{fields64['fused_spec2grid']} fields, the float64 spectral update "
-          f"{launches64['spectral_update']} (no plain call)")
+          f"{launches64['spectral_update']} (each step kind's warm-up and "
+          f"capture; no plain call)")
     if not worst64 <= 1e-9:
         raise RuntimeError("float64 card run disagrees with the CPU run")
 
@@ -3086,7 +3314,7 @@ def main() -> None:
     check_state(out_gs, nmem64, "f64 SPPT card run")
     launches64s = dict(ck.launch_counts)
     if (launches64s["grid_physics_sw"] + launches64s["grid_physics_nosw"]
-            != N_STEPS or any(GK.plain_calls.values())):
+            != len(evals64) or any(GK.plain_calls.values())):
         raise RuntimeError(f"f64 SPPT card run: launches {launches64s}, "
                            f"plain calls {GK.plain_calls}")
     worst64s, worst_name_s = 0.0, ""
@@ -3275,6 +3503,27 @@ def main() -> None:
                 "local_bytes", "warps_per_sm"):
         dft[key + "_f64"] = dft64[key]
     kernels.append(dft)
+    # The main path's kernels: `launches` is the initialization's (eager,
+    # counted by the wrappers) and the profiler's records of the graph day;
+    # beside it the wrappers' calls in that day and the eager day's
+    # launches. The launches_*_path keys of graph paths count wrapper calls.
+    for k in kernels:
+        if k["name"] in KERNEL_OF_COUNTER:
+            k["launches_eager_day"] = launches_eager_day[k["name"]]
+            k["wrapper_calls_graph_path"] = wrapper_calls[k["name"]]
+            k["launches_counted_by"] = (
+                "launches: the wrappers' counts of the initialization and "
+                "the profiler's records of the main path's graph day; "
+                "launches_*_path of the graph paths: wrapper calls (the "
+                "initialization and each step kind's warm-up and capture)")
+    # The graph runner against the eager loop on every path, in turns.
+    paths = {"T30 B=128": main_graphs, "T30 B=1": b1_graphs,
+             "SPPT": sppt_graphs, "explicit": explicit["graphs"],
+             "bf16_tendencies": bf16_graphs,
+             **{name: r["graphs"] for name, r in presets.items()}}
+    print(json.dumps({"graphs": {name: {
+        k: g[k] for k in ("bitwise", "diffs", "captures", "ms_per_step",
+                          "profile")} for name, g in paths.items()}}))
     print(json.dumps({"kernels": kernels}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(nvidia_smi_line())

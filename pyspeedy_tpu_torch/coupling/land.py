@@ -14,7 +14,6 @@ import numpy as np
 import torch
 
 from .boundaries import check_surface_fields, fill_missing_values
-from .interpolation import forin5, forint
 
 __all__ = ["land_model_init", "couple_land_atm", "SNOW_DEPTH2COVER"]
 
@@ -72,13 +71,15 @@ def land_model_init(params, host):
     }
 
 
-def couple_land_atm(consts, state, day0: bool, imont1, tmonth):
+def couple_land_atm(consts, state, day0: bool, tables):
     """Interpolate climatologies to the date and advance the slab land model
-    (land_model.f90:151-216). day0=True only during initialization."""
+    (land_model.f90:151-216). day0=True only during initialization.
+    `tables` (interpolation.CouplerTables) holds the date's month rows and
+    weights on the device."""
     state = dict(state)
-    stlcl = forin5(state["stl12"], imont1, tmonth)
-    snowdcl = forint(state["snowd12"], imont1, tmonth)
-    soilwcl = forint(state["soilw12"], imont1, tmonth)
+    stlcl = tables.forin5(state["stl12"])
+    snowdcl = tables.forint(state["snowd12"])
+    soilwcl = tables.forint(state["soilw12"])
     state["stlcl_obs"] = stlcl
     state["snowdcl_obs"] = snowdcl
     state["soilwcl_obs"] = soilwcl

@@ -17,7 +17,6 @@ import torch
 
 from .. import constants as pc
 from .boundaries import check_surface_fields, fill_missing_values
-from .interpolation import forin5, forint, monthly_interp
 
 __all__ = ["sea_model_init", "couple_sea_atm"]
 
@@ -153,20 +152,21 @@ def _run_sea_model(consts, state):
     return state
 
 
-def couple_sea_atm(consts, state, day0: bool, imont1, tmonth, month_idx):
+def couple_sea_atm(consts, state, day0: bool, tables):
     """Interpolate SST/ice climatology, adjust over sea ice, advance the slab
     ocean, and compose the atmosphere-side SST fields
-    (sea_model.f90:193-310)."""
+    (sea_model.f90:193-310). `tables` (interpolation.CouplerTables) holds
+    the date's month rows and weights on the device."""
     state = dict(state)
 
-    sstcl = forin5(state["sst12"], imont1, tmonth)
-    sicecl = forint(state["sea_ice_frac12"], imont1, tmonth)
+    sstcl = tables.forin5(state["sst12"])
+    sicecl = tables.forint(state["sea_ice_frac12"])
 
     # sst_anomaly_coupling_flag is a runtime state scalar
     # (sea_model.f90:218-222); off -> sstan_ob keeps its (zero) value.
     ssta_flag = state["sst_anomaly_coupling_flag"]
     state["sstan_ob"] = torch.where(
-        ssta_flag, monthly_interp(state["sst_anom"], month_idx, tmonth),
+        ssta_flag, tables.sst_anom(state["sst_anom"]),
         state["sstan_ob"])
 
     # Freezing-point adjustment over sea ice (sea_model.f90:232-252)

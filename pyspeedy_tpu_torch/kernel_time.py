@@ -3,8 +3,8 @@ DFT chain) on one CUDA card, through their public wrappers only.
 
     python3 -m pyspeedy_tpu_torch.kernel_time
 
-Run from the root of a checkout: the times come from that checkout's
-``chip_smoke.kernel_device_ms``. Prints the card's name and power limit, one
+The times come from ``utils.profiling.kernel_device_ms`` of the package
+it runs in. Prints the card's name and power limit, one
 line per probe stage at 256 and 9,344 rows (float32 and float64) and per
 DFT-chain type at 256 members, and a JSON line with every time. Only
 ``ops.transform_kernels.fused_probe_cuda``, ``ops.dft_chain.dft_chain_cuda``
@@ -31,11 +31,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_time needs a CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import kernel_device_ms, nvidia_smi_line
     from .models import model as M
     from .ops import dft_chain as DC
     from .ops import transform_kernels as tk
     from .params import T30L8
+    from .utils.profiling import kernel_device_ms, nvidia_smi_line
 
     card = nvidia_smi_line()
     print(f"card: {card}")

@@ -5,8 +5,10 @@ Reference call-stack parity: initialization.f90:13-91 for `initialize`,
 speedy.f90:20-74 (do_single_step) for the per-step sequence. The step is
 written member-batched: the fields it carries have a leading member axis B
 (B = 1 is the single-member run), everything else is shared by all members.
-The N-step loop is a Python loop (parallel/ensemble.py); the calendar
-scalars of each step stay on the host.
+The N-step loop is a Python loop or a replay of CUDA graphs of the step
+(parallel/ensemble.py); the calendar scalars of each step stay on the host,
+and what the step needs of them reaches it as device tables
+(coupler_tables).
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from .. import constants as pc
 from .. import resolve_device
 from ..coupling.coupler import couple_sea_land, initialize_coupler
 from ..coupling.forcing import set_forcing
+from ..coupling.interpolation import (N_COUPLER_ROWS, N_COUPLER_WEIGHTS,
+                                     CouplerTables, coupler_rows)
 from ..coupling.land import land_model_init
 from ..coupling.sea import sea_model_init
 from ..ops import glue_kernels as GK
@@ -43,7 +47,8 @@ from .prognostics import initialize_from_rest_state
 from .timestep import step
 
 __all__ = ["Consts", "build_consts", "allocate_state", "initialize",
-           "build_step_ctx", "make_single_step", "SpeedyError",
+           "build_step_ctx", "coupler_tables", "daily_forcing", "step_body",
+           "make_single_step", "SpeedyError",
            "DYNAMIC_FIELDS", "EPHEMERAL_FIELDS", "CARRY_FIELDS",
            "split_state", "add_member_axis", "ensure_member_axis",
            "single_member_ndim", "band_consts", "shard_consts"]
@@ -425,7 +430,9 @@ def initialize(consts: Consts, state: dict, host_bc: dict,
     bad0 = check_diagnostics(consts, st, 0)
 
     # Coupler day-0 exchange (coupler.f90:12-32)
-    st = initialize_coupler(consts, st, cal.imont1, cal.tmonth, cal.month_idx)
+    st = initialize_coupler(consts, st, CouplerTables.from_host(
+        *coupler_rows(cal.imont1, cal.tmonth, cal.month_idx),
+        state["sst_anom"].shape[0], params.dtype, device))
     st = ensure_member_axis(st, 1)
 
     # Forcing, imode=0 (forcing.f90:43-48 + daily part)
@@ -462,7 +469,8 @@ def build_step_ctx(cal: ModelCalendar, current_step: int, n_steps: int):
     Returns (ctx dict of numpy arrays of length n_steps, calendar after n
     steps). For step i: do_forcing/tyear/year_frac describe the pre-step
     date; imont1/tmonth/month_idx the post-advance date used by the coupler
-    (speedy.f90:47-72)."""
+    (speedy.f90:47-72), from which the runner makes the coupler's device
+    tables once per run call (coupler_tables)."""
     do_forcing = np.zeros(n_steps, dtype=bool)
     compute_sw = np.zeros(n_steps, dtype=bool)
     tyear = np.zeros(n_steps)
@@ -496,41 +504,77 @@ def build_step_ctx(cal: ModelCalendar, current_step: int, n_steps: int):
     return ctx, cal
 
 
+def coupler_tables(consts: Consts, state: dict, ctx) -> CouplerTables:
+    """The coupler tables of a run call's steps: the month rows ((n_steps,
+    9) int64) and weights ((n_steps, 7), the model dtype) of the coupler's
+    interpolations at each step's advanced date (ctx's imont1, tmonth and
+    month_idx: coupling/interpolation.py::coupler_rows, float64 on the
+    host), moved to the consts' device at once. Raises IndexError for a
+    step past the end of the state's SST anomaly record."""
+    n_steps = len(ctx["stepno"])
+    rows = np.zeros((n_steps, N_COUPLER_ROWS), dtype=np.int64)
+    weights = np.zeros((n_steps, N_COUPLER_WEIGHTS))
+    for i in range(n_steps):
+        rows[i], weights[i] = coupler_rows(int(ctx["imont1"][i]),
+                                           float(ctx["tmonth"][i]),
+                                           int(ctx["month_idx"][i]))
+    return CouplerTables.from_host(rows, weights, state["sst_anom"].shape[0],
+                                   consts.params.dtype, consts.device)
+
+
+def daily_forcing(consts: Consts, state: dict, ctx_i) -> dict:
+    """The first part of a step (speedy.f90:47-50): the daily forcing when
+    the step starts a day, else nothing. The calendar is on the host, so
+    this is a plain branch; set_forcing builds the zonal fields in numpy
+    and copies them to the device, so this part always runs eagerly, on the
+    host's schedule. Returns a new state dict."""
+    if ctx_i["do_forcing"]:
+        return set_forcing(consts, state, float(ctx_i["year_frac"]),
+                           float(ctx_i["tyear"]))
+    return dict(state)
+
+
+def step_body(consts: Consts, state: dict, shortwave: bool,
+              coupler: CouplerTables, sppt_se=None) -> dict:
+    """The rest of a step (speedy.f90:51-72) on the member-batched state:
+    the leapfrog step with the physics (the shortwave variant when
+    `shortwave`), the diagnostics check, the coupler exchange at the
+    advanced date (`coupler`: that date's tables on the device) and, with
+    SPPT, the step's noise `sppt_se` (sigma * eta, (B, 2, kx, mx, nx)).
+    Nothing here reads a host value but `shortwave`, the step length and
+    the consts, and nothing reads a device value back: the function a CUDA
+    graph of the step records (parallel/ensemble.py::StepGraphs), keyed on
+    `shortwave`."""
+    nmem = state["vor"][0].shape[0]
+    state = dict(state)
+    state["compute_shortwave"] = state["compute_shortwave"].new_full(
+        (nmem,), shortwave)
+    pctx = {"compute_shortwave": shortwave}
+    if sppt_se is not None:
+        pctx["sppt_se"] = sppt_se
+    state = step(consts, state, 2, 2, 2.0 * consts.params.delt,
+                 _physics_fn(consts), pctx)
+
+    bad = check_diagnostics(consts, state, 1)
+    state["error_flag"] = state["error_flag"] | bad
+
+    # Coupler exchange at the advanced date (speedy.f90:69-72)
+    state = couple_sea_land(consts, state, coupler)
+    return ensure_member_axis(state, nmem)
+
+
 def make_single_step(consts: Consts):
     """The full per-step update (the body of do_single_step,
     speedy.f90:20-74) as a state -> state function on the member-batched
-    state; ctx_i carries the step's calendar scalars as Python values. The
-    shortwave flag is one of them: every step is specialised on it on the
-    host, and the physics kernel is launched in the matching variant."""
-    params = consts.params
-    pf = _physics_fn(consts)
+    state: daily_forcing, then step_body. ctx_i carries the step's calendar
+    scalars as Python values, its coupler tables on the device ("coupler")
+    and, with SPPT, its noise ("sppt_se"). The shortwave flag is one of the
+    scalars: every step is specialised on it on the host, and the physics
+    kernel is launched in the matching variant."""
 
     def single_step(state, ctx_i):
-        nmem = state["vor"][0].shape[0]
-
-        # Daily forcing (speedy.f90:47-50): the calendar is on the host, so
-        # this is a plain branch.
-        if ctx_i["do_forcing"]:
-            state = set_forcing(consts, state, float(ctx_i["year_frac"]),
-                                float(ctx_i["tyear"]))
-        else:
-            state = dict(state)
-
-        state["compute_shortwave"] = state["compute_shortwave"].new_full(
-            (nmem,), bool(ctx_i["compute_shortwave"]))
-        pctx = {"compute_shortwave": bool(ctx_i["compute_shortwave"]),
-                "stepno": int(ctx_i["stepno"])}
-        if "sppt_se" in ctx_i:
-            pctx["sppt_se"] = ctx_i["sppt_se"]
-        state = step(consts, state, 2, 2, 2.0 * params.delt, pf, pctx)
-
-        bad = check_diagnostics(consts, state, 1)
-        state["error_flag"] = state["error_flag"] | bad
-
-        # Coupler exchange at the advanced date (speedy.f90:69-72)
-        state = couple_sea_land(consts, state, int(ctx_i["imont1"]),
-                                float(ctx_i["tmonth"]),
-                                int(ctx_i["month_idx"]))
-        return ensure_member_axis(state, nmem)
+        state = daily_forcing(consts, state, ctx_i)
+        return step_body(consts, state, bool(ctx_i["compute_shortwave"]),
+                         ctx_i["coupler"], ctx_i.get("sppt_se"))
 
     return single_step

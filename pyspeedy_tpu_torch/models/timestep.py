@@ -37,9 +37,11 @@ def leapfrog_pair(params, trfilt, j1: int, dt, eps, f0, f1, fdt,
 def sdrag_mask(kx: int, mx: int, dtype, device):
     """One-hot (kx, mx, 1) mask selecting the top-level zonal-mean mode for
     the stratospheric drag (time_stepping.f90:92-100), applied as a masked
-    subtract instead of a scattered update."""
+    subtract instead of a scattered update. The one is filled in place on
+    the device (no host-to-device copy), so that a CUDA graph of the step
+    can record it."""
     m00 = torch.zeros((kx, mx, 1), dtype=dtype, device=device)
-    m00[0, 0, 0] = 1.0
+    m00[0, 0, 0].fill_(1.0)
     return m00
 
 

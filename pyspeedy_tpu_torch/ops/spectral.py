@@ -539,8 +539,9 @@ def _shift_up(x: torch.Tensor) -> torch.Tensor:
 def _no_zonal_last_row(z: torch.Tensor) -> torch.Tensor:
     """The reference omits the zonal-derivative term on the last n row
     (spectral.f90:174-177, 201-205). `z` is always a fresh tensor here, so
-    the row is zeroed in place."""
-    z[..., -1] = 0.0
+    the row is zeroed in place, on the device (a CUDA graph of the step
+    records it)."""
+    z[..., -1].fill_(0.0)
     return z
 
 

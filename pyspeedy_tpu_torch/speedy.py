@@ -12,7 +12,13 @@ single-member layout. ``Speedy`` is the B = 1 case of the member-batched
 runner (parallel/ensemble.py::make_run_steps_batched); ``SpeedyEns`` stacks
 its members' carried fields and advances them together through the same
 runner. Entry points default to device="cuda" and raise without a card;
-device="cpu" runs the plain PyTorch path on the host.
+device="cpu" runs the plain PyTorch path on the host. On the card a run
+call replays the runner's CUDA graphs of the step (captured at the first
+call of each member width, the last three widths' kept with the
+configuration's runner); the
+runner copies the state in and clones it out, so what callbacks,
+checkpoints and __setitem__ read and write between run calls is the
+model's own state.
 """
 
 from __future__ import annotations
@@ -59,7 +65,9 @@ _CONSTS_CACHE: dict = {}
 
 def _consts_for(params: ModelParams, device: torch.device):
     """(consts, numpy geometry, batched runner) of a configuration on a
-    device, built at first use."""
+    device, built at first use; on the card the runner keeps the CUDA
+    graphs of its last StepGraphs.MAX_PLANS state layouts for every
+    instance of the configuration."""
     key = (params, str(device))
     if key not in _CONSTS_CACHE:
         consts, geom_np = M.build_consts(params, device=device)

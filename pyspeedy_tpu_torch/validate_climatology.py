@@ -16,7 +16,10 @@ runner at B=1: the bundled boundary file is on the 96x48 grid only. Without
 ``--f32`` the run is float64 on either device. ``--device`` defaults to
 "cuda" and raises without a card. ``--bf16-tendencies`` runs the steps
 after the initialization with bfloat16 tendencies (float32 on the dense
-transform route only, see ``models.model.build_consts``).
+transform route only, see ``models.model.build_consts``). On the card the
+runs replay the batched runner's CUDA graphs of the step, on the CPU they
+take its eager loop (``parallel.ensemble.takes_graphs``); the printed line
+names the mode.
 """
 
 from __future__ import annotations
@@ -180,6 +183,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     from . import resolve_device
+    from .parallel.ensemble import takes_graphs
     from .params import T30L8, T47L8, T63L8
 
     device = resolve_device(args.device)
@@ -198,7 +202,9 @@ def main(argv=None) -> int:
     report = climate_report(args.preset, tsfc, prec, toa)
     print(f"device: {_device_line(device)}; {params.precision}, "
           f"bf16_tendencies={args.bf16_tendencies}, {args.months} months of "
-          f"{DAYS_PER_MONTH} days at {params.nsteps} steps a day")
+          f"{DAYS_PER_MONTH} days at {params.nsteps} steps a day; the "
+          f"batched runner's "
+          + ("CUDA graphs" if takes_graphs(device) else "eager loop"))
     print(timer.report())
     print(json.dumps(report, indent=2))
     return 0 if report["ok"] else 1

@@ -363,8 +363,8 @@ def test_coupler_reads_each_members_own_fluxes():
     axis of the (B, 3, il, ix) fluxes, not the member axis."""
     tconsts, tstate, tcal = torch_model()
     ctx, _ = TM.build_step_ctx(dataclasses.replace(tcal), 2, 1)
-    args = (int(ctx["imont1"][0]), float(ctx["tmonth"][0]),
-            int(ctx["month_idx"][0]))
+    tables = TM.coupler_tables(tconsts, tstate, ctx)
+    args = (type(tables)(tables.rows[0], tables.w[0]),)
     rng = np.random.default_rng(5)
     both = TM.ensure_member_axis(TE.broadcast_state(tstate, 2), 2)
     p = T_T30L8
