@@ -36,7 +36,9 @@ limit and the main path's launches on every rank, and 2x2, latitude bands
 with one all_reduce per direct transform group, float32 and float64 against
 the unsharded runs; the climatology check of the port's
 validate_climatology at T30 through Speedy; a trace of a 3-step window of
-the main path through utils.profiling, which must name the step's kernels),
+the main path through utils.profiling, which must name the step's kernels;
+the bench phase: pyspeedy_tpu_torch/bench.py's cells at a short depth, one
+member for 30 days and 256 members in chunks of 128 and of 256),
 checks the results and the exact launch counts of every path (for the
 transforms, launches and fields apart), and that no plain version ran on the
 card, and prints what it measured. Every model path runs through the
@@ -50,7 +52,12 @@ runner (eager=True, whose counts are every step's), the two modes are timed
 in turns (graph, eager, eager, graph) and profiled, the profiler's records
 of each window held to the launches the window makes, and the graphs'
 capture seconds and memory printed ("graphs, ..." lines and a
-``{"graphs": ...}`` JSON line); the multi-device phase keeps the eager loop
+``{"graphs": ...}`` JSON line), with the copies into the graphs' buffers a
+step and the profiler's copy records by name (every path fails if its
+profiled graph window holds more copy records a step over the eager
+window's than the runner counts, StepGraphs.stats["copies"]; the main path
+fails if its graph steps copy other than coupling/coupler.py::STEP_COPIES
+and the daily forcing's fields); the multi-device phase keeps the eager loop
 (a mesh does) and says so. Among what it prints: the registers, occupancy and
 SASS float/double conversions of the physics and spectral-update kernels,
 the physics kernel on the model's state after a day, the spectral update at
@@ -69,6 +76,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -99,6 +107,9 @@ from pyspeedy_tpu_torch.ops import transform_kernels as tk
 from pyspeedy_tpu_torch.parallel import distributed as PDIST
 from pyspeedy_tpu_torch.parallel import mesh as PMESH
 from pyspeedy_tpu_torch.parallel import shard_transforms as PST
+from pyspeedy_tpu_torch import bench as BENCH
+from pyspeedy_tpu_torch.coupling.coupler import STEP_COPIES
+from pyspeedy_tpu_torch.coupling.forcing import FORCING_FIELDS
 from pyspeedy_tpu_torch.parallel.ensemble import (broadcast_state,
                                                    make_run_steps_batched,
                                                    takes_graphs)
@@ -1687,10 +1698,25 @@ def device_time_per_step(run, state, cal, first_step: int, n_steps: int,
               "spectral_update kernel": share("spectral_update_kernel"),
               "row reductions": share("reduce_kernel")}
     top = [(k[:60], v[0], v[1]) for k, v in list(by.items())[:8]]
+    copies = {k[:60]: (v[0], v[1]) for k, v in by.items()
+              if any(x in k.lower() for x in COPY_RECORDS)}
     return {"busy_ms": prof["busy_ms_per_step"],
             "launches": prof["launches_per_step"],
             "host_calls": prof["host_calls_per_step"],
-            "top": top, "groups": groups, "kernels": got}
+            "top": top, "groups": groups, "kernels": got, "copies": copies}
+
+
+# The profiler's names of the device records that copy memory: the
+# runtime's copies ("Memcpy DtoD (Device -> Device)") and PyTorch's copy
+# kernels (a broadcast or strided copy_, elementwise_kernel<...copy...>).
+COPY_RECORDS = ("memcpy", "copy")
+# The kinds of copies a graph run call makes (StepGraphs.stats["copies"]).
+COPY_KINDS = ("in", "step", "forcing", "inputs", "out")
+
+
+def _copy_summary(copies: dict) -> str:
+    return "; ".join(f"{name} {n:.2f} ({ms:.4f} ms)"
+                     for name, (ms, n) in copies.items()) or "none"
 
 
 def device_launches(fn) -> int:
@@ -1775,12 +1801,14 @@ def take_member(state: dict, m: int) -> dict:
 
 def graph_evals(first: int, n_steps: int) -> list:
     """The steps whose body a fresh runner's graph run calls through the
-    kernel wrappers: the first step of each shortwave kind in the window
-    twice, its eager warm-up and its capture (a capture calls every wrapper
-    once and launches nothing; the replays call none)."""
+    kernel wrappers: the first step of each graph key in the window (the
+    shortwave kind by the parity of the leapfrog pair's buffers, which
+    restarts at every run call) twice, its eager warm-up and its capture (a
+    capture calls every wrapper once and launches nothing; the replays call
+    none)."""
     firsts = {}
     for s in range(first, first + n_steps):
-        firsts.setdefault(s % 3 == 0, s)
+        firsts.setdefault((s % 3 == 0, (s - first) % 2), s)
     return sorted(2 * list(firsts.values()))
 
 
@@ -1969,10 +1997,36 @@ def graphs_phase(name: str, consts, run, state0, cal, n_steps: int,
         times[mode].append(1e3 * secs / n_turn)
         first += n_turn
     check_state(state, state["vor"][0].shape[0], f"{name}, turns")
-    prof = {mode: device_time_per_step(run, state, c, first, prof_steps,
-                                       consts, eager=mode == "eager")
-            for mode in ("graph", "eager")}
-    g, e = prof["graph"], prof["eager"]
+    # The profiled graph window's copies (StepGraphs.stats of its call):
+    # its copy records may exceed the eager window's by these alone. The
+    # tracer can lose a record of either window (a copy is not among the
+    # kernels device_time_per_step holds whole): both windows are profiled
+    # again, three pairs at most; then this raises.
+    for attempt in range(3):
+        prof = {mode: device_time_per_step(run, state, c, first, prof_steps,
+                                           consts, eager=mode == "eager")
+                for mode in ("graph", "eager")}
+        g, e = prof["graph"], prof["eager"]
+        count = dict(stats["copies"])
+        copies = {"copies_per_step": stats["copies_per_step"],
+                  "copied": stats["copied"], "count": count,
+                  "records": {m: sum(n for _, n in x["copies"].values())
+                              for m, x in (("graph", g), ("eager", e))}}
+        allowed = sum(count[k] for k in COPY_KINDS) / count["steps"]
+        copies["allowed"] = allowed
+        excess = copies["records"]["graph"] - copies["records"]["eager"]
+        if excess <= allowed + 1e-9:
+            break
+        print(f"  (profiled windows {attempt + 1}: {excess:.3f} copy "
+              f"records a step over the eager window's, {allowed:.3f} "
+              f"counted; graph {_copy_summary(g['copies'])}; eager "
+              f"{_copy_summary(e['copies'])})")
+    else:
+        raise RuntimeError(
+            f"graphs, {name}: {excess:.3f} copy records a step over the "
+            f"eager window's, more than the {allowed:.3f} the runner "
+            f"counted ({count}), in three pairs of windows: a copy it does "
+            f"not count")
     print(f"graphs, {name}: graph day (CUDA graphs, {cap['captures']} "
           f"captures in {cap['capture_s']:.3f} s; pool "
           f"{cap['pool_bytes'] / 1e6:.1f} MB, static buffers "
@@ -1995,7 +2049,18 @@ def graphs_phase(name: str, consts, run, state0, cal, n_steps: int,
           f"{100 * g['busy_ms'] / min(times['graph']):.1f} % (graph), "
           f"{100 * e['busy_ms'] / min(times['eager']):.1f} % (eager) "
           f"[{card}]")
+    print(f"graphs, {name}: copies into buffers "
+          f"{copies['copies_per_step']:.2f} a step in the profiled "
+          f"{prof_steps}-step graph window; the call's copies by kind "
+          f"{count}: {allowed:.3f} a step, against {excess:.3f} copy records "
+          f"a step over the eager window's (the step graphs copy "
+          f"{', '.join(copies['copied']['step']) or 'nothing'}; the daily "
+          f"forcing {', '.join(copies['copied']['forcing']) or 'nothing'}); "
+          f"copy records a step by name (ms a step), graph: "
+          f"{_copy_summary(g['copies'])}; eager: "
+          f"{_copy_summary(e['copies'])}")
     return {"bitwise": same, "diffs": diffs, "captures": cap,
+            "copies": copies,
             "ms_per_step": times, "eager_day_s": secs_eager_day,
             "eager_launches": eager_launches,
             "profile": {m: {k: v for k, v in x.items() if k != "top"}
@@ -2207,9 +2272,16 @@ def preset_path(name: str, base, libs, card: str, phases) -> dict:
                        state, cal_day, captured, card, gate=False)
     gph.pop("state")
     del state0, state
-    g = gph["profile"]["graph"]
+    g, e = gph["profile"]["graph"], gph["profile"]["eager"]
     res.update(busy_ms=g["busy_ms"], launches_per_step=g["launches"],
                ms_per_step=min(gph["ms_per_step"]["graph"]), graphs=gph)
+    print(f"{name} path ({N_STEPS_PROFILED}-step windows): busy ms/step "
+          f"graph {g['busy_ms']:.3f} against eager {e['busy_ms']:.3f} "
+          f"({g['busy_ms'] - e['busy_ms']:+.3f}); launches/step graph "
+          f"{g['launches']:.2f} against eager {e['launches']:.2f}; wall "
+          f"ms/step graph {min(gph['ms_per_step']['graph']):.3f} against "
+          f"eager {min(gph['ms_per_step']['eager']):.3f} (fastest windows) "
+          f"[{card}]")
     print(f"{name} path ({N_STEPS_PROFILED}-step graph window): by group, "
           f"ms/step: "
           + "; ".join(f"{k} {v:.3f}" for k, v in g["groups"].items())
@@ -2567,6 +2639,41 @@ TRACE_KERNELS = ("grid_dynamics_kernel", "grid_physics_kernel",
                  "spec2grid_fold_kernel")
 
 
+BENCH_SINGLE = (1, 1, 30)      # (discarded, timed, days) windows
+BENCH_ENSEMBLE = (2, 2, 1)
+BENCH_MEMBERS = 256
+BENCH_CHUNKS = (128, 256)
+
+
+def bench_phase(card: str) -> dict:
+    """The bench's cells at a short depth (bench.measure, the bench's own
+    code): T30 f32, one member (the headline's cell), and BENCH_MEMBERS
+    members in chunks of each of BENCH_CHUNKS. Prints each cell's line and
+    the single member's SYPD; raises if a cell fails or a figure is not a
+    positive finite number."""
+    models = BENCH.Models("cuda")
+    cells = {"single": BENCH.measure(models.get("T30"), 1, 1, BENCH_SINGLE)}
+    print("bench phase, " + BENCH._describe("T30 single member",
+                                            cells["single"], card))
+    for w in BENCH_CHUNKS:
+        cells[w] = BENCH.measure(models.get("T30"), BENCH_MEMBERS, w,
+                                 BENCH_ENSEMBLE)
+        print("bench phase, " + BENCH._describe(
+            f"T30 ensemble {BENCH_MEMBERS}", cells[w], card))
+    for name, cell in cells.items():
+        for key in ("msps_median", "busy_pct", "launches_per_step",
+                    "device_us_per_mstep", "peak_mb_per_member"):
+            x = cell[key]
+            if not (math.isfinite(x) and x > 0):
+                raise RuntimeError(f"bench phase, {name}: {key} = {x}")
+    value = BENCH.sypd(cells["single"]["msps_median"], T30L8.nsteps)
+    print(f"bench phase: T30 one member {value:.1f} SYPD "
+          f"({value / BENCH.REFERENCE_SYPD_ESTIMATE:.1f} x the "
+          f"{BENCH.REFERENCE_SYPD_ESTIMATE:.0f} SYPD single-core estimate of "
+          f"BASELINE.md) [{card}]")
+    return cells
+
+
 def trace_phase(run, state, cal, first_step: int) -> dict:
     """utils.profiling.trace around a 3-step window of the main path: the
     trace file exists and names every kernel of the step. The tracer can
@@ -2793,14 +2900,32 @@ def main() -> None:
           f"finite, error_flag false, launches {launches} (the "
           f"initialization's wrapper counts {init_launches} and the graph "
           f"day's device records, every step's: {day_records}); the graph "
-          f"day's wrapper calls {wrapper_calls} (steps 2 and 3 twice: the "
-          f"warm-up and the capture of each step kind), transform fields "
+          f"day's wrapper calls {wrapper_calls} (steps 2, 3, 5 and 6 twice: "
+          f"the warm-up and the capture of each graph key, the shortwave "
+          f"kind by the pair buffers' parity), transform fields "
           f"{fields_main}, plain chain and plain spectral update calls "
           f"{plain_calls}; unperturbed members differ from member 0 by "
           f"{spread:.1e}; first graph day {secs_first:.3f} s under the "
           f"profiler")
     main_graphs = graphs_phase("T30 B=128", consts, run, state0, cal,
                                N_STEPS, state, cal_day, captured, card)
+    # What a graph step still copies into the buffers: the fields named in
+    # coupling/coupler.py::STEP_COPIES, and the daily forcing's fields on a
+    # step that starts a day; every kernel's output, the slab models' fields
+    # and the coupler's planes are written in place.
+    copied = main_graphs["copies"]
+    count = copied["count"]
+    ctx_prof, _ = M.build_step_ctx(dataclasses.replace(main_graphs["cal"]),
+                                   main_graphs["first"], count["steps"])
+    want = (len(STEP_COPIES) * count["steps"]
+            + int(sum(ctx_prof["do_forcing"])) * len(FORCING_FIELDS))
+    if (set(copied["copied"]["step"]) != STEP_COPIES
+            or set(copied["copied"]["forcing"]) - FORCING_FIELDS
+            or count["step"] + count["forcing"] != want):
+        raise RuntimeError(
+            f"main path: the graph steps copy {copied} into their buffers, "
+            f"not the {want} copies of STEP_COPIES each step and the daily "
+            f"forcing's fields each day")
     launches_eager_day = main_graphs["eager_launches"]
     direct, inverse = expected_transforms(consts, N_STEPS, 1, False)
     print(f"main path, eager day: launches {launches_eager_day} "
@@ -3210,8 +3335,8 @@ def main() -> None:
                            f"({ens_rel:.3e}), members differ by "
                            f"{ens_spread:.3e}")
     print(f"SpeedyEns phase: {N_ENS} members, T30L8 f32 with SPPT on the "
-          f"card, CUDA graphs ({ens_graphs.stats['captures']} captures: two "
-          f"step kinds at {N_ENS} members and at 1), set_bc "
+          f"card, CUDA graphs ({ens_graphs.stats['captures']} captures: "
+          f"four graph keys at {N_ENS} members and at 1), set_bc "
           f"{t_ens_init:.2f} s, one day batched {t_ens:.2f} s "
           f"({1e3 * t_ens / 36:.2f} ms/step wall for all members), launches "
           f"{launches_ens}; members 0 and 1 against the same members stepped "
@@ -3237,6 +3362,12 @@ def main() -> None:
     # 6k. a trace of a 3-step window of the main path (utils.profiling).
     phases.start("profiling trace")
     traced = trace_phase(run, state, cal_day2, first_main)
+
+    # 6l. the bench (pyspeedy_tpu_torch/bench.py) at a short depth: one
+    # member for a 30-day window after a discarded one, and 256 members in
+    # chunks of two widths; any failure raises.
+    phases.start("bench phase")
+    bench_phase(card)
 
     phases.start("float64 card vs CPU")
     # 7. float64 end to end with physics: the card (the column kernels and

@@ -14,7 +14,13 @@ from ..physics.humidity import get_qsat
 from ..physics.shortwave_radiation import get_zonal_average_fields
 from .land import SNOW_DEPTH2COVER
 
-__all__ = ["set_forcing"]
+__all__ = ["set_forcing", "FORCING_FIELDS"]
+
+# The fields set_forcing writes.
+FORCING_FIELDS = frozenset({
+    "flux_solar_in", "flux_ozone_upper", "flux_ozone_lower",
+    "zenit_correction", "stratospheric_correction", "snowc", "alb_land",
+    "alb_sea", "alb_surface", "air_absortivity_co2", "tcorh", "qcorh"})
 
 _IYEAR_REF = 1950
 _DEL_CO2 = 0.005

@@ -86,18 +86,29 @@ def monthly_interp(field, month_idx: int, month_fraction: float):
     return f1 + w * (field[i2] - f1)
 
 
-def forint_t(for12, rows: torch.Tensor, w: torch.Tensor):
+def forint_t(for12, rows: torch.Tensor, w: torch.Tensor, out=None):
     """forint from its two rows (int64 (2,)) and its weight (0-d); with
-    monthly_weights' rows and weight, monthly_interp (the same formula)."""
+    monthly_weights' rows and weight, monthly_interp (the same formula).
+    The result is written into `out` when given."""
     f = for12.index_select(0, rows)
-    return f[0] + w * (f[1] - f[0])
+    return torch.add(f[0], w * (f[1] - f[0]), out=out)
 
 
-def forin5_t(for12, rows: torch.Tensor, w: torch.Tensor):
-    """forin5 from its five rows (int64 (5,)) and weights ((5,))."""
+def forin5_t(for12, rows: torch.Tensor, w: torch.Tensor, out=None):
+    """forin5 from its five rows (int64 (5,)) and weights ((5,)), written
+    into `out` when given."""
     f = for12.index_select(0, rows)
-    return (w[0] * f[0] + w[1] * f[1] + w[2] * f[2] + w[3] * f[3]
-            + w[4] * f[4])
+    return torch.add(w[0] * f[0] + w[1] * f[1] + w[2] * f[2] + w[3] * f[3],
+                     w[4] * f[4], out=out)
+
+
+def shared_plane(t):
+    """The plane that `t` holds for all its members, t[0], where t expands
+    one plane over its leading (member) axis (stride 0) or has one member;
+    else None."""
+    if t is None or not t.dim() or (t.stride(0) != 0 and t.shape[0] != 1):
+        return None
+    return t[0]
 
 
 # Layout of coupler_rows: rows 0-4 and weights 0-4 are forin5's, rows 5-6
@@ -115,11 +126,11 @@ class CouplerTables(NamedTuple):
     rows: torch.Tensor
     w: torch.Tensor
 
-    def forin5(self, for12):
-        return forin5_t(for12, self.rows[0:5], self.w[0:5])
+    def forin5(self, for12, out=None):
+        return forin5_t(for12, self.rows[0:5], self.w[0:5], out)
 
-    def forint(self, for12):
-        return forint_t(for12, self.rows[5:7], self.w[5])
+    def forint(self, for12, out=None):
+        return forint_t(for12, self.rows[5:7], self.w[5], out)
 
     def sst_anom(self, field):
         return forint_t(field, self.rows[_SST_ROWS], self.w[6])

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .boundaries import check_surface_fields, fill_missing_values
+from .interpolation import shared_plane
 
 __all__ = ["land_model_init", "couple_land_atm", "SNOW_DEPTH2COVER"]
 
@@ -71,15 +72,19 @@ def land_model_init(params, host):
     }
 
 
-def couple_land_atm(consts, state, day0: bool, tables):
+def couple_land_atm(consts, state, day0: bool, tables, out=None):
     """Interpolate climatologies to the date and advance the slab land model
     (land_model.f90:151-216). day0=True only during initialization.
     `tables` (interpolation.CouplerTables) holds the date's month rows and
-    weights on the device."""
+    weights on the device. With `out` (the state's own tensors by field)
+    the slab model writes stl_lm and land_temp into them, and the
+    interpolations go into the planes it gives (coupler.py)."""
+    into = lambda name: None if out is None else out[name]
+    plane = lambda name: None if out is None else shared_plane(out[name])
     state = dict(state)
-    stlcl = tables.forin5(state["stl12"])
-    snowdcl = tables.forint(state["snowd12"])
-    soilwcl = tables.forint(state["soilw12"])
+    stlcl = tables.forin5(state["stl12"], plane("stlcl_obs"))
+    snowdcl = tables.forint(state["snowd12"], plane("snowdcl_obs"))
+    soilwcl = tables.forint(state["soilw12"], plane("soilwcl_obs"))
     state["stlcl_obs"] = stlcl
     state["snowdcl_obs"] = snowdcl
     state["soilwcl_obs"] = soilwcl
@@ -96,8 +101,10 @@ def couple_land_atm(consts, state, day0: bool, tables):
             tanom + state["rhcapl"] * state["hfluxn"][..., 0, :, :])
         stl_lm_new = tanom + stlcl
         flag = state["land_coupling_flag"]
-        state["stl_lm"] = torch.where(flag, stl_lm_new, state["stl_lm"])
-        state["land_temp"] = torch.where(flag, stl_lm_new, stlcl)
+        state["stl_lm"] = torch.where(flag, stl_lm_new, state["stl_lm"],
+                                      out=into("stl_lm"))
+        state["land_temp"] = torch.where(flag, stl_lm_new, stlcl,
+                                         out=into("land_temp"))
 
     state["snow_depth"] = snowdcl
     state["soil_avail_water"] = soilwcl

@@ -17,6 +17,7 @@ import torch
 
 from .. import constants as pc
 from .boundaries import check_surface_fields, fill_missing_values
+from .interpolation import shared_plane
 
 __all__ = ["sea_model_init", "couple_sea_atm"]
 
@@ -122,8 +123,9 @@ def sea_model_init(params, host, radang):
     }
 
 
-def _run_sea_model(consts, state):
-    """Slab mixed-layer ocean + sea-ice integration (sea_model.f90:313-383)."""
+def _run_sea_model(consts, state, into):
+    """Slab mixed-layer ocean + sea-ice integration (sea_model.f90:313-383);
+    into(name) is the tensor to write field `name` into, or None."""
     ssrd = state["ssrd"]
     sea = lambda flux: flux[..., 1, :, :]    # the sea row of (..., 3, il, ix)
 
@@ -136,14 +138,14 @@ def _run_sea_model(consts, state):
 
     tanom = state["sst_om"] - state["sstcl_ob"]
     tanom = state["cdsea"] * (tanom + state["rhcaps"] * hflux)
-    sst_om = tanom + state["sstcl_ob"]
+    sst_om = torch.add(tanom, state["sstcl_ob"], out=into("sst_om"))
 
     hflux = hflux_i + BETA * (SSTFR - state["tice_om"])
     tanom = state["tice_om"] - state["ticecl_ob"]
     anom0 = 20.0
     cdis = state["cdice"] * (anom0 / (anom0 + torch.abs(tanom)))
     tanom = cdis * (tanom + state["rhcapi"] * hflux)
-    tice_om = tanom + state["ticecl_ob"]
+    tice_om = torch.add(tanom, state["ticecl_ob"], out=into("tice_om"))
 
     state = dict(state)
     state["sst_om"] = sst_om
@@ -152,11 +154,17 @@ def _run_sea_model(consts, state):
     return state
 
 
-def couple_sea_atm(consts, state, day0: bool, tables):
+def couple_sea_atm(consts, state, day0: bool, tables, out=None):
     """Interpolate SST/ice climatology, adjust over sea ice, advance the slab
     ocean, and compose the atmosphere-side SST fields
     (sea_model.f90:193-310). `tables` (interpolation.CouplerTables) holds
-    the date's month rows and weights on the device."""
+    the date's month rows and weights on the device. With `out` (the
+    state's own tensors by field) the member-batched fields are written
+    into them: sstan_ob, the slab model's sst_om and tice_om, sstan_am,
+    sst_am and ssti_om; sstcl_ob, sicecl_ob and ticecl_ob into the planes
+    it gives (coupler.py)."""
+    into = lambda name: None if out is None else out[name]
+    plane = lambda name: None if out is None else shared_plane(out[name])
     state = dict(state)
 
     sstcl = tables.forin5(state["sst12"])
@@ -167,7 +175,7 @@ def couple_sea_atm(consts, state, day0: bool, tables):
     ssta_flag = state["sst_anomaly_coupling_flag"]
     state["sstan_ob"] = torch.where(
         ssta_flag, tables.sst_anom(state["sst_anom"]),
-        state["sstan_ob"])
+        state["sstan_ob"], out=into("sstan_ob"))
 
     # Freezing-point adjustment over sea ice (sea_model.f90:232-252)
     warm = sstcl > SSTFR
@@ -180,9 +188,12 @@ def couple_sea_atm(consts, state, day0: bool, tables):
     ticecl_c = SSTFR + (sstcl - SSTFR) / sicecl_c
     sstcl_c = torch.full_like(sstcl, SSTFR)
 
-    state["sicecl_ob"] = torch.where(warm, sicecl_w, sicecl_c)
-    state["ticecl_ob"] = torch.where(warm, ticecl_w, ticecl_c)
-    state["sstcl_ob"] = torch.where(warm, sstcl_w, sstcl_c)
+    state["sicecl_ob"] = torch.where(warm, sicecl_w, sicecl_c,
+                                     out=plane("sicecl_ob"))
+    state["ticecl_ob"] = torch.where(warm, ticecl_w, ticecl_c,
+                                     out=plane("ticecl_ob"))
+    state["sstcl_ob"] = torch.where(warm, sstcl_w, sstcl_c,
+                                    out=plane("sstcl_ob"))
 
     if day0:
         state["sst_om"] = torch.zeros_like(sstcl)  # sea_coupling_flag <= 0
@@ -191,19 +202,23 @@ def couple_sea_atm(consts, state, day0: bool, tables):
         state["wsst_ob"] = torch.zeros_like(sstcl)
     else:
         # ice_coupling_flag > 0 -> run the slab model every call
-        state = _run_sea_model(consts, state)
+        state = _run_sea_model(consts, state, into)
 
     # Compose atmosphere-side fields (sea_model.f90:274-309)
     state["sstan_am"] = torch.where(ssta_flag, state["sstan_ob"],
-                                  torch.zeros_like(sstcl))
-    state["sst_am"] = state["sstcl_ob"] + state["sstan_am"]
+                                    torch.zeros_like(sstcl),
+                                    out=into("sstan_am"))
+    sst_am = state["sstcl_ob"] + state["sstan_am"]
 
     # ice_coupling_flag = 1: use model ice
     state["sice_am"] = state["sice_om"]
     state["tice_am"] = state["tice_om"]
 
-    state["sst_am"] = state["sst_am"] + state["sice_am"] * (
-        state["tice_am"] - state["sst_am"])
-    state["ssti_om"] = state["sst_om"] + state["sice_am"] * (
-        state["tice_am"] - state["sst_om"])
+    state["sst_am"] = torch.add(
+        sst_am, state["sice_am"] * (state["tice_am"] - sst_am),
+        out=into("sst_am"))
+    state["ssti_om"] = torch.add(
+        state["sst_om"], state["sice_am"] * (state["tice_am"]
+                                             - state["sst_om"]),
+        out=into("ssti_om"))
     return state

@@ -54,13 +54,13 @@ def build_geopot(params: ModelParams, geom: Geometry,
 
 
 def get_geopotential(gp: GeopotTables, t: torch.Tensor,
-                     phis: torch.Tensor) -> torch.Tensor:
+                     phis: torch.Tensor, out=None) -> torch.Tensor:
     """Bottom-up hydrostatic integration in spectral space
     (geopotential.f90:49-77).
 
     t: (..., kx, mx, nx) spectral temperature; phis: (2, mx, nx), shared by
     all members, or anything that broadcasts against t[..., 0, :, :].
-    Returns phi: (..., kx, mx, nx).
+    Returns phi: (..., kx, mx, nx), written into `out` when given.
     """
     kx = t.shape[-3]
     x1, x2 = gp.xgeop1_host, gp.xgeop2_host
@@ -69,11 +69,11 @@ def get_geopotential(gp: GeopotTables, t: torch.Tensor,
     for k in range(kx - 2, -1, -1):
         levels[k] = (levels[k + 1] + x2[k + 1] * t[..., k + 1, :, :]
                      + x1[k] * t[..., k, :, :])
-    phi = torch.stack(levels, dim=-3)
+    phi = torch.stack(levels, dim=-3, out=out)
 
     # Zonal-mean (m=0) lapse-rate correction in the free troposphere: corf is
     # zero at k=0 and k=kx-1, and only the m=0 row is touched (in place: phi
-    # is a fresh tensor).
+    # is a fresh tensor or `out`).
     dtk = t[..., 2:, 0, :] - t[..., :-2, 0, :]
     phi[..., 1:-1, 0, :] += gp.corf[1:-1, None] * dtk
     return phi

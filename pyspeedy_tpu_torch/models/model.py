@@ -535,7 +535,7 @@ def daily_forcing(consts: Consts, state: dict, ctx_i) -> dict:
 
 
 def step_body(consts: Consts, state: dict, shortwave: bool,
-              coupler: CouplerTables, sppt_se=None) -> dict:
+              coupler: CouplerTables, sppt_se=None, out=None) -> dict:
     """The rest of a step (speedy.f90:51-72) on the member-batched state:
     the leapfrog step with the physics (the shortwave variant when
     `shortwave`), the diagnostics check, the coupler exchange at the
@@ -544,22 +544,36 @@ def step_body(consts: Consts, state: dict, shortwave: bool,
     Nothing here reads a host value but `shortwave`, the step length and
     the consts, and nothing reads a device value back: the function a CUDA
     graph of the step records (parallel/ensemble.py::StepGraphs), keyed on
-    `shortwave`."""
+    `shortwave`.
+
+    `out`, when given, is a dense tensor by field for the step to write
+    into (the graph path passes its static buffers: for every field but the
+    leapfrog pairs the tensors of `state` itself, for the pairs a second
+    set): what the step writes through its kernels and its last elementwise
+    passes goes straight there (timestep.step, couple_sea_land), so the
+    returned state holds those tensors themselves. Without it every field
+    written comes back as a new tensor."""
     nmem = state["vor"][0].shape[0]
     state = dict(state)
-    state["compute_shortwave"] = state["compute_shortwave"].new_full(
-        (nmem,), shortwave)
+    if out is None:
+        state["compute_shortwave"] = state["compute_shortwave"].new_full(
+            (nmem,), shortwave)
+    else:
+        state["compute_shortwave"] = out["compute_shortwave"].fill_(
+            shortwave)
     pctx = {"compute_shortwave": shortwave}
     if sppt_se is not None:
         pctx["sppt_se"] = sppt_se
     state = step(consts, state, 2, 2, 2.0 * consts.params.delt,
-                 _physics_fn(consts), pctx)
+                 _physics_fn(consts), pctx, out=out)
 
     bad = check_diagnostics(consts, state, 1)
-    state["error_flag"] = state["error_flag"] | bad
+    state["error_flag"] = torch.bitwise_or(
+        state["error_flag"], bad,
+        out=None if out is None else out["error_flag"])
 
     # Coupler exchange at the advanced date (speedy.f90:69-72)
-    state = couple_sea_land(consts, state, coupler)
+    state = couple_sea_land(consts, state, coupler, out)
     return ensure_member_axis(state, nmem)
 
 

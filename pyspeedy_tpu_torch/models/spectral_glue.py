@@ -22,20 +22,23 @@ from .tendencies import combine_specs, spectral_linear_tendencies
 from .timestep import diffusion_and_drag, step_field
 
 __all__ = ["spectral_update", "spectral_update_plain", "update_inputs",
-           "apply_spectral_update"]
+           "apply_spectral_update", "PAIR_FIELDS"]
 
 
 def spectral_update(consts, j1: int, dt: float, eps: float, specs, psdt,
                     vor0, vor1, div0, div1, t0, t1, ps0, ps1,
-                    trf0, trf1, phi, tcorh, qcorh):
+                    trf0, trf1, phi, tcorh, qcorh, out=None):
     """specs: direct-transform outputs (list); state pairs at both time
     levels with tracers FLAT (B, 2, ntr*kx, mx, nx); tcorh/qcorh
     (B, 2, mx, nx). Returns the ten new state tensors
-    (ps, vor, div, t, trf) x (lev1, lev2). CUDA tensors launch the kernel
-    (or the call raises), CPU tensors take spectral_update_plain."""
+    (ps, vor, div, t, trf) x (lev1, lev2), stored into `out` (ten dense
+    tensors, which may be the state pairs themselves) when given. CUDA
+    tensors launch the kernel (or the call raises), CPU tensors take
+    spectral_update_plain."""
     return GK.spectral_update(spectral_update_plain, consts, j1, dt, eps,
                               specs, psdt, vor0, vor1, div0, div1, t0, t1,
-                              ps0, ps1, trf0, trf1, phi, tcorh, qcorh)
+                              ps0, ps1, trf0, trf1, phi, tcorh, qcorh,
+                              out=out)
 
 
 def spectral_update_plain(consts, j1: int, dt: float, eps: float, specs,
@@ -86,18 +89,32 @@ def update_inputs(state, psdt) -> tuple:
             state["phi"], state["tcorh"], state["qcorh"])
 
 
-def apply_spectral_update(consts, state, specs, psdt, j1: int, dt: float):
-    """Run spectral_update over the member-batched state dict."""
+PAIR_FIELDS = ("ps", "vor", "div", "t", "tr")
+
+
+def apply_spectral_update(consts, state, specs, psdt, j1: int, dt: float,
+                          out=None):
+    """Run spectral_update over the member-batched state dict. With `out`
+    (a dict holding a dense pair of tensors for each of PAIR_FIELDS, the
+    batched runner's buffers on its graph path) the new pairs are stored
+    into those tensors, and the state comes back holding them."""
     params = consts.params
     eps = 0.0 if j1 == 1 else params.rob
     ntr, kx = params.ntr, params.kx
+    dst = None
+    if out is not None:
+        dst = [a.flatten(2, 3) if name == "tr" else a
+               for name in PAIR_FIELDS for a in out[name]]
 
     outs = spectral_update(consts, j1, dt, eps, list(specs),
-                           *update_inputs(state, psdt))
+                           *update_inputs(state, psdt), out=dst)
 
+    state = dict(state)
+    if out is not None:
+        state.update((name, out[name]) for name in PAIR_FIELDS)
+        return state
     (ps0, ps1, vor0, vor1, div0, div1, t0, t1, trf0, trf1) = outs
     unflat = lambda a: a.unflatten(2, (ntr, kx))
-    state = dict(state)
     state["ps"] = (ps0, ps1)
     state["vor"] = (vor0, vor1)
     state["div"] = (div0, div1)

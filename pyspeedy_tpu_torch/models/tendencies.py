@@ -145,7 +145,8 @@ def grid_dynamics_core(tab: ColumnTables, vorg, divg, tg, trg_flat, ug0, vg0,
     return out
 
 
-def grid_tendency_specs(consts, state, j2: int, physics_fn=None, ctx=None):
+def grid_tendency_specs(consts, state, j2: int, physics_fn=None, ctx=None,
+                        out=None):
     """The transform-and-grid-kernel part of a step: inverse transforms ->
     grid dynamics (the CUDA kernel on the card, the plain version on the CPU)
     -> physics (physics_fn, when given, adds its tendencies at time level 0
@@ -156,7 +157,9 @@ def grid_tendency_specs(consts, state, j2: int, physics_fn=None, ctx=None):
     spectral-side combination (tendencies.f90:238-268 second half), and psdt
     is the spectral log-ps tendency (grid part, already mean-masked).
     `state` comes back with the geopotential updated (and what the physics
-    wrote)."""
+    wrote). With `out` (the state's own tensors by field, see
+    timestep.step) the geopotential is written into out["phi"] and the
+    physics gets `out` in its ctx."""
     sp = consts.sp
     kx = consts.params.kx
 
@@ -188,8 +191,11 @@ def grid_tendency_specs(consts, state, j2: int, physics_fn=None, ctx=None):
 
     state = dict(state)
     # --- physics (tendencies.f90:229-232) ---
-    state["phi"] = get_geopotential(consts.gp, state["t"][0], state["phis"])
+    state["phi"] = get_geopotential(consts.gp, state["t"][0], state["phis"],
+                                    out=None if out is None else out["phi"])
     if physics_fn is not None:
+        if out is not None:
+            ctx = {**ctx, "out": out}
         utend, vtend, ttend, trtend_flat, state = physics_fn(
             consts, state, ctx, utend, vtend, ttend, trtend_flat)
 

@@ -91,7 +91,7 @@ def diffusion_and_drag(consts, vor0, div0, t0, trf0, tcorh, qcorh, vordt,
 
 
 def step(consts, state, j1: int, j2: int, dt: float, physics_fn=None,
-         ctx=None):
+         ctx=None, out=None):
     """One (half/full/leapfrog) step (time_stepping.f90:38-147) of the
     member-batched state.
 
@@ -107,6 +107,14 @@ def step(consts, state, j1: int, j2: int, dt: float, physics_fn=None,
     explicit gravity-wave branch (alph < 0.5, dead at the reference
     default) keeps the op-by-op formulation of the JAX package, in plain
     PyTorch after the transforms and the column kernels on either device.
+
+    `out`, when given, is the state's own tensors (a dict by field: the
+    batched runner's buffers on its graph path). On the semi-implicit
+    branch the step writes there what it writes through its kernels: the
+    geopotential, the physics' diagnostics, cache and SPPT spectrum, and
+    the new prognostic pairs (grid_tendency_specs,
+    spectral_glue.apply_spectral_update); the explicit branch returns new
+    tensors.
     """
     params = consts.params
     if params.alph >= 0.5:
@@ -114,8 +122,9 @@ def step(consts, state, j1: int, j2: int, dt: float, physics_fn=None,
         from .spectral_glue import apply_spectral_update
 
         specs, psdt, state = grid_tendency_specs(consts, state, j2 - 1,
-                                                 physics_fn, ctx)
-        return apply_spectral_update(consts, state, specs, psdt, j1, dt)
+                                                 physics_fn, ctx, out=out)
+        return apply_spectral_update(consts, state, specs, psdt, j1, dt,
+                                     out=out)
 
     vordt, divdt, tdt, psdt, trdt, state = get_tendencies(
         consts, state, j2 - 1, physics_fn, ctx)

@@ -41,6 +41,7 @@ from .. import constants as pc
 __all__ = ["ColumnTables", "build_column_tables", "grid_dynamics",
            "grid_dynamics_cuda", "PhysicsTables", "build_physics_tables",
            "grid_physics", "grid_physics_cuda", "build_kernels",
+           "copy_into",
            "build_command", "build_logs", "launch_counts",
            "reset_launch_counts", "find_nvcc", "KernelSpec", "KERNELS",
            "KERNEL_SOURCES", "NVCC_FLAGS"]
@@ -509,16 +510,53 @@ def _check_physics_inputs(phys, sw_flag, ug, vg, tg, qg, phig, pslg, bc, cache,
     return nmem, kx, il, ix, strides
 
 
+def copy_into(out, results) -> tuple:
+    """Copy each of `results` into its tensor of `out` (a tensor that is its
+    own destination stays); returns `out` as a tuple. The CPU's destination
+    path of the kernel wrappers."""
+    out = tuple(out)
+    if len(out) != len(results):
+        raise ValueError(f"out: {len(out)} tensors for {len(results)} "
+                         f"results")
+    for dst, res in zip(out, results):
+        if dst is not res:
+            dst.copy_(res)
+    return out
+
+
+def _destinations(out, shapes, like, what: str) -> tuple:
+    """`out` checked against `shapes`: dense tensors of `like`'s dtype and
+    device; raises otherwise."""
+    out = tuple(out)
+    if len(out) != len(shapes):
+        raise ValueError(f"{what}: {len(out)} tensors, expected "
+                         f"{len(shapes)}")
+    for n, (x, shape) in enumerate(zip(out, shapes)):
+        if (tuple(x.shape) != tuple(shape) or x.dtype != like.dtype
+                or x.device != like.device or not x.is_contiguous()):
+            raise ValueError(
+                f"{what}[{n}]: {tuple(x.shape)} {x.dtype} on {x.device}, "
+                f"expected a dense {tuple(shape)} {like.dtype} on "
+                f"{like.device}")
+    return out
+
+
 def grid_physics_cuda(consts, sw_flag, ug, vg, tg, qg, phig, pslg, bc, cache,
-                      ablco2, phisg=None, m0corr=None, sppt_pattern=None):
+                      ablco2, phisg=None, m0corr=None, sppt_pattern=None,
+                      out=None):
     """Launch the CUDA physics kernel on PyTorch's current stream. Same
     arguments and results as ``physics.driver.grid_physics``: (utend, vtend,
     ttend, qtend, diag, new_cache). On a step without shortwave the cache
     tensors are read in place and come back as new_cache. With
     consts.bf16_tendencies (float32 only) the four tendencies come back in
-    bfloat16, rounded at the store. Raises if the inputs are not what the
-    kernel takes, if the build fails or if the launch is refused; does not
-    synchronise."""
+    bfloat16, rounded at the store. `out`, when given, is (diag, cache):
+    dense tensors of the diagnostics' and the cache's shapes that the
+    kernel stores into and that come back as diag and new_cache. The
+    shortwave variant reads none of the cache: it stores the new one, so
+    `out`'s cache may be the state's; on a step without shortwave the
+    cache read is copied into `out`'s where the two differ. Raises if the
+    inputs are not what the kernel takes, if the build fails or if the
+    launch is refused; does not synchronise."""
     sw_flag = bool(sw_flag)
     phys = consts.phys
     bf16 = bool(consts.bf16_tendencies)
@@ -533,21 +571,19 @@ def grid_physics_cuda(consts, sw_flag, ug, vg, tg, qg, phig, pslg, bc, cache,
                          f"{tg.device}")
     fn = _load("grid_physics")
 
-    new = lambda *shape: torch.empty(shape, dtype=tg.dtype, device=tg.device)
-    plane = lambda: new(nmem, il, ix)
-    if sw_flag:
-        new_cache = (new(nmem, kx, il, ix), new(nmem, 4, kx, il, ix),
-                     new(nmem, 2, il, ix), plane(), plane(), plane(),
-                     plane())
+    new = lambda shape: torch.empty(shape, dtype=tg.dtype, device=tg.device)
+    cache_shapes, diag_shapes = _physics_output_shapes(nmem, kx, il, ix)
+    if out is None:
+        diag = tuple(new(shape) for shape in diag_shapes)
+        new_cache = (tuple(new(shape) for shape in cache_shapes) if sw_flag
+                     else tuple(cache))
     else:
-        new_cache = tuple(cache)
+        diag = _destinations(out[0], diag_shapes, tg, "out diag")
+        dst = _destinations(out[1], cache_shapes, tg, "out cache")
+        new_cache = dst if sw_flag else tuple(cache)
     tends = tuple(torch.empty((nmem, kx, il, ix), device=tg.device,
                               dtype=torch.bfloat16 if bf16 else tg.dtype)
                   for _ in range(4))
-    diag = (plane(), plane(), plane(), plane(), plane(), plane(),
-            new(nmem, 3, il, ix), new(nmem, 3, il, ix), new(nmem, 3, il, ix),
-            new(nmem, 3, il, ix), new(nmem, 3, il, ix), new(nmem, 3, il, ix),
-            new(nmem, 4, il, ix), new(nmem, 2, kx, il, ix))
 
     ptr = lambda x: 0 if x is None else x.data_ptr()
     ptrs = [ptr(x) for x in (ug, vg, tg, qg, phig, pslg, phisg, m0corr,
@@ -571,18 +607,39 @@ def grid_physics_cuda(consts, sw_flag, ug, vg, tg, qg, phig, pslg, bc, cache,
             f"shortwave={sw_flag}, bf16_tendencies={bf16})")
     launch_counts[("grid_physics_sw" if sw_flag else "grid_physics_nosw")
                   + ("_bf16" if bf16 else "")] += 1
+    if out is not None and not sw_flag:
+        new_cache = copy_into(out[1], new_cache)
     return (*tends, diag, new_cache)
 
 
+def _physics_output_shapes(nmem: int, kx: int, il: int, ix: int) -> tuple:
+    """(cache shapes, diagnostic shapes) of the physics' outputs, in the
+    order of physics.driver.CACHE_FIELDS and DIAG_FIELDS."""
+    plane = (nmem, il, ix)
+    cache = ((nmem, kx, il, ix), (nmem, 4, kx, il, ix), (nmem, 2, il, ix),
+             plane, plane, plane, plane)
+    rows3 = (nmem, 3, il, ix)
+    diag = ((plane,) * 6 + (rows3,) * 6
+            + ((nmem, 4, il, ix), (nmem, 2, kx, il, ix)))
+    return cache, diag
+
+
 def grid_physics(plain_fn, consts, sw_flag, ug, vg, tg, qg, phig, pslg, bc,
-                 cache, ablco2, phisg=None, m0corr=None, sppt_pattern=None):
+                 cache, ablco2, phisg=None, m0corr=None, sppt_pattern=None,
+                 out=None):
     """The dispatch rule: CPU tensors take `plain_fn` (the plain PyTorch
     version, ``physics.driver.grid_physics``); CUDA tensors launch the
-    kernel or raise."""
+    kernel or raise. With `out` ((diag, cache), see grid_physics_cuda) the
+    diagnostics and the cache land there and come back: the kernel stores
+    into them, the plain version's results are copied in."""
     if tg.device.type == "cpu":
-        return plain_fn(consts, sw_flag, ug, vg, tg, qg, phig, pslg, bc,
-                        cache, ablco2, phisg=phisg, m0corr=m0corr,
-                        sppt_pattern=sppt_pattern)
+        res = plain_fn(consts, sw_flag, ug, vg, tg, qg, phig, pslg, bc,
+                       cache, ablco2, phisg=phisg, m0corr=m0corr,
+                       sppt_pattern=sppt_pattern)
+        if out is None:
+            return res
+        return (*res[:4], copy_into(out[0], res[4]),
+                copy_into(out[1], res[5]))
     return grid_physics_cuda(consts, sw_flag, ug, vg, tg, qg, phig, pslg, bc,
                              cache, ablco2, phisg=phisg, m0corr=m0corr,
-                             sppt_pattern=sppt_pattern)
+                             sppt_pattern=sppt_pattern, out=out)

@@ -29,7 +29,8 @@ import numpy as np
 import torch
 
 from .. import constants as pc
-from .column_kernels import _SUPPORTED_KX, _load, launch_counts
+from .column_kernels import (_SUPPORTED_KX, _destinations, _load, copy_into,
+                             launch_counts)
 
 __all__ = ["spectral_update", "spectral_update_cuda", "kernel_levels",
            "UpdateTables", "build_update_tables", "field_strides",
@@ -113,13 +114,19 @@ def build_update_tables(consts) -> UpdateTables:
 
 def spectral_update_cuda(consts, j1: int, dt: float, eps: float, specs, psdt,
                          vor0, vor1, div0, div1, t0, t1, ps0, ps1, trf0, trf1,
-                         phi, tcorh, qcorh):
+                         phi, tcorh, qcorh, out=None):
     """Launch the spectral-update kernel on PyTorch's current stream. Same
     arguments and results as ``models.spectral_glue.spectral_update_plain``:
     the ten new state tensors (ps, vor, div, t, trf) x (lev1, lev2), dense.
-    Raises if the inputs are not what the kernel takes (checked before
-    anything else), if they do not lie on a CUDA device, if the build fails
-    or if the launch is refused; does not synchronise."""
+    `out`, when given, is ten dense tensors of those shapes that the kernel
+    stores into and that come back; they may be the state inputs
+    themselves: every point of the ten outputs is stored by the thread that
+    read that point of ps, vor, div, t and trf at both time levels, after
+    it read them (csrc/spectral_update.cu, finish and streamed), and no
+    thread reads another point of them. Raises if the inputs are not what
+    the kernel takes (checked before anything else), if they do not lie on
+    a CUDA device, if the build fails or if the launch is refused; does not
+    synchronise."""
     params, sp = consts.params, consts.sp
     kx, ntr, mx, nx = params.kx, params.ntr, sp.mx, sp.nx
     if kx not in _SUPPORTED_KX:
@@ -160,9 +167,13 @@ def spectral_update_cuda(consts, j1: int, dt: float, eps: float, specs, psdt,
                          f"{psdt.device}")
     fn = _load("spectral_update")
 
-    new = lambda shape: torch.empty(shape, dtype=dtype, device=psdt.device)
-    outs = (new(plane), new(plane), new(lev3), new(lev3), new(lev3),
-            new(lev3), new(lev3), new(lev3), new(trac), new(trac))
+    out_shapes = (plane, plane, lev3, lev3, lev3, lev3, lev3, lev3, trac,
+                  trac)
+    if out is None:
+        outs = tuple(torch.empty(shape, dtype=dtype, device=psdt.device)
+                     for shape in out_shapes)
+    else:
+        outs = _destinations(out, out_shapes, psdt, "out")
     if nmem == 0:
         return outs
     c_in = (ctypes.c_void_p * len(ins))(*(x.data_ptr() for x in ins))
@@ -193,10 +204,15 @@ def _input_name(n: int, nspecs: int) -> str:
 
 
 def spectral_update(plain_fn, consts, j1: int, dt: float, eps: float, specs,
-                    psdt, *state):
+                    psdt, *state, out=None):
     """The dispatch rule: CPU tensors take `plain_fn` (the plain PyTorch
     version, ``models.spectral_glue.spectral_update_plain``); CUDA tensors
-    launch the kernel or raise."""
+    launch the kernel or raise. With `out` (ten tensors, see
+    spectral_update_cuda) the results land there and `out` comes back: the
+    kernel stores into it, the plain version's results are copied in."""
     if psdt.device.type == "cpu":
-        return plain_fn(consts, j1, dt, eps, specs, psdt, *state)
-    return spectral_update_cuda(consts, j1, dt, eps, specs, psdt, *state)
+        res = plain_fn(consts, j1, dt, eps, specs, psdt, *state)
+        return res if out is None else copy_into(out, res)
+    return spectral_update_cuda(consts, j1, dt, eps, specs, psdt, *state,
+                                out=out)
+

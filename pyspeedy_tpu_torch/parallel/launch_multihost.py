@@ -111,7 +111,10 @@ def worker(rank: int, world: int, n_space: int, device: str, backend: str,
     ok = ok and sppt_ok
 
     members = D.process_local_members(n_members, mesh)
-    print(json.dumps({
+    # One write of the whole line: the workers share the launcher's stdout
+    # and print at the same moment, and an unbuffered print writes the
+    # line and its newline apart.
+    sys.stdout.write(json.dumps({
         "rank": rank, "world": world, "device": str(dev),
         "backend": dist.get_backend(),
         "group_backends": {d: dist.get_backend(mesh.get_group(d))
@@ -119,7 +122,8 @@ def worker(rank: int, world: int, n_space: int, device: str, backend: str,
         "mesh": mesh_shape(mesh), "members": [members.start, members.stop],
         "max_rel_err_vs_single": max_err, "limit": LIMIT,
         "sppt_member_spread": spread, "sppt_spec_advanced": advanced,
-        "sppt_ok": sppt_ok, "ok": ok}), flush=True)
+        "sppt_ok": sppt_ok, "ok": ok}) + "\n")
+    sys.stdout.flush()
     dist.barrier()
     dist.destroy_process_group()
     if not ok:

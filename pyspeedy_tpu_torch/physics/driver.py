@@ -271,8 +271,12 @@ def get_physical_tendencies(consts, state, ctx, utend, vtend, ttend,
     and humidity is tracer 0.
 
     ctx["compute_shortwave"] (a Python bool) selects the fresh or the cached
-    shortwave branch. With params.sppt_on (physics.f90:234-248) the step
-    advances the state's SPPT spectrum by one AR(1) step with the noise
+    shortwave branch. ctx["out"], when there, is the state's own tensors (a
+    dict by field, the batched runner's buffers on its graph path): the
+    diagnostics, the cache and the SPPT spectrum are written into them (the
+    kernel stores there; see ops.column_kernels.grid_physics) and the state
+    comes back holding them. With params.sppt_on (physics.f90:234-248) the
+    step advances the state's SPPT spectrum by one AR(1) step with the noise
     ctx["sppt_se"] (sigma * eta, (B, 2, kx, mx, nx), which the batched
     runner draws for a whole run call) or, without it, with the noise of a
     one-step group at ctx["stepno"], as the JAX package draws it for a step
@@ -286,6 +290,7 @@ def get_physical_tendencies(consts, state, ctx, utend, vtend, ttend,
     package."""
     kx = consts.params.kx
     sw_flag = bool(ctx["compute_shortwave"])
+    out = ctx.get("out")
     state = dict(state)
     sppt_spec = None
     if consts.params.sppt_on:
@@ -293,9 +298,13 @@ def get_physical_tendencies(consts, state, ctx, utend, vtend, ttend,
         if se is None:
             se = next(SP.draw_run_noise(consts, state["sppt_key"],
                                         int(ctx["stepno"]), 1))
-        sppt_spec = SP.advance(consts.sppt, state["sppt_spec"], se)
+        sppt_spec = SP.advance(consts.sppt, state["sppt_spec"], se,
+                               out=None if out is None else out["sppt_spec"])
         state["sppt_spec"] = sppt_spec
     args, kwargs = physics_grid_inputs(consts, state, sw_flag, sppt_spec)
+    if out is not None:
+        kwargs["out"] = (tuple(out[name] for name in DIAG_FIELDS),
+                         tuple(out[name] for name in CACHE_FIELDS))
     ut, vt, tt, qt, diag, new_cache = dispatch_grid_physics(
         grid_physics, consts, sw_flag, *args, **kwargs)
 

@@ -215,9 +215,10 @@ def stationary_draw(consts, key: torch.Tensor) -> torch.Tensor:
 
 
 def advance(tables: SpptTables, spec: torch.Tensor,
-            sigma_eta: torch.Tensor) -> torch.Tensor:
-    """One AR(1) step of the spectrum: phi * spec + sigma * eta."""
-    return tables.phi * spec + sigma_eta
+            sigma_eta: torch.Tensor, out=None) -> torch.Tensor:
+    """One AR(1) step of the spectrum: phi * spec + sigma * eta, into `out`
+    when given (which may be `spec` itself)."""
+    return torch.add(tables.phi * spec, sigma_eta, out=out)
 
 
 def gen_sppt_n(consts, state, n: int, stepno):

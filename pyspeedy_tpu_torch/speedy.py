@@ -54,10 +54,6 @@ __all__ = ["Speedy", "SpeedyEns", "MODEL_STATE_DEF"]
 _CHECKPOINT_VERSION = 4
 _CHECKPOINT_LOADABLE = (3, 4)
 
-# Members advanced together by SpeedyEns: the whole ensemble, or chunks of
-# this many members when it divides the ensemble evenly. Not tuned on a GPU.
-MEMBER_CHUNK = 128
-
 # One Consts (tables on the device) per configuration and device, shared by
 # every instance, built together with its numpy geometry and its runner.
 _CONSTS_CACHE: dict = {}
@@ -566,7 +562,7 @@ class SpeedyEns:
         consts = lead._consts
         run = lead._run
         n = len(self.members)
-        chunk = pick_member_chunk(n, MEMBER_CHUNK)
+        chunk = pick_member_chunk(n, consts.params)
         ctx, cal = M.build_step_ctx(lead._cal, lead._current_step, n_steps)
         # With the physics off nothing writes the per-step diagnostics: they
         # stay single-member, shared by all members.

@@ -366,7 +366,9 @@ def card_model(**kw):
 def test_graph_day_is_bitwise_the_eager_day(cfg):
     """Needs an NVIDIA GPU and nvcc: a day of 4 distinct members, T30 f32,
     through the graphs and through the eager loop of the same runner,
-    every field bitwise; a second call replays without capturing."""
+    every field bitwise; a second call replays without capturing (four
+    graphs: the shortwave kinds by the two parities of the pair's
+    buffers)."""
     consts, state1, cal = card_model(**CONFIGS[cfg])
     run = TE.make_run_steps_batched(consts, device="cuda")
     st = TE.broadcast_state(state1, 4)
@@ -377,7 +379,7 @@ def test_graph_day_is_bitwise_the_eager_day(cfg):
     ctx, _ = TM.build_step_ctx(dataclasses.replace(cal), 2, n)
     assert_bitwise(run(st, ctx), run(st, ctx, eager=True))
     captures = run.graphs.stats["captures"]
-    assert captures == 2
+    assert captures == 4
     assert_bitwise(run(st, ctx), run(st, ctx, eager=True))
     assert run.graphs.stats["captures"] == captures
 
@@ -418,7 +420,8 @@ def test_a_width_sweep_on_the_card_drops_old_graphs():
     captures = run.graphs.stats["captures"]
     one = TE.broadcast_state(state1, 1)
     assert_bitwise(run(one, ctx), run(one, ctx, eager=True))
-    assert run.graphs.stats["captures"] == captures + 2     # steps 2 and 3
+    # steps 2 and 3: (no shortwave, parity 0), (shortwave, parity 1)
+    assert run.graphs.stats["captures"] == captures + 2
     assert len(run.graphs.plans) == bound
 
 

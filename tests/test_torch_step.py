@@ -246,7 +246,7 @@ def test_single_member_equals_member_zero_of_ensemble():
                            b[:1].expand_as(b[1:]).numpy()) <= 1e-14, name
 
 
-def test_batched_layout_and_untouched_fields():
+def test_batched_layout_and_untouched_fields(monkeypatch):
     """The runner keeps the layout broadcast_state produces: carried fields
     member-batched, everything else shared and bitwise unchanged."""
     tconsts, tstate, tcal = torch_model()
@@ -267,9 +267,10 @@ def test_batched_layout_and_untouched_fields():
     assert TM.CARRY_FIELDS == TM.DYNAMIC_FIELDS - TM.EPHEMERAL_FIELDS
     assert TM.DYNAMIC_FIELDS == JM.DYNAMIC_FIELDS
     assert TM.EPHEMERAL_FIELDS == JM.EPHEMERAL_FIELDS
-    assert TE.pick_member_chunk(1024, 128) == 128
-    assert TE.pick_member_chunk(100, 128) == 100
-    assert TE.pick_member_chunk(200, 128) == 200
+    monkeypatch.setattr(TE, "MEMBER_CHUNK", 128)
+    assert TE.pick_member_chunk(1024, tconsts.params) == 128
+    assert TE.pick_member_chunk(100, tconsts.params) == 100
+    assert TE.pick_member_chunk(200, tconsts.params) == 200
 
 
 def test_interop_round_trip():
