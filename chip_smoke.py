@@ -26,8 +26,11 @@ batched against member by member; the probe stages on the model's own
 fields; the DFT chain through its entry point; the explicit gravity-wave
 branch, alph = 0 at 144 steps a day, a day of 128 members, with no
 spectral-update launch, a member alone bitwise equal to it in a batch and
-float64 against the CPU; the T47L8 and T63L8 presets, rows 1, 2 and 6 at
-their shapes and a day of 128 members on the einsum transform route, float64
+float64 against the CPU; the T47L8 and T63L8 presets, rows 1, 2, 6 and the
+T47/T63 transform kernels (rows 3-4, csrc/fused_transform_hires.cu, against
+the einsum chain in float32 and float64, alone and as the step's groups) at
+their shapes and a day of 128 members through them, member 0 bitwise the
+same member run alone and the graph day bitwise the eager day, float64
 against the CPU; the multi-device phase: rows 1 and 2 at the band shapes
 of 24 and 12 latitudes, then four ranks of ``pyspeedy_tpu_torch.parallel``
 (one process each, gloo on a shared card, nccl with a card each) on the
@@ -136,6 +139,11 @@ PEAK_FLOPS_BF16 = 989e12
 PEAK_FLOPS_F64_TENSOR = 67e12
 
 N_MEMBERS = 128
+# Rows 3-4 at T47/T63 (csrc/fused_transform_hires.cu): the two device kernels
+# of each direction, launched by one wrapper call (one launch count).
+HIRES_KERNELS = {"direct": ("hires_dft_fwd_kernel", "hires_leg_dir_kernel"),
+                 "inverse": ("hires_leg_inv_kernel", "hires_dft_inv_kernel")}
+HIRES_KERNEL_NAMES = HIRES_KERNELS["direct"] + HIRES_KERNELS["inverse"]
 N_STEPS = 36            # one model day at T30
 N_STEPS_DYN = 12        # depth of the dynamics-only path
 N_STEPS_BF16 = 12       # depth of the bf16_tendencies path
@@ -655,19 +663,29 @@ def group_rows(fields, direct: bool) -> int:
                for x in fields)
 
 
+def plain_of(sp, kind):
+    """The plain version of rows 3-4 (kind "direct" or "inverse") at sp's
+    shape: the dense chain at T30, the einsum chain at T47/T63."""
+    hires = (sp.il, sp.ix, sp.mx, sp.nx) in tk.HIRES_SHAPES
+    if kind == "direct":
+        return tk.grid2spec_hires_plain if hires else tk.grid2spec_plain
+    return tk.spec2grid_hires_plain if hires else tk.spec2grid_plain
+
+
 def check_group(sp, kind, fields, kcos, limit):
     """One group launched once against the plain chain field by field and
     against its fields launched one by one (bitwise). Returns (worst rel
     err, max abs err)."""
+    plain_fn = plain_of(sp, kind)
     if kind == "direct":
         many = tk.fused_grid2spec_many_cuda(sp, fields, 1)
         alone = [tk.fused_grid2spec_cuda(sp, f, 1) for f in fields]
-        plain = [tk.grid2spec_plain(sp, f, 1) for f in fields]
+        plain = [plain_fn(sp, f, 1) for f in fields]
     else:
         many = tk.fused_spec2grid_many_cuda(sp, fields, kcos, 1)
         alone = [tk.fused_spec2grid_cuda(sp, f, k, 1)
                  for f, k in zip(fields, kcos)]
-        plain = [tk.spec2grid_plain(sp, f, k, 1) for f, k in zip(fields, kcos)]
+        plain = [plain_fn(sp, f, k, 1) for f, k in zip(fields, kcos)]
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(many, alone)):
         raise RuntimeError(f"a {kind} group differs from its fields "
@@ -836,6 +854,198 @@ def check_transforms(params, limit: float, card: str):
         key = "fused_grid2spec" if kind == "direct" else "fused_spec2grid"
         res[key]["groups"][name] = time_group(sp, sp_fft, name, kind, fields,
                                               kcos, card, tag)
+    return res
+
+
+def hires_bound(sp, nrows: int, direct: bool):
+    """Least time the card could take for `nrows` field rows of rows 3-4 at
+    T47/T63: the larger of the bytes (grid rows and spectral pairs each
+    moved once, the folded tables and the 1/cos column once) over the memory
+    rate and the folded work the kernels do (il*mx*ix DFT and il*triangle
+    Legendre multiply-adds a row, two operations each) at the peak rate of
+    the type outside the tensor cores. Returns (bound ms, "bytes" or
+    "operations", bytes ms, operations ms, bytes, operations)."""
+    il, ix, mx, nx = sp.il, sp.ix, sp.mx, sp.nx
+    w = sp.rdtype.itemsize
+    tri = mx * nx - mx * (mx - 1) // 2
+    tables = (sp.fold_dir if direct else sp.fold_inv).numel() + (
+        0 if direct else il)
+    nbytes = (nrows * (il * ix + 2 * mx * nx) + tables) * w
+    ops = 2 * nrows * (il * mx * ix + il * tri)
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    ops_ms = 1e3 * ops / PEAK_FLOPS[sp.rdtype]
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations",
+            bytes_ms, ops_ms, nbytes, ops)
+
+
+def hires_occupancy(libs, trunc: int, prec: str) -> dict:
+    """{device kernel: (resident blocks per SM, threads a block, shared
+    memory a block, registers, local bytes, slices of the grid)} of the
+    four T47/T63 kernels, from the CUDA runtime."""
+    import ctypes
+    fn = ctypes.CDLL(str(libs["fused_transform_hires"])) \
+        .pyspeedy_fused_transform_hires_occupancy
+    out, rows = (ctypes.c_int * 6)(), {}
+    for stage, name in enumerate(HIRES_KERNEL_NAMES[:2]
+                                 + HIRES_KERNEL_NAMES[2:]):
+        rc = fn(stage, trunc, 0 if prec == "f32" else 1, out)
+        if rc != 0:
+            raise RuntimeError(f"occupancy query of {name} at T{trunc} "
+                               f"{prec} failed with {rc}")
+        rows[name] = tuple(out)
+    return rows
+
+
+def time_hires(sp, kind, launch, plain, rows: int) -> dict:
+    """Device ms of one launch of rows 3-4 at T47/T63 (the sum of its two
+    kernels, each from the profiler), a wrapper call back to back, the
+    plain version (the einsum chain, which is also the library yardstick)
+    and the bound, for `rows` field rows."""
+    per = {k: kernel_device_ms(launch, k, reps=10) for k in HIRES_KERNELS[kind]}
+    bound_ms, bound_by, bytes_ms, ops_ms, nbytes, ops = hires_bound(
+        sp, rows, kind == "direct")
+    ms = sum(per.values())
+    return {"rows": rows, "ms": ms, "ms_by_kernel": per,
+            "call_ms": time_ms(launch, reps=10),
+            "plain_ms": time_ms(plain, reps=3, warmup=1, windows=3),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bytes": nbytes,
+            "flops": ops}
+
+
+def check_transforms_hires(params, limit: float, card: str, libs,
+                           groups_timed: bool = True) -> dict:
+    """Rows 3-4 at a T47/T63 shape (csrc/fused_transform_hires.cu) against
+    their plain version, the einsum chain: at 1,024, 128, 1 and 256 rows,
+    kcos 1 and 2, the strided layouts the step passes, the step's three
+    groups at B=128 (each bitwise equal to its fields launched one by one),
+    the imaginary part of m = 0 ignored, and a member alone bitwise the same
+    member of the 1,024-row batch. Raises past `limit`. The device ms of
+    each direction at 1,024 rows and, with `groups_timed`, as the step's
+    groups, beside the einsum chain and the bound. Returns {"fused_grid2spec_hires":
+    ..., "fused_spec2grid_hires": ...}."""
+    sp = S.build_spectral(params, M.build_geometry(params),
+                          use_matmul_fft=True, device="cuda")
+    if not sp.use_fused_kernels or sp.use_dense_legendre:
+        raise RuntimeError(f"T{params.trunc}: not on the T47/T63 kernels")
+    kx, prec = params.kx, params.precision
+    g2s, s2g = plain_of(sp, "direct"), plain_of(sp, "inverse")
+    worst = {"direct": 0.0, "inverse": 0.0}
+    absd = {"direct": 0.0, "inverse": 0.0}
+
+    def note(kind, got, want):
+        worst[kind] = max(worst[kind], _rel(got, want))
+        absd[kind] = max(absd[kind], float((got - want).abs().max()))
+
+    alone_ok = True
+    for nmem, k in ((N_MEMBERS, kx), (N_MEMBERS, 1), (1, 1), (N_MEMBERS, 2)):
+        g, p = transform_inputs(sp, nmem, k, seed=nmem + k)
+        got_d = tk.fused_grid2spec_cuda(sp, g, 1)
+        note("direct", got_d, g2s(sp, g, 1))
+        for kcos in (1, 2):
+            got_i = tk.fused_spec2grid_cuda(sp, p, kcos, 1)
+            note("inverse", got_i, s2g(sp, p, kcos, 1))
+        if nmem > 1:
+            m = nmem // 2 + 1
+            alone_ok &= torch.equal(tk.fused_grid2spec_cuda(sp, g[m:m + 1], 1),
+                                    got_d[m:m + 1])
+            alone_ok &= torch.equal(
+                tk.fused_spec2grid_cuda(sp, p[m:m + 1], 2, 1), got_i[m:m + 1])
+    g, p = transform_inputs(sp, 16, 3 * kx, seed=5)
+    tr = p.reshape(16, 2, 3, kx, sp.mx, sp.nx)[:, :, 1]
+    shared = p[:1, :, :kx].expand(5, 2, kx, sp.mx, sp.nx)
+    flux = g[:, kx:2 * kx]
+    note("inverse", tk.fused_spec2grid_cuda(sp, tr, 1, 1), s2g(sp, tr, 1, 1))
+    note("inverse", tk.fused_spec2grid_cuda(sp, shared, 2, 1),
+         s2g(sp, shared, 2, 1))
+    note("direct", tk.fused_grid2spec_cuda(sp, flux, 1), g2s(sp, flux, 1))
+    groups = step_groups(sp, params, N_MEMBERS, seed=8)
+    group_err = {name: check_group(sp, kind, fields, kcos, limit)
+                 for name, (kind, fields, kcos) in groups.items()}
+    _, p = transform_inputs(sp, 4, kx, seed=6)
+    p = S.truncate(sp, p)
+    p[:, 1, :, 0, :] = 0.0
+    dirty = p.clone()
+    dirty[:, 1, :, 0, :] = 1e3 * torch.randn(4, kx, sp.nx, device="cuda",
+                                             dtype=sp.rdtype)
+    discard = torch.equal(tk.fused_spec2grid_cuda(sp, dirty, 1, 1),
+                          tk.fused_spec2grid_cuda(sp, p, 1, 1))
+    torch.cuda.synchronize()
+    tag = f"T{params.trunc}L{kx} {prec}"
+    print(f"kernel fused_grid2spec / fused_spec2grid {tag} (T47/T63 kernels, "
+          f"{' + '.join(HIRES_KERNEL_NAMES)}): max rel err vs the einsum "
+          f"chain {worst['direct']:.3e} / {worst['inverse']:.3e} over 1,024, "
+          f"128, 1 and 256 rows, kcos 1 and 2, and the strided layouts; the "
+          f"step's groups "
+          + ", ".join(f"{n} {e[0]:.3e}" for n, e in group_err.items())
+          + f", each bitwise equal to its fields launched one by one (limit "
+          f"{limit:.0e}); a member alone bitwise that member of the batch: "
+          f"{alone_ok}; m=0 imaginary garbage: "
+          + ("bitwise no effect" if discard else "CHANGES THE RESULT"))
+    if not (max(*worst.values(), *(e[0] for e in group_err.values()))
+            <= limit and alone_ok and discard):
+        raise RuntimeError(f"rows 3-4 at {tag} disagree with their plain "
+                           f"version, depend on the batch or read the m=0 "
+                           f"imaginary part")
+    occ = hires_occupancy(libs, params.trunc, prec)
+    print(f"  rows 3-4 at {tag}, from the CUDA runtime: " + "; ".join(
+        f"{k} {o[1]} threads, {o[2] / 1024:.1f} KB shared memory a block, "
+        f"{o[0]} blocks per SM, {o[3]} registers, {o[4]} B local, "
+        f"{o[5]} slice(s), no cluster" for k, o in occ.items()))
+    res = {}
+    g, p = transform_inputs(sp, N_MEMBERS, kx, seed=7)
+    for name, kind, launch, plain in (
+            ("fused_grid2spec_hires", "direct",
+             lambda: tk.fused_grid2spec_cuda(sp, g, 1),
+             lambda: g2s(sp, g, 1)),
+            ("fused_spec2grid_hires", "inverse",
+             lambda: tk.fused_spec2grid_cuda(sp, p, 1, 1),
+             lambda: s2g(sp, p, 1, 1))):
+        res[name] = {"max_rel_err": worst[kind], "max_abs_err": absd[kind],
+                     "member_alone_bitwise": alone_ok,
+                     "occupancy": {k: occ[k] for k in HIRES_KERNELS[kind]},
+                     "groups": {}}
+        for gname, (gkind, fields, kcos) in groups.items():
+            if gkind == kind:
+                res[name]["groups"][gname] = {
+                    "fields": len(fields),
+                    "rows": group_rows(fields, kind == "direct"),
+                    "max_rel_err": group_err[gname][0],
+                    "max_abs_err": group_err[gname][1]}
+        res[name].update(time_hires(sp, kind, launch, plain,
+                                    N_MEMBERS * kx))
+        r = res[name]
+        print(f"  {name} {tag} {r['rows']} rows: kernels "
+              + " + ".join(f"{v:.4f}" for v in r["ms_by_kernel"].values())
+              + f" = {r['ms']:.4f} ms on the card ({r['call_ms']:.4f} ms per "
+              f"wrapper call, back to back), plain = library (the einsum "
+              f"chain) {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"by {r['bound_by']} (bytes {r['bytes_ms']:.4f} ms, "
+              f"{r['bytes'] / 1e6:.1f} MB; operations {r['ops_ms']:.4f} ms, "
+              f"{r['flops'] / 1e9:.2f} GFLOP) = "
+              f"{100 * r['bound_ms'] / r['ms']:.0f}% [{card}]")
+        for gname, (gkind, fields, kcos) in groups.items():
+            if gkind != kind or not groups_timed:
+                continue
+            if kind == "direct":
+                glaunch = lambda f=fields: tk.fused_grid2spec_many_cuda(sp, f, 1)
+                gplain = lambda f=fields: [g2s(sp, x, 1) for x in f]
+            else:
+                glaunch = lambda f=fields, k=kcos: tk.fused_spec2grid_many_cuda(
+                    sp, f, k, 1)
+                gplain = lambda f=fields, k=kcos: [s2g(sp, x, c, 1)
+                                                   for x, c in zip(f, k)]
+            t = time_hires(sp, kind, glaunch, gplain,
+                           group_rows(fields, kind == "direct"))
+            r["groups"][gname].update(t)
+            print(f"  group {gname} {tag}: {len(fields)} fields, {t['rows']} "
+                  f"rows, one launch: kernels "
+                  + " + ".join(f"{v:.4f}" for v in t["ms_by_kernel"].values())
+                  + f" = {t['ms']:.4f} ms on the card, the einsum chain field "
+                  f"by field {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f}"
+                  f" ms by {t['bound_by']} = "
+                  f"{100 * t['bound_ms'] / t['ms']:.0f}% [{card}]")
     return res
 
 
@@ -1502,7 +1712,16 @@ def reset_counts():
     ck.reset_launch_counts()
     tk.reset_field_counts()
     tk.reset_plain_chain_calls()
+    tk.reset_einsum_chain_calls()
     GK.reset_plain_calls()
+
+
+def plain_calls() -> dict:
+    """Calls of every plain version since the last reset_counts: the dense
+    matmul chain (rows 3-4 at T30), the einsum chain as the plain version of
+    rows 3-4 at T47/T63 (einsum_*), the spectral update's."""
+    return dict(tk.plain_chain_calls, **GK.plain_calls,
+                **{"einsum_" + k: v for k, v in tk.einsum_chain_calls.items()})
 
 
 def build_report() -> list:
@@ -1512,7 +1731,7 @@ def build_report() -> list:
     bases = ("grid_dynamics_kernel", "grid_physics_kernel",
              "grid2spec_fold_kernel", "spec2grid_fold_kernel",
              "split_probe_kernel", "spectral_update_kernel",
-             "dft_chain_fold_kernel")
+             "dft_chain_fold_kernel") + HIRES_KERNEL_NAMES
     words = {"f": "float", "d": "double", "13__nv_bfloat16": "bfloat16"}
     rows = []
     for name, log in ck.build_logs.items():
@@ -1641,7 +1860,15 @@ KERNEL_OF_COUNTER = {
     "fused_grid2spec": "grid2spec_fold_kernel",
     "fused_grid2spec_bf16": "grid2spec_fold_kernel",
     "fused_spec2grid": "spec2grid_fold_kernel",
+    "fused_grid2spec_hires": HIRES_KERNELS["direct"],
+    "fused_spec2grid_hires": HIRES_KERNELS["inverse"],
     "spectral_update": "spectral_update_kernel"}
+
+
+def _kernel_names(counter) -> tuple:
+    """The device kernels one launch of `counter` runs (two at T47/T63)."""
+    name = KERNEL_OF_COUNTER[counter]
+    return name if isinstance(name, tuple) else (name,)
 
 
 def device_launches_of(consts, first: int, n_steps: int) -> dict:
@@ -1651,8 +1878,8 @@ def device_launches_of(consts, first: int, n_steps: int) -> dict:
     out = {}
     for counter, n in want.items():
         if n and counter in KERNEL_OF_COUNTER:
-            name = KERNEL_OF_COUNTER[counter]
-            out[name] = out.get(name, 0) + n
+            for name in _kernel_names(counter):
+                out[name] = out.get(name, 0) + n
     return out
 
 
@@ -1692,7 +1919,8 @@ def device_time_per_step(run, state, cal, first_step: int, n_steps: int,
                               if any(x in k.lower() for x in keys))
     groups = {"matrix products": share("gemm", "cutlass", "xmma"),
               "fused transform kernels": share("grid2spec_fold_kernel",
-                                               "spec2grid_fold_kernel"),
+                                               "spec2grid_fold_kernel",
+                                               *HIRES_KERNEL_NAMES),
               "grid_physics kernel": share("grid_physics_kernel"),
               "grid_dynamics kernel": share("grid_dynamics_kernel"),
               "spectral_update kernel": share("spectral_update_kernel"),
@@ -1822,8 +2050,9 @@ def expected_path_launches(consts, first: int, n_steps: int, evals=None,
     grid-dynamics and, with the physics on, one physics launch a step
     evaluation (the shortwave variant when stepno % 3 == 0), one spectral
     update a step evaluation on the semi-implicit branch and none on the
-    explicit one, and the fused transforms on the dense route only (the
-    einsum route of T47 and T63 launches none). With bf16_tendencies the
+    explicit one, and the fused transforms on the kernel route (at T47 and
+    T63 under their own counters, one launch a group for both of a
+    direction's kernels). With bf16_tendencies the
     runner's evaluations take the bfloat16 instantiations (the spectral
     update, the inverse groups and the forcing's transforms stay float32),
     the initialization the float32 ones."""
@@ -1850,18 +2079,20 @@ def expected_path_launches(consts, first: int, n_steps: int, evals=None,
         add(launches, "spectral_update", 2 if semi else 0)
         if consts.physics_on:
             add(launches, "grid_physics_sw", 2)
-    if consts.sp.use_dense_legendre:
+    if consts.sp.use_fused_kernels:
+        hires = "" if consts.sp.use_dense_legendre else "_hires"
+        g2s, s2g = "fused_grid2spec" + hires, "fused_spec2grid" + hires
         (dl, df), (il, inv_f) = expected_transforms(consts, len(evals), 0,
                                                     False)
         for counts, d, i in ((launches, dl, il), (fields, df, inv_f)):
-            add(counts, "fused_grid2spec" + bf, d)
-            add(counts, "fused_grid2spec", 2 * n_forcings)
-            add(counts, "fused_spec2grid", i)
+            add(counts, g2s + bf, d)
+            add(counts, g2s, 2 * n_forcings)
+            add(counts, s2g, i)
         if with_init:
             (dl, df), (il, inv_f) = expected_transforms(consts, 2, 1, True)
             for counts, d, i in ((launches, dl, il), (fields, df, inv_f)):
-                add(counts, "fused_grid2spec", d)
-                add(counts, "fused_spec2grid", i)
+                add(counts, g2s, d)
+                add(counts, s2g, i)
     return launches, fields
 
 
@@ -1871,7 +2102,7 @@ def read_path_counts(what: str, consts, first: int, n_steps: int,
     expected_path_launches (the same `evals`, `with_init`), and no call of
     a plain version; raises otherwise. Returns the launch counts."""
     launches, fields = dict(ck.launch_counts), dict(tk.field_counts)
-    plain = dict(tk.plain_chain_calls, **GK.plain_calls)
+    plain = plain_calls()
     want, want_fields = expected_path_launches(consts, first, n_steps, evals,
                                                with_init)
     if launches != want or fields != want_fields or any(plain.values()):
@@ -1888,7 +2119,8 @@ def records_by_counter(by_kernel: dict, n_steps: int) -> dict:
     shortwave template argument (grid_physics_kernel<T, NLEV, SW, ...>)."""
     out = dict.fromkeys(ck.launch_counts, 0)
     for key, (_, per_step) in by_kernel.items():
-        for counter, kernel in KERNEL_OF_COUNTER.items():
+        for counter in KERNEL_OF_COUNTER:
+            kernel = _kernel_names(counter)[0]
             if counter.endswith("_bf16") or kernel + "<" not in key:
                 continue
             if kernel == "grid_physics_kernel":
@@ -2224,14 +2456,20 @@ def explicit_path(card: str, phases) -> dict:
 def preset_path(name: str, base, libs, card: str, phases) -> dict:
     """A preset beyond T30 (T47L8, T63L8) at full width in f32: rows 1, 2
     and 6 against their plain versions at its shapes, row 6's launch plan,
-    then initialization and one model day of N_MEMBERS members with the
-    full physics (the einsum transform route: no fused transform launch),
-    busy ms and launches a step, member 0 of B=N_MEMBERS against the same
-    member run alone (a finding: the einsum route's matrix products may
-    round by the batch), and float64 at B=1 on the card against the CPU."""
+    rows 3-4 (csrc/fused_transform_hires.cu) against the einsum chain in
+    f32 and f64 (check_transforms_hires), then initialization and one model
+    day of N_MEMBERS members with the full physics through the T47/T63
+    transform kernels (their own counters, no einsum chain), busy ms and
+    launches a step, member 0 of B=N_MEMBERS bitwise the same member run
+    alone, the graph day bitwise the eager day, and float64 at B=1 on the
+    card against the CPU (the einsum chain there)."""
     p32 = dataclasses.replace(base, precision="f32", fft_mode="matmul")
     phases.start(f"{name} kernels against their plain versions")
-    res = {"dyn": check_kernel(p32, N_MEMBERS, 1e-5, card),
+    res = {"transforms": check_transforms_hires(p32, 1e-5, card, libs),
+           "transforms_f64": check_transforms_hires(
+               dataclasses.replace(base, fft_mode="matmul"), 1e-12, card,
+               libs, groups_timed=False),
+           "dyn": check_kernel(p32, N_MEMBERS, 1e-5, card),
            "phys": check_physics(p32, N_MEMBERS, 1e-5, card, ("grid_phi",),
                                  timed=True),
            "glue": check_spectral_update(p32, 1e-5, card, startup=False),
@@ -2254,22 +2492,35 @@ def preset_path(name: str, base, libs, card: str, phases) -> dict:
     res["launches"] = read_path_counts(f"{name} path", consts, 2, n_steps,
                                        graph_evals(2, n_steps))
     check_state(state, N_MEMBERS, f"{name} path")
+    reset_counts()
     alone, _, _ = run_window(run, broadcast_state(state1, 1), cal, 2, n_steps)
-    batch_dep = max(_rel(state[n][0][:1], alone[n][0]) for n in PROGNOSTICS)
-    res["member0_b128_vs_b1"] = batch_dep
+    res["launches_b1"] = dict(ck.launch_counts)
+    if (not all(res["launches_b1"][k] > 0 for k in (
+            "fused_grid2spec_hires", "fused_spec2grid_hires"))
+            or any(plain_calls().values())):
+        raise RuntimeError(f"{name} path, B=1: launches {res['launches_b1']}"
+                           f", plain calls {plain_calls()}")
+    names = PROGNOSTICS + ("phi", "precnv", "precls", "hfluxn")
+    first = lambda x: (tuple(a[:1] for a in x) if isinstance(x, tuple)
+                       else x[:1])
+    same, diffs = bitwise_states({n: first(state[n]) for n in names},
+                                 {n: alone[n] for n in names})
+    res["member0_b128_vs_b1_bitwise"] = same
     del alone
+    if not same:
+        raise RuntimeError(f"{name} path: member 0 of B={N_MEMBERS} differs "
+                           f"from it alone after the day: {diffs}")
     print(f"{name} path: f32, full physics, {N_MEMBERS} members x {n_steps} "
           f"steps (a model day) + initialization through the CUDA graphs: "
           f"finite, error_flag false; launches {res['launches']} (the "
-          f"initialization and each step kind's warm-up and capture; no "
-          f"fused transform: the einsum route), no plain version called; "
-          f"first graph day {1e3 * secs / n_steps:.3f} ms/step; member 0 of "
-          f"B={N_MEMBERS} against it alone after the day: {batch_dep:.3e} "
-          f"rel. (not a gate) [{card}]")
-    # The einsum route's cuBLAS products under capture: the bits are held
-    # to the eager day's and any difference is printed, not gated.
+          f"initialization and each step kind's warm-up and capture; the "
+          f"T47/T63 transform kernels, one launch a group), no plain version "
+          f"and no einsum chain called; first graph day "
+          f"{1e3 * secs / n_steps:.3f} ms/step; member 0 of B={N_MEMBERS} "
+          f"bitwise equal to it alone after the day ({', '.join(names)}) "
+          f"[{card}]")
     gph = graphs_phase(f"{name} path", consts, run, state0, cal, n_steps,
-                       state, cal_day, captured, card, gate=False)
+                       state, cal_day, captured, card)
     gph.pop("state")
     del state0, state
     g, e = gph["profile"]["graph"], gph["profile"]["eager"]
@@ -2289,9 +2540,12 @@ def preset_path(name: str, base, libs, card: str, phases) -> dict:
           + "; ".join(f"{k} {ms:.3f} ({n:.2f})"
                       for k, ms, n in gph["top"]["graph"]))
     phases.start(f"{name} path, f64 card vs CPU")
-    worst, worst_name, _ = card_vs_cpu(
+    worst, worst_name, launches64 = card_vs_cpu(
         dataclasses.replace(base, fft_mode="matmul"), 1, N_STEPS_F64_PRESET,
         f"{name} f64")
+    if not all(launches64[k] > 0 for k in ("fused_grid2spec_hires",
+                                           "fused_spec2grid_hires")):
+        raise RuntimeError(f"{name} f64 card run: launches {launches64}")
     res["f64_max_rel_err"] = worst
     print(f"{name} f64 B=1 {N_STEPS_F64_PRESET} steps card vs CPU: max rel "
           f"err {worst:.3e} in {worst_name} (limit 1e-9)")
@@ -2423,7 +2677,7 @@ def multidevice_rank(rank: int, world: int, init: str, backend: str,
     local, cal_day, secs = run_window(run, local, cal, 2, N_STEPS)
     launches = dict(ck.launch_counts)
     fields = dict(tk.field_counts)
-    plain = dict(tk.plain_chain_calls, **GK.plain_calls)
+    plain = plain_calls()
     coll = dict(PST.counts)
     steps = range(2, 2 + N_STEPS)
     n_sw = sum(1 for s in steps if s % 3 == 0)
@@ -2618,7 +2872,7 @@ def climatology_phase(card: str) -> dict:
     text = buf.getvalue()
     report = json.loads(text[text.index("\n{") + 1:])
     launches = dict(ck.launch_counts)
-    plain = dict(tk.plain_chain_calls, **GK.plain_calls)
+    plain = plain_calls()
     print(f"climatology phase: python -m pyspeedy_tpu_torch."
           f"validate_climatology {' '.join(CLIMATE_ARGS)} in {secs:.1f} s "
           f"[{card}]:")
@@ -2883,7 +3137,7 @@ def main() -> None:
         raise RuntimeError(f"main path: launches {launches}")
     fields_main = {k: init_fields[k] + day_fields[k] for k in init_fields}
     day_ref = _cpu_fields(state, MD_FIELDS)
-    plain_calls = dict(tk.plain_chain_calls, **GK.plain_calls)
+    main_plain = plain_calls()
     check_state(state, N_MEMBERS, "main path")
     if not (consts.physics_on and consts.grid_phi):
         raise RuntimeError("the card's defaults are physics and grid_phi on")
@@ -2904,7 +3158,7 @@ def main() -> None:
           f"the warm-up and the capture of each graph key, the shortwave "
           f"kind by the pair buffers' parity), transform fields "
           f"{fields_main}, plain chain and plain spectral update calls "
-          f"{plain_calls}; unperturbed members differ from member 0 by "
+          f"{main_plain}; unperturbed members differ from member 0 by "
           f"{spread:.1e}; first graph day {secs_first:.3f} s under the "
           f"profiler")
     main_graphs = graphs_phase("T30 B=128", consts, run, state0, cal,
@@ -3026,7 +3280,7 @@ def main() -> None:
     launches_b = read_path_counts("bf16_tendencies path", consts_b, 2,
                                   N_STEPS_BF16, graph_evals(2, N_STEPS_BF16))
     fields_b = dict(tk.field_counts)
-    plain_b = dict(tk.plain_chain_calls, **GK.plain_calls)
+    plain_b = plain_calls()
     check_state(out_b, N_MEMBERS, "bf16_tendencies path")
     bf16_graphs = graphs_phase("bf16_tendencies path", consts_b, run_b,
                                state_b0, cal_b, N_STEPS_BF16, out_b, cal_b2,
@@ -3162,7 +3416,7 @@ def main() -> None:
     launches_s = read_path_counts("SPPT path", consts_s, 2, N_STEPS,
                                   graph_evals(2, N_STEPS))
     fields_s = dict(tk.field_counts)
-    plain_s = dict(tk.plain_chain_calls, **GK.plain_calls)
+    plain_s = plain_calls()
     check_state(state_s, N_MEMBERS, "SPPT path")
     direct_s, inverse_s = expected_transforms(consts_s, N_STEPS, 1, False)
     if inverse_s[1] != inverse[1] + N_STEPS:
@@ -3267,7 +3521,7 @@ def main() -> None:
         torch.cuda.synchronize()
         t_run = time.perf_counter() - t0
         launches_api = dict(ck.launch_counts)
-        plain_api = dict(tk.plain_chain_calls, **GK.plain_calls)
+        plain_api = plain_calls()
         rel_api = fixture_ladder(str(Path(out_dir) / "1982-01-02_0000.nc"))
     api_mode = ("CUDA graphs" if api._run.graphs is not None
                 else "eager loop")
@@ -3349,8 +3603,9 @@ def main() -> None:
     phases.start("explicit path, a day")
     explicit = explicit_path(card, phases)
 
-    # 6i. the T47L8 and T63L8 presets at full width: rows 1, 2 and 6 at
-    # their shapes and a model day on the einsum transform route.
+    # 6i. the T47L8 and T63L8 presets at full width: rows 1, 2, 6 and the
+    # T47/T63 transform kernels at their shapes and a model day through
+    # them.
     presets = {}
     for name, base in (("T47", T47L8), ("T63", T63L8)):
         presets[name] = preset_path(name, base, libs, card, phases)
@@ -3569,6 +3824,39 @@ def main() -> None:
     kernels[-2]["launches_bf16_path"] = launches_b["fused_grid2spec_bf16"]
     kernels[-2]["fields_bf16_path"] = fields_b["fused_grid2spec_bf16"]
     kernels[-2].update(tr_bf16)
+    # Rows 3-4 at T47/T63 (csrc/fused_transform_hires.cu, two device kernels
+    # a launch): launches on the T47 and T63 paths (the wrapper calls of
+    # their graph days: the initialization and each step kind's warm-up and
+    # capture); times and bound at T63 f32, one kx stack of 128 members;
+    # every preset's figures, the step's groups and float64 under "presets".
+    for name, direction, repl in (
+            ("fused_grid2spec_hires", "direct",
+             "tools/exp_fused_transform.py:65"),
+            ("fused_spec2grid_hires", "inverse",
+             "tools/exp_fused_transform.py:121")):
+        t63 = presets["T63"]["transforms"][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "pyspeedy_tpu_torch/csrc/fused_transform_hires.cu",
+            "replaces": repl, "kernels": list(HIRES_KERNELS[direction]),
+            "launches": sum(r["launches"][name] for r in presets.values()),
+            "launches_on": "the T47 and T63 paths",
+            "launches_by_path": {p: r["launches"][name]
+                                 for p, r in presets.items()},
+            "max_abs_err": max(r["transforms"][name]["max_abs_err"]
+                               for r in presets.values()),
+            "max_rel_err": max(r["transforms"][name]["max_rel_err"]
+                               for r in presets.values()),
+            "ms": t63["ms"], "call_ms": t63["call_ms"],
+            "plain_ms": t63["plain_ms"], "bound_ms": t63["bound_ms"],
+            "bound_by": t63["bound_by"], "library_ms": t63["plain_ms"],
+            "shape": f"T63 f32, {N_MEMBERS * T63L8.kx} rows (B={N_MEMBERS} "
+                     f"x kx)",
+            "presets": {p: {"f32": r["transforms"][name],
+                            "f64": r["transforms_f64"][name],
+                            "member_alone_bitwise_after_a_day":
+                                r["member0_b128_vs_b1_bitwise"]}
+                        for p, r in presets.items()}})
     # The probes are not on the model's path: their launches are those of
     # the probe path above; the entry's times and bound are those of p2, the
     # whole chain for one part, at the tool's 256 rows, and every stage
@@ -3639,7 +3927,7 @@ def main() -> None:
     # beside it the wrappers' calls in that day and the eager day's
     # launches. The launches_*_path keys of graph paths count wrapper calls.
     for k in kernels:
-        if k["name"] in KERNEL_OF_COUNTER:
+        if k["name"] in KERNEL_OF_COUNTER and "launches_on" not in k:
             k["launches_eager_day"] = launches_eager_day[k["name"]]
             k["wrapper_calls_graph_path"] = wrapper_calls[k["name"]]
             k["launches_counted_by"] = (

@@ -154,7 +154,7 @@ def build_consts(params: ModelParams, device="cuda", physics_on: bool = True,
         raise ValueError(
             f"bf16_tendencies=True needs the dense transform route "
             f"(fft_mode 'matmul', or 'auto' on a CUDA device, at T30, the "
-            f"truncation the fused transform kernels are built for); "
+            f"truncation the 2-byte operand mode is built for); "
             f"fft_mode={params.fft_mode!r} at T{params.trunc} on "
             f"{device.type} takes another route, which has no bfloat16 "
             f"operand branch")
@@ -328,7 +328,7 @@ def band_consts(consts: Consts, n_space: int, index: int,
     """The Consts of latitude band `index` of `n_space` (a space-sharded
     mesh's step; `group` is the "space" process group its direct transforms
     reduce over): the band transform (parallel/shard_transforms.py, never on
-    the dense route) and the band's rows of every per-latitude table, the
+    the kernel route) and the band's rows of every per-latitude table, the
     geometry's latitude vectors (the daily forcing's zonal fields, the
     surface fluxes), the grid-dynamics kernel's rcos and coriol and the
     physics kernel's sqrtcoa. The m=0 geopotential correction reads the

@@ -17,7 +17,8 @@ one exactly where it launches its kernel. The physics kernel counts its two
 variants apart (``grid_physics_sw``: a shortwave step, ``grid_physics_nosw``),
 and every kernel counts the launches of its bfloat16 instantiation apart
 (``*_bf16``: the ``bf16_tendencies`` configuration). The fused spectral
-transforms (``csrc/fused_transform.cu``), the spectral update
+transforms (``csrc/fused_transform.cu`` at T30,
+``csrc/fused_transform_hires.cu`` at T47 and T63), the spectral update
 (``csrc/spectral_update.cu``) and the DFT chain (``csrc/dft_chain.cu``) are in
 the table too; their wrappers live in ``ops/transform_kernels.py``,
 ``ops/glue_kernels.py`` and ``ops/dft_chain.py``.
@@ -93,6 +94,14 @@ KERNELS = {
         argtypes=(_I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
         counters=("fused_grid2spec", "fused_grid2spec_bf16",
                   "fused_spec2grid", "fused_probe")),
+    # The same transforms at T47 and T63, two kernels a direction launched
+    # by one call (counted once): kind 0 direct, 1 inverse, with the
+    # wrapper's scratch. Wrappers: ops/transform_kernels.py.
+    "fused_transform_hires": KernelSpec(
+        source=_CSRC / "fused_transform_hires.cu",
+        symbol="pyspeedy_fused_transform_hires",
+        argtypes=(_I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+        counters=("fused_grid2spec_hires", "fused_spec2grid_hires")),
     # -fmad=false as for the physics: the plain version's separate passes
     # cannot contract a*b+c, and the leapfrog filter is a small difference of
     # large values. Wrapper: ops/glue_kernels.py.

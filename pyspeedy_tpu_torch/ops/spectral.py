@@ -26,26 +26,30 @@ Conventions (mirroring the reference):
 
 Three transform routes, chosen when the tables are built:
 
-* the **dense route** (``use_matmul_fft and use_dense_legendre``: the DFT as
-  a matrix product at the T30 shape the kernels are built for, i.e.
-  ``fft_mode`` "matmul", or "auto" on a CUDA device, at T30).
+* the **kernel route** (``use_fused_kernels``: the DFT as a matrix product,
+  i.e. ``fft_mode`` "matmul", or "auto" on a CUDA device, at a shape the
+  hand-written fused kernels are built for: T30, T47, T63).
   ``grid2spec_p`` / ``spec2grid_p`` and their grouped forms
   ``grid2spec_many_p`` / ``spec2grid_many_p`` (one launch for a group of up
   to 16 fields) hand it to ``ops.transform_kernels``: a CUDA tensor launches
-  the hand-written fused kernel (``csrc/fused_transform.cu``) or the call
-  raises; a CPU tensor takes the kernel's plain version, the chain of four
-  ``torch.matmul`` against the DFT matrices and the ``leg_*_dense`` tables.
-  A CUDA tensor never reaches that chain through these functions.
+  the fused kernel (``csrc/fused_transform.cu`` at T30,
+  ``csrc/fused_transform_hires.cu`` at T47 and T63) or the call raises; a
+  CPU tensor takes the kernel's plain version. At T30 (the **dense route**,
+  ``use_dense_legendre``) that is the chain of four ``torch.matmul``
+  against the DFT matrices and the ``leg_*_dense`` tables; at T47 and T63,
+  whose dense tables would be too large, the einsum chain below, so a CPU
+  result there is the einsum route's. A CUDA tensor never reaches either
+  chain through these functions.
 * the **fft route** (``fft_mode="fft"``, and "auto" on the CPU):
   ``torch.fft`` and a Legendre einsum, on either device.
-* the **einsum route** (matmul DFT at any other truncation: T47, T63):
-  two einsums, on either device. The JAX package's size gate sends T47 and
-  T63 there too; another truncation that would pass that gate takes this
-  route as well, since the kernels serve T30 alone.
+* the **einsum route** (matmul DFT at any other truncation): two einsums,
+  on either device. The JAX package's size gate sends T47 and T63 there;
+  another truncation that would pass that gate takes this route here, since
+  the kernels are built for three shapes only.
 
 A fourth, the **band route**, serves a latitude band of a space-sharded mesh
 (``parallel/shard_transforms.py``): a transform whose ``band`` is set holds
-its band's rows of the Legendre and 1/cos tables and is never on the dense
+its band's rows of the Legendre and 1/cos tables and is never on the kernel
 route; ``grid2spec_many_p`` / ``spec2grid_many_p`` hand it to the band object,
 which takes each field through the fft or einsum route on its rows and, for a
 direct group, sums the partial Legendre sums of the bands with one
@@ -55,7 +59,8 @@ The fft and einsum routes are routes of their own, not plain versions of the
 kernels; their products go to ``torch.fft`` / ``torch.einsum`` as the JAX
 package left them to XLA. A bfloat16 grid (the ``bf16_tendencies``
 configuration) takes the 2-byte operand mode on the dense route and is
-widened to the tables' type on the others, as in the JAX package.
+widened to the tables' type on the others (on the CPU), as in the JAX
+package; the T47/T63 kernels refuse it.
 """
 
 from __future__ import annotations
@@ -202,12 +207,15 @@ class SpectralTransform(NamedTuple):
     # _fold_tables): the folded DFT and Legendre tables of the direct
     # transform (fold_dir; fold_dir_bf16 holds the bfloat16 roundings of the
     # same values, as float32) and of the inverse one (fold_inv). (1,)
-    # placeholders off the dense route.
+    # placeholders off the kernel route.
     fold_dir: torch.Tensor
     fold_dir_bf16: torch.Tensor
     fold_inv: torch.Tensor
     use_matmul_fft: bool = False
+    # The dense tables and the 2-byte operand mode: T30 only.
     use_dense_legendre: bool = False
+    # The fused kernels serve this shape (T30, T47, T63 with the matmul DFT).
+    use_fused_kernels: bool = False
     # A latitude band of a space-sharded mesh
     # (parallel/shard_transforms.py::LatitudeBand), or None for the full
     # sphere. A band transform holds its band's rows of cpol_inv_full,
@@ -352,13 +360,16 @@ def build_spectral(params: ModelParams, geom: Geometry,
         [(cpol_even - cpol_odd) * wt3,
          ((cpol_even + cpol_odd) * wt3)[::-1]], axis=0)
 
-    # Dense block-diagonal Legendre matrices (see SpectralTransform docstring).
-    # The dense route is the fused kernels' route, and they are built for the
-    # T30 shape alone: every other truncation takes the einsum form (at
-    # T47/T63 the JAX package's size gate, il*mx*mx*nx <= 4e6 entries per
-    # operator, does the same; another truncation that passes that gate takes
-    # the einsum form here and the dense one there, the same transform).
+    # The fused kernels' folded tables at the shapes they are built for;
+    # the dense block-diagonal Legendre matrices (see SpectralTransform
+    # docstring), their CPU plain version and the 2-byte mode's, at T30
+    # alone (at T63 they would be 6,144 x 4,160 entries; the JAX package's
+    # size gate, il*mx*mx*nx <= 4e6 entries per operator, keeps T47/T63 on
+    # its einsums too). Every other truncation takes the einsum form (one
+    # that passes the JAX gate takes the dense one there: the same
+    # transform).
     il = 2 * iy
+    use_kernels = use_matmul_fft and (il, ix, mx, nx) in TK.KERNEL_SHAPES
     use_dense = use_matmul_fft and (il, ix, mx, nx) == TK.T30_SHAPE
     if use_dense:
         idx = np.arange(mx)
@@ -368,12 +379,14 @@ def build_spectral(params: ModelParams, geom: Geometry,
         Ed = np.zeros((mx, nx, il, mx))
         Ed[idx, :, :, idx] = cpol_inv_full.transpose(1, 2, 0)
         leg_inv_dense = Ed.reshape(mx * nx, il * mx)
+    else:
+        leg_dir_dense = np.zeros((1, 1))
+        leg_inv_dense = np.zeros((1, 1))
+    if use_kernels:
         fold_dir, fold_inv = _fold_tables(
             np.stack([dft_fwd_re, dft_fwd_im]), cpol_dir_full,
             np.stack([dft_inv_re, dft_inv_im]), cpol_inv_full)
     else:
-        leg_dir_dense = np.zeros((1, 1))
-        leg_inv_dense = np.zeros((1, 1))
         fold_dir = fold_inv = np.zeros((1,))
 
     a = lambda x: torch.from_numpy(
@@ -400,6 +413,7 @@ def build_spectral(params: ModelParams, geom: Geometry,
         fold_inv=a(fold_inv),
         use_matmul_fft=use_matmul_fft,
         use_dense_legendre=use_dense,
+        use_fused_kernels=use_kernels,
     )
 
 
@@ -415,19 +429,15 @@ def build_spectral(params: ModelParams, geom: Geometry,
 # pairs, wherever the pair axis sits.
 
 
-def _dense(sp: SpectralTransform) -> bool:
-    return sp.use_matmul_fft and sp.use_dense_legendre
-
-
 def grid2spec_p(sp: SpectralTransform, grid: torch.Tensor,
                 pdim: int = 0) -> torch.Tensor:
     """Grid (..., il, ix) -> spectral pair (spectral.f90:263-273), the pair
     axis inserted at `pdim` of the result: (2, ..., mx, nx) for pdim=0,
     (B, 2, ..., mx, nx) for pdim=1. A group of one (see grid2spec_many_p): on
-    the dense route a CUDA tensor goes through the fused kernel and a CPU
+    the kernel route a CUDA tensor goes through the fused kernel and a CPU
     tensor through its plain chain (see the module docstring); a bfloat16
-    grid takes the 2-byte operand mode there and is widened on the other
-    routes."""
+    grid takes the 2-byte operand mode on the dense route and is widened on
+    the other routes."""
     return grid2spec_many_p(sp, [grid], pdim)[0]
 
 
@@ -439,7 +449,7 @@ def spec2grid_p(sp: SpectralTransform, p: torch.Tensor, kcos: int = 1,
 
     The reference's "discard the m=0 imaginary part" rule (fourier.f90:72-76)
     is inherent in dft_inv_ri[1, 0, :] == 0 on the matmul paths and explicit
-    on the fft path. On the dense route a CUDA tensor goes through the fused
+    on the fft path. On the kernel route a CUDA tensor goes through the fused
     kernel (the 1/cos scaling folded into its store) and a CPU tensor through
     its plain chain."""
     return spec2grid_many_p(sp, [p], [kcos], pdim)[0]
@@ -447,14 +457,14 @@ def spec2grid_p(sp: SpectralTransform, p: torch.Tensor, kcos: int = 1,
 
 def grid2spec_many_p(sp: SpectralTransform, grids, pdim: int = 0) -> list:
     """grid2spec_p of each field of a list, the same values as one call per
-    field. On the dense route the fields go to the fused kernel in groups of
+    field. On the kernel route the fields go to the fused kernel in groups of
     up to TK.MAX_SEGMENTS, one launch per group and element type on the card
     (the plain chain, field by field, on the CPU); on the other routes one
     field at a time."""
     grids = list(grids)
     if sp.band is not None:
         return sp.band.grid2spec_many_p(sp, grids, pdim)
-    if not _dense(sp):
+    if not sp.use_fused_kernels:
         return [_grid2spec_routes(sp, g, pdim) for g in grids]
     n = TK.MAX_SEGMENTS
     return [out for i in range(0, len(grids), n)
@@ -464,15 +474,15 @@ def grid2spec_many_p(sp: SpectralTransform, grids, pdim: int = 0) -> list:
 def spec2grid_many_p(sp: SpectralTransform, pairs, kcos=1,
                      pdim: int = 0) -> list:
     """spec2grid_p of each spectral pair of a list, `kcos` one value or one
-    per field; the same values as one call per field. On the dense route the
-    fields go to the fused kernel in groups of up to TK.MAX_SEGMENTS (each
-    field with its own 1/cos(lat) flag); on the other routes one field at a
-    time."""
+    per field; the same values as one call per field. On the kernel route
+    the fields go to the fused kernel in groups of up to TK.MAX_SEGMENTS
+    (each field with its own 1/cos(lat) flag); on the other routes one field
+    at a time."""
     pairs = list(pairs)
     kcos = TK.kcos_list(kcos, len(pairs))
     if sp.band is not None:
         return sp.band.spec2grid_many_p(sp, pairs, kcos, pdim)
-    if not _dense(sp):
+    if not sp.use_fused_kernels:
         return [_spec2grid_routes(sp, p, k, pdim) for p, k in zip(pairs, kcos)]
     n = TK.MAX_SEGMENTS
     return [out for i in range(0, len(pairs), n)
@@ -491,26 +501,21 @@ def _grid2spec_routes(sp: SpectralTransform, grid: torch.Tensor,
         F = torch.fft.rfft(grid, dim=-1)[..., : sp.mx] / grid.shape[-1]
         F2 = torch.view_as_real(F).movedim(-1, pdim)      # pair axis at pdim
         return torch.einsum("jmn,...jm->...mn", sp.cpol_dir_full, F2)
-    F2 = torch.einsum("...ji,cim->c...jm", grid, sp.dft_fwd_ri)
-    S2 = torch.einsum("jmn,c...jm->c...mn", sp.cpol_dir_full, F2)
-    return S2.movedim(0, pdim)
+    return TK.einsum_grid2spec(sp, grid, pdim)
 
 
 def _spec2grid_routes(sp: SpectralTransform, p: torch.Tensor, kcos: int,
                       pdim: int) -> torch.Tensor:
     """spec2grid_p on the fft and einsum routes."""
-    if not sp.use_matmul_fft:
-        ix = 2 * sp.il  # ix == 2*il for the supported grids (96 = 2*48)
-        F2 = torch.einsum("jmn,...mn->...jm", sp.cpol_inv_full, p)
-        Fr = F2.movedim(pdim, -1).contiguous()            # (..., il, mx, 2)
-        Fr[..., 0, 1] = 0.0     # fresh tensor: written in place
-        F = torch.view_as_complex(Fr)
-        Fp = torch.nn.functional.pad(F, (0, ix // 2 + 1 - sp.mx))
-        g = torch.fft.irfft(Fp, n=ix, dim=-1) * ix
-    else:
-        F2 = torch.einsum("jmn,c...mn->c...jm", sp.cpol_inv_full,
-                          p.movedim(pdim, 0))
-        g = torch.einsum("c...jm,cmi->...ji", F2, sp.dft_inv_ri)
+    if sp.use_matmul_fft:
+        return TK.einsum_spec2grid(sp, p, kcos, pdim)
+    ix = 2 * sp.il  # ix == 2*il for the supported grids (96 = 2*48)
+    F2 = torch.einsum("jmn,...mn->...jm", sp.cpol_inv_full, p)
+    Fr = F2.movedim(pdim, -1).contiguous()            # (..., il, mx, 2)
+    Fr[..., 0, 1] = 0.0     # fresh tensor: written in place
+    F = torch.view_as_complex(Fr)
+    Fp = torch.nn.functional.pad(F, (0, ix // 2 + 1 - sp.mx))
+    g = torch.fft.irfft(Fp, n=ix, dim=-1) * ix
     if kcos != 1:
         g = g * sp.cosgr[:, None]
     return g

@@ -54,10 +54,12 @@ __all__ = ["broadcast_state", "make_run_steps_batched", "pick_member_chunk",
 # against 82.3k (512), 78.9k (256), 68.6k (128) and 54.7k (64); the card is
 # busy 96-98 % from 512 on, and the wider chunk makes fewer host calls.
 MEMBER_CHUNK = 1024
-# Grids larger than T30's, 512 members: T47 20.2k member-steps/s in chunks
-# of 128 against 20.1k (256), 18.9k (64), 17.8k (512), 15.6k (32); T63
-# 11.4k at 128 against 11.1k (64), 10.3k (256), 9.8k (512), 9.3k (32).
-MEMBER_CHUNK_HIRES = 128
+# Grids larger than T30's, 512 members, rows 3-4 on their T47/T63 kernels:
+# T47 31.6k member-steps/s in chunks of 256 against 31.1k (512), 29.6k
+# (128), 26.2k (64); T63 17.3k at 512 against 17.0k (256), 16.1k (128),
+# 15.4k (64). One width serves both: 256, within 1.4 % of either grid's
+# fastest (512 is 1.8 % under T47's) and with less memory a member.
+MEMBER_CHUNK_HIRES = 256
 _T30_GRID_POINTS = 96 * 48
 
 

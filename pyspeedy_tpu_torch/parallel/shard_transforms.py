@@ -18,8 +18,8 @@ explicit pencil design this follows, on ``torch.distributed``:
 The products are those of the fft or the einsum route of ``ops/spectral.py``
 on the band's tables; the JAX package computes them with einsums outside any
 Pallas kernel too. A band transform is a ``SpectralTransform`` whose ``band``
-is a ``LatitudeBand``: it is never on the dense route (the fused kernels are
-built for the whole T30 sphere), and ``ops.spectral.grid2spec_many_p`` /
+is a ``LatitudeBand``: it is never on the kernel route (the fused kernels are
+built for the whole sphere), and ``ops.spectral.grid2spec_many_p`` /
 ``spec2grid_many_p`` route it here.
 
 ``counts`` counts the band transforms apart from every other route: calls and
@@ -75,7 +75,7 @@ class LatitudeBand(NamedTuple):
 def band_transform(sp, n_space: int, index: int, group=None):
     """The transform of latitude band `index` of `n_space`: sp with its
     band's rows of cpol_inv_full, cpol_dir_full, cosgr and cosgr2, off the
-    dense route (the dense tables and the fused kernels' folded tables
+    kernel route (the dense tables and the fused kernels' folded tables
     become placeholders), and the band set."""
     if sp.band is not None:
         raise ValueError("band_transform takes the whole sphere's transform")
@@ -93,7 +93,7 @@ def band_transform(sp, n_space: int, index: int, group=None):
         cpol_dir_full=cut(sp.cpol_dir_full),
         leg_dir_dense=mat, leg_inv_dense=mat,
         fold_dir=vec, fold_dir_bf16=vec, fold_inv=vec,
-        use_dense_legendre=False, band=band)
+        use_dense_legendre=False, use_fused_kernels=False, band=band)
 
 
 def grid2spec_many_p(sp, grids, pdim: int = 0) -> list:

@@ -383,7 +383,8 @@ def test_cpu_dispatch_never_touches_the_build(monkeypatch):
         "grid_dynamics", "grid_dynamics_bf16", "grid_physics_sw",
         "grid_physics_nosw", "grid_physics_sw_bf16", "grid_physics_nosw_bf16",
         "fused_grid2spec", "fused_grid2spec_bf16", "fused_spec2grid",
-        "fused_probe", "spectral_update", "dft_chain"}
+        "fused_probe", "fused_grid2spec_hires", "fused_spec2grid_hires",
+        "spectral_update", "dft_chain"}
 
 
 def _bad_inputs():
@@ -527,8 +528,8 @@ def test_kernel_source_and_build_command():
         assert word in text, word
     assert "double fsg[" not in text
     assert set(ck.KERNEL_SOURCES) == set(ck.KERNELS) == {
-        "grid_dynamics", "grid_physics", "fused_transform", "spectral_update",
-        "dft_chain"}
+        "grid_dynamics", "grid_physics", "fused_transform",
+        "fused_transform_hires", "spectral_update", "dft_chain"}
     assert len(spec.argtypes) == 12
 
 
