@@ -137,13 +137,27 @@ PEAK_FLOPS_BF16 = 989e12
 # float64 products on the FP64 tensor cores (DMMA; same data sheet): the
 # DFT chain's float64 kernel runs there.
 PEAK_FLOPS_F64_TENSOR = 67e12
+# The tensor-core rates of rows 3-4 at T47/T63: DMMA in float64, and in
+# float32 3xTF32, three TF32 products (495 TFLOP/s, same data sheet) for
+# each float one.
+PEAK_FLOPS_TENSOR = {torch.float32: 495e12 / 3,
+                     torch.float64: PEAK_FLOPS_F64_TENSOR}
 
 N_MEMBERS = 128
-# Rows 3-4 at T47/T63 (csrc/fused_transform_hires.cu): the two device kernels
-# of each direction, launched by one wrapper call (one launch count).
-HIRES_KERNELS = {"direct": ("hires_dft_fwd_kernel", "hires_leg_dir_kernel"),
-                 "inverse": ("hires_leg_inv_kernel", "hires_dft_inv_kernel")}
-HIRES_KERNEL_NAMES = HIRES_KERNELS["direct"] + HIRES_KERNELS["inverse"]
+# Rows 3-4 at T47/T63 (csrc/fused_transform_hires.cu): every device kernel,
+# and those one wrapper call launches by shape and type (the library's plan,
+# ops/transform_kernels.py::hires_kernel_plan): the direct one kernel on
+# thread-block clusters; the inverse one on clusters at T63 in float64, a
+# pair of kernels with a scratch between them elsewhere.
+HIRES_KERNEL_NAMES = ("hires_direct_cluster_kernel",
+                      "hires_inverse_cluster_kernel", "hires_leg_inv_kernel",
+                      "hires_dft_inv_kernel")
+
+
+def hires_kernels(sp, direction: str) -> tuple:
+    """The device kernels of rows 3-4 one call launches at sp's shape and
+    type, direction "direct" or "inverse"."""
+    return tk.hires_kernel_plan(sp)[f"{direction}_kernels"]
 N_STEPS = 36            # one model day at T30
 N_STEPS_DYN = 12        # depth of the dynamics-only path
 N_STEPS_BF16 = 12       # depth of the bf16_tendencies path
@@ -863,8 +877,11 @@ def hires_bound(sp, nrows: int, direct: bool):
     moved once, the folded tables and the 1/cos column once) over the memory
     rate and the folded work the kernels do (il*mx*ix DFT and il*triangle
     Legendre multiply-adds a row, two operations each) at the peak rate of
-    the type outside the tensor cores. Returns (bound ms, "bytes" or
-    "operations", bytes ms, operations ms, bytes, operations)."""
+    the type outside the tensor cores; and the same with the work at the
+    tensor cores' rate (DMMA in float64, 3xTF32 in float32), where the
+    kernels' DFT runs. Returns (bound ms, "bytes" or "operations", bytes ms,
+    operations ms, bytes, operations, tensor-core bound ms, its "bytes" or
+    "operations", operations ms at the tensor-core rate)."""
     il, ix, mx, nx = sp.il, sp.ix, sp.mx, sp.nx
     w = sp.rdtype.itemsize
     tri = mx * nx - mx * (mx - 1) // 2
@@ -874,57 +891,87 @@ def hires_bound(sp, nrows: int, direct: bool):
     ops = 2 * nrows * (il * mx * ix + il * tri)
     bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
     ops_ms = 1e3 * ops / PEAK_FLOPS[sp.rdtype]
+    tc_ms = 1e3 * ops / PEAK_FLOPS_TENSOR[sp.rdtype]
     return (max(bytes_ms, ops_ms),
             "bytes" if bytes_ms >= ops_ms else "operations",
-            bytes_ms, ops_ms, nbytes, ops)
+            bytes_ms, ops_ms, nbytes, ops, max(bytes_ms, tc_ms),
+            "bytes" if bytes_ms >= tc_ms else "operations", tc_ms)
 
 
-def hires_occupancy(libs, trunc: int, prec: str) -> dict:
-    """{device kernel: (resident blocks per SM, threads a block, shared
-    memory a block, registers, local bytes, slices of the grid)} of the
-    four T47/T63 kernels, from the CUDA runtime."""
+def hires_occupancy(libs, sp, trunc: int, prec: str) -> dict:
+    """{device kernel: six numbers from the CUDA runtime} of the T47/T63
+    kernels one shape and type runs: a cluster kernel (clusters the card
+    holds at once, cudaOccupancyMaxActiveClusters; threads a block, shared
+    memory a block, registers, local bytes, blocks a cluster), raising
+    unless its threads, shared memory and cluster size are those of the
+    library's plan (ops.transform_kernels.hires_kernel_plan) and its shared
+    memory fits in a block; a kernel of the inverse pair (resident blocks
+    per SM, threads, shared memory, registers, local bytes, slices of the
+    grid). Raises unless the library's decomposition is the one the CPU
+    tests model (ops.transform_kernels.hires_cluster_plan)."""
     import ctypes
     fn = ctypes.CDLL(str(libs["fused_transform_hires"])) \
         .pyspeedy_fused_transform_hires_occupancy
+    plan = tk.hires_kernel_plan(sp)
+    model = tk.hires_cluster_plan((sp.il, sp.ix, sp.mx, sp.nx), sp.rdtype)
+    got = {k: plan[k] for k in ("cluster", "pairs_per_band", "rows_per_step",
+                                "band_columns", "mma_k")}
+    want = {k: model[k] for k in got}
+    if got != want or plan["m_pairs"] != len(model["m_slices"][0]) // 2:
+        raise RuntimeError(f"the library's plan at T{trunc} {prec} {plan} is "
+                           f"not the modelled decomposition {model}")
+    kinds = {"hires_direct_cluster_kernel": 0,
+             "hires_inverse_cluster_kernel": 1, "hires_leg_inv_kernel": 2,
+             "hires_dft_inv_kernel": 3}
     out, rows = (ctypes.c_int * 6)(), {}
-    for stage, name in enumerate(HIRES_KERNEL_NAMES[:2]
-                                 + HIRES_KERNEL_NAMES[2:]):
-        rc = fn(stage, trunc, 0 if prec == "f32" else 1, out)
-        if rc != 0:
-            raise RuntimeError(f"occupancy query of {name} at T{trunc} "
-                               f"{prec} failed with {rc}")
-        rows[name] = tuple(out)
+    for direction in ("direct", "inverse"):
+        for name in plan[f"{direction}_kernels"]:
+            rc = fn(kinds[name], trunc, 0 if prec == "f32" else 1, out)
+            if rc != 0:
+                raise RuntimeError(f"occupancy query of {name} at T{trunc} "
+                                   f"{prec} failed with {rc}")
+            rows[name] = tuple(out)
+            if kinds[name] > 1:
+                continue
+            want = (plan[f"{direction}_threads"], plan[f"{direction}_smem"],
+                    plan["cluster"])
+            if (out[1], out[2], out[5]) != want or out[2] > 227 * 1024:
+                raise RuntimeError(f"{name} at T{trunc} {prec}: threads, "
+                                   f"shared memory and cluster "
+                                   f"{tuple(out)[1:]} against the plan's "
+                                   f"{want}")
     return rows
 
 
 def time_hires(sp, kind, launch, plain, rows: int) -> dict:
-    """Device ms of one launch of rows 3-4 at T47/T63 (the sum of its two
-    kernels, each from the profiler), a wrapper call back to back, the
-    plain version (the einsum chain, which is also the library yardstick)
-    and the bound, for `rows` field rows."""
-    per = {k: kernel_device_ms(launch, k, reps=10) for k in HIRES_KERNELS[kind]}
-    bound_ms, bound_by, bytes_ms, ops_ms, nbytes, ops = hires_bound(
-        sp, rows, kind == "direct")
+    """Device ms of one launch of rows 3-4 at T47/T63 (its kernel, from the
+    profiler), a wrapper call back to back, the plain version (the einsum
+    chain, which is also the library yardstick) and the bounds outside and
+    on the tensor cores, for `rows` field rows."""
+    per = {k: kernel_device_ms(launch, k, reps=10)
+           for k in hires_kernels(sp, kind)}
+    (bound_ms, bound_by, bytes_ms, ops_ms, nbytes, ops, tc_ms, tc_by,
+     tc_ops_ms) = hires_bound(sp, rows, kind == "direct")
     ms = sum(per.values())
     return {"rows": rows, "ms": ms, "ms_by_kernel": per,
             "call_ms": time_ms(launch, reps=10),
             "plain_ms": time_ms(plain, reps=3, warmup=1, windows=3),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes_ms": bytes_ms, "ops_ms": ops_ms, "bytes": nbytes,
-            "flops": ops}
+            "flops": ops, "tc_bound_ms": tc_ms, "tc_bound_by": tc_by,
+            "tc_ops_ms": tc_ops_ms}
 
 
-def check_transforms_hires(params, limit: float, card: str, libs,
-                           groups_timed: bool = True) -> dict:
+def check_transforms_hires(params, limit: float, card: str, libs) -> dict:
     """Rows 3-4 at a T47/T63 shape (csrc/fused_transform_hires.cu) against
     their plain version, the einsum chain: at 1,024, 128, 1 and 256 rows,
     kcos 1 and 2, the strided layouts the step passes, the step's three
     groups at B=128 (each bitwise equal to its fields launched one by one),
     the imaginary part of m = 0 ignored, and a member alone bitwise the same
     member of the 1,024-row batch. Raises past `limit`. The device ms of
-    each direction at 1,024 rows and, with `groups_timed`, as the step's
-    groups, beside the einsum chain and the bound. Returns {"fused_grid2spec_hires":
-    ..., "fused_spec2grid_hires": ...}."""
+    each direction at 1,024 rows and as the step's groups, beside the einsum
+    chain and the bounds. Returns {"fused_grid2spec_hires": ...,
+    "fused_spec2grid_hires": ...}."""
     sp = S.build_spectral(params, M.build_geometry(params),
                           use_matmul_fft=True, device="cuda")
     if not sp.use_fused_kernels or sp.use_dense_legendre:
@@ -988,11 +1035,14 @@ def check_transforms_hires(params, limit: float, card: str, libs,
         raise RuntimeError(f"rows 3-4 at {tag} disagree with their plain "
                            f"version, depend on the batch or read the m=0 "
                            f"imaginary part")
-    occ = hires_occupancy(libs, params.trunc, prec)
+    occ = hires_occupancy(libs, sp, params.trunc, prec)
     print(f"  rows 3-4 at {tag}, from the CUDA runtime: " + "; ".join(
-        f"{k} {o[1]} threads, {o[2] / 1024:.1f} KB shared memory a block, "
-        f"{o[0]} blocks per SM, {o[3]} registers, {o[4]} B local, "
-        f"{o[5]} slice(s), no cluster" for k, o in occ.items()))
+        (f"{k} on clusters of {o[5]} blocks, {o[0]} clusters at once, "
+         if "cluster" in k else
+         f"{k} (the inverse pair) {o[0]} blocks per SM, {o[5]} "
+         f"slice(s), ")
+        + f"{o[1]} threads, {o[2] / 1024:.1f} KB shared memory a block, "
+        f"{o[3]} registers, {o[4]} B local" for k, o in occ.items()))
     res = {}
     g, p = transform_inputs(sp, N_MEMBERS, kx, seed=7)
     for name, kind, launch, plain in (
@@ -1004,7 +1054,7 @@ def check_transforms_hires(params, limit: float, card: str, libs,
              lambda: s2g(sp, p, 1, 1))):
         res[name] = {"max_rel_err": worst[kind], "max_abs_err": absd[kind],
                      "member_alone_bitwise": alone_ok,
-                     "occupancy": {k: occ[k] for k in HIRES_KERNELS[kind]},
+                     "occupancy": {k: occ[k] for k in hires_kernels(sp, kind)},
                      "groups": {}}
         for gname, (gkind, fields, kcos) in groups.items():
             if gkind == kind:
@@ -1024,9 +1074,12 @@ def check_transforms_hires(params, limit: float, card: str, libs,
               f"by {r['bound_by']} (bytes {r['bytes_ms']:.4f} ms, "
               f"{r['bytes'] / 1e6:.1f} MB; operations {r['ops_ms']:.4f} ms, "
               f"{r['flops'] / 1e9:.2f} GFLOP) = "
-              f"{100 * r['bound_ms'] / r['ms']:.0f}% [{card}]")
+              f"{100 * r['bound_ms'] / r['ms']:.0f}%; on the tensor cores "
+              f"{r['tc_bound_ms']:.4f} ms by {r['tc_bound_by']} "
+              f"(operations {r['tc_ops_ms']:.4f} ms) = "
+              f"{100 * r['tc_bound_ms'] / r['ms']:.0f}% [{card}]")
         for gname, (gkind, fields, kcos) in groups.items():
-            if gkind != kind or not groups_timed:
+            if gkind != kind:
                 continue
             if kind == "direct":
                 glaunch = lambda f=fields: tk.fused_grid2spec_many_cuda(sp, f, 1)
@@ -1045,7 +1098,35 @@ def check_transforms_hires(params, limit: float, card: str, libs,
                   + f" = {t['ms']:.4f} ms on the card, the einsum chain field "
                   f"by field {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f}"
                   f" ms by {t['bound_by']} = "
-                  f"{100 * t['bound_ms'] / t['ms']:.0f}% [{card}]")
+                  f"{100 * t['bound_ms'] / t['ms']:.0f}%, on the tensor cores "
+                  f"{t['tc_bound_ms']:.4f} ms by {t['tc_bound_by']} = "
+                  f"{100 * t['tc_bound_ms'] / t['ms']:.0f}% [{card}]")
+    # The inverse design the plan does not pick, on the step's inverse
+    # groups: against the einsum chain and timed by its own kernels, the
+    # record behind the plan's choice.
+    other = "cluster" if tk.hires_kernel_plan(sp)["inverse"] == "pair" \
+        else "pair"
+    alt = {}
+    for gname, (gkind, fields, kcos) in groups.items():
+        if gkind != "inverse":
+            continue
+        launch = lambda f=fields, k=kcos: tk._spec2grid_many_design(
+            sp, f, k, 1, other)
+        err = max(_rel(a, s2g(sp, f, k, 1))
+                  for a, f, k in zip(launch(), fields, kcos))
+        if not err <= limit:
+            raise RuntimeError(f"the {other} inverse at {tag} disagrees with "
+                               f"the einsum chain: {err:.3e}")
+        alt[gname] = {"max_rel_err": err, "ms": sum(
+            kernel_device_ms(launch, k, reps=10)
+            for k in tk._HIRES_INVERSE[other][1])}
+    print(f"  the other inverse design at {tag}, {other} ("
+          + " + ".join(tk._HIRES_INVERSE[other][1]) + "): "
+          + ", ".join(f"group {n} {v['ms']:.4f} ms (max rel err "
+                      f"{v['max_rel_err']:.3e})" for n, v in alt.items())
+          + f" [{card}]")
+    res["fused_spec2grid_hires"]["other_inverse"] = {"design": other,
+                                                     "groups": alt}
     return res
 
 
@@ -1849,7 +1930,9 @@ def run_window(run, state, cal, first_step: int, n_steps: int,
     return state, cal, time.perf_counter() - t0
 
 
-# The device kernel of each launch counter (its instantiations share it).
+# The device kernel of each launch counter (its instantiations share it);
+# rows 3-4 at T47/T63 run those of the library's plan for the path's shape
+# and type.
 KERNEL_OF_COUNTER = {
     "grid_dynamics": "grid_dynamics_kernel",
     "grid_dynamics_bf16": "grid_dynamics_kernel",
@@ -1860,15 +1943,20 @@ KERNEL_OF_COUNTER = {
     "fused_grid2spec": "grid2spec_fold_kernel",
     "fused_grid2spec_bf16": "grid2spec_fold_kernel",
     "fused_spec2grid": "spec2grid_fold_kernel",
-    "fused_grid2spec_hires": HIRES_KERNELS["direct"],
-    "fused_spec2grid_hires": HIRES_KERNELS["inverse"],
+    "fused_grid2spec_hires": "direct",
+    "fused_spec2grid_hires": "inverse",
     "spectral_update": "spectral_update_kernel"}
 
 
-def _kernel_names(counter) -> tuple:
-    """The device kernels one launch of `counter` runs (two at T47/T63)."""
+def _kernel_names(counter, sp) -> tuple:
+    """The device kernels one launch of `counter` runs on a path whose
+    spectral tables are sp (none of rows 3-4 at T47/T63 off their
+    shapes)."""
     name = KERNEL_OF_COUNTER[counter]
-    return name if isinstance(name, tuple) else (name,)
+    if counter.endswith("_hires"):
+        hires = (sp.il, sp.ix, sp.mx, sp.nx) in tk.HIRES_SHAPES
+        return hires_kernels(sp, name) if hires else ()
+    return (name,)
 
 
 def device_launches_of(consts, first: int, n_steps: int) -> dict:
@@ -1878,7 +1966,7 @@ def device_launches_of(consts, first: int, n_steps: int) -> dict:
     out = {}
     for counter, n in want.items():
         if n and counter in KERNEL_OF_COUNTER:
-            for name in _kernel_names(counter):
+            for name in _kernel_names(counter, consts.sp):
                 out[name] = out.get(name, 0) + n
     return out
 
@@ -2112,7 +2200,7 @@ def read_path_counts(what: str, consts, first: int, n_steps: int,
     return launches
 
 
-def records_by_counter(by_kernel: dict, n_steps: int) -> dict:
+def records_by_counter(by_kernel: dict, n_steps: int, sp) -> dict:
     """{launch counter: device records} of a profiled float32 window
     (utils.profiling.window_profile's by_kernel over n_steps): each
     kernel's records under its counter, the physics kernel's split by its
@@ -2120,8 +2208,10 @@ def records_by_counter(by_kernel: dict, n_steps: int) -> dict:
     out = dict.fromkeys(ck.launch_counts, 0)
     for key, (_, per_step) in by_kernel.items():
         for counter in KERNEL_OF_COUNTER:
-            kernel = _kernel_names(counter)[0]
-            if counter.endswith("_bf16") or kernel + "<" not in key:
+            names = _kernel_names(counter, sp)
+            kernel = names[0] if names else None
+            if counter.endswith("_bf16") or kernel is None \
+                    or kernel + "<" not in key:
                 continue
             if kernel == "grid_physics_kernel":
                 args = key.split(kernel + "<", 1)[1].split(",")
@@ -2159,7 +2249,7 @@ def profiled_graph_day(consts, state0, cal, n_steps: int):
         calls = read_path_counts("main path, the graph day's wrapper calls",
                                  consts, 2, n_steps, graph_evals(2, n_steps),
                                  with_init=False)
-        got = records_by_counter(prof["by_kernel"], n_steps)
+        got = records_by_counter(prof["by_kernel"], n_steps, consts.sp)
         if got == want:
             return (run, out["state"], cal_day, secs, got, calls,
                     dict(tk.field_counts))
@@ -2468,7 +2558,7 @@ def preset_path(name: str, base, libs, card: str, phases) -> dict:
     res = {"transforms": check_transforms_hires(p32, 1e-5, card, libs),
            "transforms_f64": check_transforms_hires(
                dataclasses.replace(base, fft_mode="matmul"), 1e-12, card,
-               libs, groups_timed=False),
+               libs),
            "dyn": check_kernel(p32, N_MEMBERS, 1e-5, card),
            "phys": check_physics(p32, N_MEMBERS, 1e-5, card, ("grid_phi",),
                                  timed=True),
@@ -3824,8 +3914,8 @@ def main() -> None:
     kernels[-2]["launches_bf16_path"] = launches_b["fused_grid2spec_bf16"]
     kernels[-2]["fields_bf16_path"] = fields_b["fused_grid2spec_bf16"]
     kernels[-2].update(tr_bf16)
-    # Rows 3-4 at T47/T63 (csrc/fused_transform_hires.cu, two device kernels
-    # a launch): launches on the T47 and T63 paths (the wrapper calls of
+    # Rows 3-4 at T47/T63 (csrc/fused_transform_hires.cu, one device kernel
+    # a launch, on thread-block clusters): launches on the T47 and T63 paths (the wrapper calls of
     # their graph days: the initialization and each step kind's warm-up and
     # capture); times and bound at T63 f32, one kx stack of 128 members;
     # every preset's figures, the step's groups and float64 under "presets".
@@ -3838,7 +3928,7 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "pyspeedy_tpu_torch/csrc/fused_transform_hires.cu",
-            "replaces": repl, "kernels": list(HIRES_KERNELS[direction]),
+            "replaces": repl, "kernels": list(t63["occupancy"]),
             "launches": sum(r["launches"][name] for r in presets.values()),
             "launches_on": "the T47 and T63 paths",
             "launches_by_path": {p: r["launches"][name]
@@ -3852,6 +3942,8 @@ def main() -> None:
             "bound_by": t63["bound_by"], "library_ms": t63["plain_ms"],
             "shape": f"T63 f32, {N_MEMBERS * T63L8.kx} rows (B={N_MEMBERS} "
                      f"x kx)",
+            "kernels_f64": {p: list(r["transforms_f64"][name]["occupancy"])
+                            for p, r in presets.items()},
             "presets": {p: {"f32": r["transforms"][name],
                             "f64": r["transforms_f64"][name],
                             "member_alone_bitwise_after_a_day":

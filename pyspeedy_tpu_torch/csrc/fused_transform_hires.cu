@@ -1,6 +1,9 @@
 // The fused spectral transforms at T47 (il 72, ix 144, mx 48, nx 49) and T63
 // (il 96, ix 192, mx 64, nx 65) for NVIDIA Hopper (sm_90a): the zonal DFT and
-// the Legendre transform of a group of fields, two kernels a direction.
+// the Legendre transform of a group of fields. The direct transform is one
+// kernel launched on thread-block clusters; the inverse is its mirror image on
+// clusters at T63 in double and, where that kernel measured slower (float at
+// both shapes, double at T47), a pair of kernels with a scratch between them.
 //
 // Replaces, at these shapes, the two Pallas experiments of the JAX package
 // that csrc/fused_transform.cu replaces at T30:
@@ -10,7 +13,11 @@
 // T47 and T63 through einsums (its dense size gate). On the card those are
 // cuBLAS products whose rounding may follow the batch width, which these
 // kernels do not. The plain version at these shapes is that einsum chain
-// (ops/transform_kernels.py); the wrappers are there too.
+// (ops/transform_kernels.py); the wrappers are there too. They read the Plan
+// below through pyspeedy_fused_transform_hires_plan; the decomposition's two
+// choices (blocks a cluster, rows a step) are also in
+// ops/transform_kernels.py::hires_cluster_plan for the CPU model of it, and
+// the card's tests hold the two against each other.
 //
 // Computes, for every field row (one (il, ix) grid or one spectral pair):
 //   direct   F[c, j, m] = sum_i g[j, i] * dft_fwd[c, i, m]
@@ -24,84 +31,102 @@
 // The inverse never reads the imaginary part of m = 0 (the reference's
 // "discard" rule). float and double.
 //
-// Why two kernels. The T30 kernels keep all their folded tables in one
-// block's shared memory; here the Legendre table alone is 172 / 344 KB (T47,
-// float / double) and 402 / 804 KB (T63), above the 227 KB a block can hold.
-// The transform factorises: a DFT a latitude over all m, then a Legendre sum
-// an m over all latitudes (and the reverse for the inverse). So:
-//   hires_dft_fwd_kernel  persistent blocks over items (row, 12 latitude
-//       pairs): the folded DFT table resident (27 / 48 KB in float), the
-//       item's 24 grid rows copied by cp.async while the previous item is
-//       computed, folded by half a period into a transposed tile; a thread
-//       keeps 2 pairs x 4 wavenumber columns (16 sums) and writes the
-//       hemispheric sums and differences F[j] +- F[il-1-j] to a scratch
-//       X[row, m, c, sd, j] (j the pair).
-//   hires_leg_dir_kernel  blocks over (16 row pairs, a slice of the
-//       triangle): a slice is an equal share of the (m, n) entries, one entry
-//       a thread, whose iy Legendre values stay in registers; the slice's
-//       part of X for two rows comes in by cp.async into a two-stage ring
-//       (a third stage ran no faster); each thread forms 4 sums (2 rows x real,
-//       imaginary) and the slice writes the zeros past the triangle of the
-//       rows m that end in it. The slices read unequal spans of X (the high
-//       m have few entries each), so the blocks are not persistent: the
-//       hardware spreads the heavy and light slices' blocks over the SMs.
-//   hires_leg_inv_kernel  blocks over (row pairs, slices of m balanced by
-//       triangle entries): the slice's Legendre rows in shared memory as
-//       (m, n, j); a thread keeps 4 latitudes x 2 rows x 2 parts of the even
-//       and odd partial sums E, O and writes F[j] = E + O, F[il-1-j] = E - O
-//       to X[row, m, c, hemisphere, j] (0 for the imaginary part of m = 0).
-//   hires_dft_inv_kernel  persistent blocks over items (row, 12 latitude
-//       pairs): the folded inverse DFT table resident, the item's Fourier
-//       coefficients copied by cp.async into a two-stage ring; a thread keeps
-//       8 latitudes x 2 longitudes of both parities and stores g[i] = Pe + Po,
-//       g[i + ix/2] = Pe - Po, scaled by 1/cos(lat) where the field's flag
-//       says so.
-// The scratch X (mx * 4 * iy values a row, the size of the Fourier
-// intermediate) is allocated by the wrapper for each launch; it costs a write
-// and a read of 2 il mx values a row beyond a fused kernel's bytes.
+// The cluster design. The folded Legendre table is 172 / 344 KB (T47, float
+// / double) and 402 / 804 KB (T63), above the 227 KB a block can hold, and
+// the transform factorises: a DFT a latitude over all m, then a Legendre sum
+// an m over all latitudes. So a cluster of C blocks (Plan::C: 4, and 8 for
+// T63 in double) takes R = 2 field rows at a time, persistent over the rows,
+// and splits them both ways:
+//   * by latitude: block b owns the band of NP = (il/2)/C mirror pairs
+//     b NP .. (b+1) NP - 1, both hemispheres (so the hemispheric sums
+//     F[j] +- F[il-1-j] form inside a thread);
+//   * by wavenumber: block r owns K = mx/(2C) m from r K and their mirrors
+//     mx - 1 - m, whose triangle rows hold 2 nx - mx + 1 entries whatever m,
+//     so every block sums the same work. Its slice of the Legendre table
+//     stays in its shared memory for the kernel's life.
+// hires_direct_cluster_kernel: the block's band of both rows comes in by
+//   cp.async (16-byte chunks where aligned; two buffers where they fit, so
+//   the next rows load during these); the folded DFT runs on the tensor
+//   cores, one warp a (parity, 16 wavenumber columns) tile over all the
+//   band's (row, pair, hemisphere) columns; each thread forms the hemispheric
+//   sums and differences of its accumulators and stores them straight into
+//   the shared memory of the block that owns their m (distributed shared
+//   memory, two buffers by the step's parity); one cluster barrier; then
+//   each block sums its entries over all il/2 pairs for both rows, one entry
+//   a thread (16-byte vectors of the table and of the Fourier values), and
+//   writes the pairs and the zeros past the triangle.
+// hires_inverse_cluster_kernel (T63, double): the mirror image. A thread of
+//   block r sums E (even n) or O (odd n) of an m pair for two pairs of
+//   latitudes (the spectral values held by the parity of n, read as
+//   vectors), swaps with its partner lane, and writes F = E + O (south) and
+//   E - O (north) into the shared memory of the band's owner (0 for the
+//   imaginary part of m = 0); one cluster barrier; each block runs the
+//   folded inverse DFT of its band on the tensor cores, a warp a (16
+//   longitudes, parity) tile, stages Pe and Po of a row in the used Fourier
+//   buffer and stores g[i] = Pe + Po, g[i + ix/2] = Pe - Po (scaled by
+//   1/cos(lat) where the field's flag says so) as 16-byte vectors.
+// The Fourier intermediate never reaches device memory in these two kernels:
+// it lives in the receiving block's shared memory for one step, double-
+// buffered by the step's parity, so one cluster barrier a step orders both
+// the exchange and the buffers' reuse.
 //
-// Every output element is one fixed-order sum inside one thread (j or n
-// ascending, the even and odd partial sums apart), with no atomics and no
-// split that depends on the launch's row count: a row's result does not
-// depend on the rows or segments launched with it, so a member alone is
-// bitwise the same member in any batch, and a group equals its fields
-// launched one by one.
+// The products on the tensor cores, A the DFT table (kept in registers for
+// the kernel's life, loaded once), B the band's data (M 16 wavenumber columns
+// direct or longitudes inverse, N the band's columns, K the longitudes direct
+// or wavenumber columns inverse):
+//   double: mma.sync m16n8k4 on the FP64 tensor cores (DMMA);
+//   float:  3xTF32, mma.sync m16n8k8: each operand x split into
+//           hi = tf32(x) and lo = tf32(x - hi), D += lo.hi + hi.lo + hi.hi in
+//           float (the lo.lo term, 2^-22 of a product, dropped), which holds
+//           the 1e-5 agreement that one TF32 product (2^-11) would not.
+// The Legendre sums stay on the CUDA cores (15 % of the work).
 //
-// What bounds it on an H100 (3.35 TB/s, 67 TFLOP/s float outside the tensor
-// cores): a T63 row reads 73.7 KB of grid and writes 33.3 KB of pair in
-// float (32 ns at the memory rate), and the folded work is il mx ix + il
-// triangle multiply-adds, 1.39 M a row (41 ns at the float peak): the
-// operations bind at T63 (0.83 ms for the step's groups of 9,344 direct and
-// 10,624 inverse rows, against 0.64 ms of bytes), and at T47 they are about
-// even with the bytes (0.35 against 0.36 ms). Products on CUDA cores; the
-// DFT stages are register-tiled (16 multiply-adds for 4 shared-memory loads
-// direct, 32 for 6 inverse), the Legendre stages 4 multiply-adds a 16-byte
-// load (direct) or 16 for 5 loads (inverse).
+// Every output element is one fixed-order sum: the MMA's k order is the
+// table's, a row is always its own MMA columns and nobody else's, the
+// Legendre sums run over the pairs (or n) in ascending order inside one
+// thread, the exchange places values and adds nothing, and there are no
+// atomics. Which cluster takes a row, and which row shares its step, change
+// no bit: a member alone is bitwise the same member in any batch, and a group
+// equals its fields launched one by one (the inverse pair below likewise).
+//
+// What bounds it on an H100 (3.35 TB/s; 67 TFLOP/s float and 34 TFLOP/s
+// double outside the tensor cores, 67 TFLOP/s double on DMMA, 495 TFLOP/s
+// TF32, a third of that for 3xTF32): a T63 row reads 73.7 KB of grid and
+// writes 33.3 KB of pair in float (32 ns at the memory rate), and the folded
+// work is il mx ix + il triangle multiply-adds, 1.39 M a row (41 ns at the
+// float peak outside the tensor cores; 85 % of it is DFT, which the tensor
+// cores take at 14 ns in 3xTF32). So on the tensor cores the bytes bind, in
+// both types, at both shapes. What holds the cluster kernels at 18-25 % of
+// that on the card (PERF.md): a block is alone on its SM but at T47 in float
+// (6-12 warps), and every step waits on its copies, one cluster barrier and
+// the slowest block; the tensor-core products issue at about a third of
+// their rate, the Legendre stages are bound by shared-memory wavefronts.
 //
 // Interface: plain C, loaded with ctypes. The launches go to the stream they
 // are given, allocate nothing and do not synchronise; the function returns
 // cudaGetLastError() (0 on success) or a negative code for arguments the
 // kernels were not built for.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kPB = 12;              // latitude pairs of a DFT item
 constexpr int kMaxSeg = 16;
 constexpr int kSegWords = 11;        // int64 words of one segment descriptor
+constexpr int kSmemLimit = 232448;   // bytes of shared memory a block may use
 
 template <int IL_, int IX_, int MX_, int NX_>
 struct Shape {
   static constexpr int IL = IL_, IX = IX_, MX = MX_, NX = NX_;
   static constexpr int IY = IL / 2, IH = IX / 2, H = (MX + 1) / 2, COLS = 2 * H;
   static constexpr int TRI = MX * NX - MX * (MX - 1) / 2;   // m + n <= nx - 1
-  static constexpr int NPB = IY / kPB;                      // DFT items a row
   static constexpr int DFT = 2 * IH * COLS;                 // folded DFT table
   static constexpr int LEG = IY * TRI;                      // folded Legendre table
-  static constexpr int XROW = MX * 4 * IY;                  // scratch a row
-  static_assert(IY % kPB == 0 && IY % 4 == 0 && MX % 2 == 0 && IX % 2 == 0,
-                "the tiles of these kernels");
+  static_assert(MX % 2 == 0 && IX % 2 == 0 && COLS % 16 == 0, "the tiles of these kernels");
 };
 using T47 = Shape<72, 144, 48, 49>;
 using T63 = Shape<96, 192, 64, 65>;
@@ -116,6 +141,94 @@ __host__ __device__ constexpr int m_of_entry(int e, int nx) {
   while (e >= nx - m) { e -= nx - m; ++m; }
   return m;
 }
+// What to add to a to reach b modulo m, in 0 .. m-1.
+constexpr int pad_to(int a, int b, int m) { return ((b - a % m) % m + m) % m; }
+
+// The wavenumbers of a block: block r of a cluster owns the k lowest m from
+// r k and their mirrors mx - 1 - m, whose triangle rows together hold
+// 2 nx - mx + 1 entries whatever m, so every block sums the same work. Local
+// index ml < k: m = r k + ml; ml >= k: m = mx - (r + 1) k + ml - k (both
+// runs ascending in m).
+__host__ __device__ constexpr int slice_m(int r, int ml, int k, int mx) {
+  return ml < k ? r * k + ml : mx - (r + 1) * k + (ml - k);
+}
+__host__ __device__ constexpr int owner_of(int m, int k, int mx) {
+  return (m < mx - 1 - m ? m : mx - 1 - m) / k;
+}
+__host__ __device__ constexpr int local_of(int m, int k, int mx) {
+  return m < mx - 1 - m ? m - owner_of(m, k, mx) * k
+                        : k + m - (mx - (owner_of(m, k, mx) + 1) * k);
+}
+
+// The cluster plan of a shape and type (pyspeedy_fused_transform_hires_plan
+// reports it).
+template <class S, typename T>
+struct Plan {
+  static constexpr bool F64 = sizeof(T) == 8;
+  static constexpr int C = (F64 && S::IL == 96) ? 8 : 4;   // blocks a cluster
+  static constexpr int K = S::MX / (2 * C);                // m pairs of a block
+  static constexpr int MS = 2 * K;                         // m of a block
+  static constexpr int ENT = K * (2 * S::NX - S::MX + 1);  // triangle entries of a block
+  static constexpr int NP = S::IY / C;                     // mirror pairs of a band
+  static constexpr int NB = 2 * NP;                        // latitudes of a band
+  static constexpr int R = 2;                              // rows a cluster step
+  static constexpr int NPAD = (R * NB + 7) / 8 * 8;        // MMA columns: (row, pair, hemisphere)
+  static constexpr int NT = NPAD / 8;                      // n tiles
+  static constexpr int KS = F64 ? 4 : 8;                   // MMA depth
+  static constexpr int VW = 16 / static_cast<int>(sizeof(T));   // a 16-byte vector
+  // Pitches, in elements, that put the B fragments' loads on distinct banks:
+  // a grid row GP = 4 mod 32 words (float) / 4 mod 16 doubles, a Fourier
+  // column FP = 8 mod 32 / 4 mod 16.
+  static constexpr int GP = S::IX + pad_to(S::IX, 4, F64 ? 16 : 32);
+  static constexpr int FP = NPAD + pad_to(NPAD, F64 ? 4 : 8, F64 ? 16 : 32);
+  static constexpr int MT_DIR = S::COLS / 16;              // column tiles of a parity
+  static constexpr int MT_INV = (S::IH + 15) / 16;         // longitude tiles
+  static constexpr int DIR_THREADS = 2 * 32 * MT_DIR;      // a warp a (parity, tile)
+  static constexpr int INV_THREADS = 2 * 32 * MT_INV;      // a warp a (tile, parity)
+  static constexpr int KS_DIR = S::IH / KS, KS_INV = S::COLS / KS;
+  // Direct: the block's Legendre table (il/2 / VW, ENT, VW), the Fourier
+  // values it receives (2 buffers, R rows, MS, c, sum / difference, il/2),
+  // the band's grid rows (GBUF buffers, NPAD, GP): two where they fit and the
+  // block is alone on its SM anyway, so the next rows are copied in while
+  // these are transformed.
+  static constexpr int XROW = MS * 4 * S::IY;
+  static constexpr int D_SL = S::IY * ENT, D_XIN = 2 * R * XROW, D_ROWS = NPAD * GP;
+  static constexpr int D_ONE = static_cast<int>(sizeof(T)) * (D_SL + D_XIN + D_ROWS);
+  static constexpr int GBUF =
+      2 * (D_ONE + 1024) > 233472 && D_ONE + static_cast<int>(sizeof(T)) * D_ROWS <= kSmemLimit
+          ? 2 : 1;
+  static constexpr int D_GRID = GBUF * D_ROWS;
+  static constexpr size_t DIR_SMEM = sizeof(T) * (D_SL + D_XIN + D_GRID);
+  // Inverse: the block's table (ENT, il/2), its spectral values (2 buffers,
+  // R rows, c, MS, n parity, NH: the even n, then the odd ones, each run
+  // padded to whole 16-byte vectors), the band's Fourier values (2 buffers,
+  // parity, COLS, FP).
+  static constexpr int NH = ((S::NX + 1) / 2 + VW - 1) / VW * VW;
+  static constexpr int PROW = 2 * MS * 2 * NH;
+  static constexpr int I_SL = ENT * S::IY, I_P = 2 * R * PROW, I_FIN = 4 * S::COLS * FP;
+  // A row's even and odd sums Pe, Po staged in the used Fourier buffer
+  // before g = Pe +- Po is stored in 16-byte vectors: (parity, NB, SPH), the
+  // pitch SPH = 4 mod 16 so a warp's scattered writes miss each other's banks.
+  static constexpr int SPH = S::IH + pad_to(S::IH, 4, 16);
+  static constexpr size_t INV_SMEM = sizeof(T) * (I_SL + I_P + I_FIN);
+  // Blocks an SM holds by their shared memory (1 KB of each is the system's),
+  // the registers' budget of __launch_bounds__.
+  static constexpr int DIR_MINB = 2 * (DIR_SMEM + 1024) <= 233472 ? 2 : 1;
+  static constexpr int INV_MINB = 2 * (INV_SMEM + 1024) <= 233472 && INV_THREADS <= 256 ? 2 : 1;
+  // The inverse Legendre stage's items: (m pair, SVW pairs, n parity), about
+  // one a thread.
+  static constexpr int SVW = (F64 && S::IL == 96) ? 1 : 2;
+  static constexpr int ITEMS = K * (S::IY / SVW) * 2;
+  // The inverse design a call runs, as the entry's kind: 2, the cluster
+  // kernel, at T63 in double; 1, the pair of kernels below, elsewhere, where
+  // the cluster kernel measured slower on an H100 (PERF.md).
+  static constexpr int INVERSE = (F64 && S::IL == 96) ? 2 : 1;
+  static_assert(S::IY % C == 0 && S::IY % VW == 0 && S::MX % (2 * C) == 0, "bands and slices");
+  static_assert(S::IH % KS == 0 && S::COLS % KS == 0, "MMA depth");
+  static_assert(DIR_SMEM <= kSmemLimit && INV_SMEM <= kSmemLimit, "shared memory of a block");
+  static_assert(2 * NB * SPH <= 2 * S::COLS * FP && (SPH * sizeof(T)) % 16 == 0, "a staged row");
+  static_assert(S::IY % SVW == 0 && S::IH % VW == 0, "items and vectors");
+};
 
 struct Segment {
   const void* in;
@@ -143,6 +256,7 @@ template <typename T, int N>
 __device__ __forceinline__ Vec<T, N> load_vec(const T* p) {
   return *reinterpret_cast<const Vec<T, N>*>(p);
 }
+
 // Four neighbouring values (16-byte aligned), as one or two 16-byte loads.
 template <typename T>
 __device__ __forceinline__ void load4(const T* p, T* out) {
@@ -169,22 +283,41 @@ __device__ __forceinline__ int find_segment(const Group& g, long long r) {
   return s;
 }
 
+// The input of row lr of segment s (elements of its (il, ix) grid or of its
+// real part), and the output, the row split into member and row of the
+// member in the index type I. The cluster kernels split it in int (a group
+// holds fewer than 2^31 rows: read_group checks); the inverse pair in 64
+// bits, as it was first built: with the int split nvcc interleaves the
+// Legendre kernel's shared loads with its FFMAs in the n loop, and in float
+// that kernel ran up to a quarter slower (PERF.md).
+template <typename T, typename I = int>
+__device__ __forceinline__ const T* row_in(const Segment& s, long long lr) {
+  const I r = static_cast<I>(lr), b = r / s.per_member, kk = r - b * s.per_member;
+  return static_cast<const T*>(s.in) + b * s.in_member + kk * s.in_row;
+}
+template <typename T, typename I = int>
+__device__ __forceinline__ T* row_out(const Segment& s, long long lr) {
+  const I r = static_cast<I>(lr), b = r / s.per_member, kk = r - b * s.per_member;
+  return static_cast<T*>(s.out) + b * s.out_member + kk * s.out_row;
+}
+
+// ---------------------------------------------------------------------------
+// Device primitives: cp.async, the tensor-core products
+// ---------------------------------------------------------------------------
+
 // cp.async: 16-byte chunks bypassing L1, or single elements (4 or 8 bytes)
 // through L1; completed by cp_async_wait_all.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src)
-               : "memory");
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
 }
 template <typename T>
 __device__ __forceinline__ void cp_async_elem(T* dst, const T* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   if constexpr (sizeof(T) == 4)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
-                 : "memory");
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
   else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src)
-                 : "memory");
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -192,6 +325,582 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+
+// x rounded to TF32 (to nearest, ties away), as the bits of a float.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+// D += A . B, m16n8k8, TF32 operands, float accumulation: a0 = A[g][t],
+// a1 = A[g+8][t], a2 = A[g][t+4], a3 = A[g+8][t+4], b0 = B[t][g],
+// b1 = B[t+4][g]; d = D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1] for
+// lane 4g + t.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// D += A . B on the FP64 tensor cores, m16n8k4: a0 = A[g][t], a1 = A[g+8][t],
+// b = B[t][g]; d as above.
+__device__ __forceinline__ void mma_f64(double (&d)[4], double a0, double a1, double b) {
+  asm(
+      "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
+      "{%0,%1,%2,%3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a0), "d"(a1), "d"(b));
+}
+
+// ---------------------------------------------------------------------------
+// A fragments of the DFT table (in registers) and one step of a product
+// ---------------------------------------------------------------------------
+
+template <typename T, int K>
+struct AFrags;
+template <int K>
+struct AFrags<float, K> {   // 3xTF32: the high and low TF32 parts
+  uint32_t hi[K][4], lo[K][4];
+  __device__ __forceinline__ void set(int ks, float v0, float v1, float v2, float v3) {
+    const float v[4] = {v0, v1, v2, v3};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      hi[ks][q] = tf32_rna(v[q]);
+      lo[ks][q] = tf32_rna(v[q] - __uint_as_float(hi[ks][q]));
+    }
+  }
+};
+template <int K>
+struct AFrags<double, K> {
+  double v[K][2];
+  __device__ __forceinline__ void set(int ks, double v0, double v1, double, double) {
+    v[ks][0] = v0;
+    v[ks][1] = v1;
+  }
+};
+
+// acc[nt] += A(k step ks) . B[nt] for the NT n tiles, B[nt] given by this
+// lane's values b0[nt], b1[nt] (b1 unused in double). A tile's three 3xTF32
+// products add in the order lo.hi, hi.lo, hi.hi; the tiles interleave, so
+// consecutive products are independent.
+template <int NT, int K>
+__device__ __forceinline__ void mma_step(float (&acc)[NT][4], const AFrags<float, K>& a, int ks,
+                                         const float (&b0)[NT], const float (&b1)[NT]) {
+  uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    bh[nt][0] = tf32_rna(b0[nt]);
+    bh[nt][1] = tf32_rna(b1[nt]);
+    bl[nt][0] = tf32_rna(b0[nt] - __uint_as_float(bh[nt][0]));
+    bl[nt][1] = tf32_rna(b1[nt] - __uint_as_float(bh[nt][1]));
+  }
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) mma_tf32(acc[nt], a.lo[ks], bh[nt]);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) mma_tf32(acc[nt], a.hi[ks], bl[nt]);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) mma_tf32(acc[nt], a.hi[ks], bh[nt]);
+}
+template <int NT, int K>
+__device__ __forceinline__ void mma_step(double (&acc)[NT][4], const AFrags<double, K>& a, int ks,
+                                         const double (&b0)[NT], const double (&)[NT]) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) mma_f64(acc[nt], a.v[ks][0], a.v[ks][1], b0[nt]);
+}
+
+// ---------------------------------------------------------------------------
+// Direct transform: grid rows -> spectral pairs
+// ---------------------------------------------------------------------------
+template <class S, typename T>
+__global__ void __launch_bounds__(Plan<S, T>::DIR_THREADS, Plan<S, T>::DIR_MINB)
+hires_direct_cluster_kernel(const __grid_constant__ Group g, long long rows) {
+  using P = Plan<S, T>;
+  constexpr int C = P::C, K = P::K, MS = P::MS, NP = P::NP, NB = P::NB, R = P::R;
+  constexpr int NPAD = P::NPAD, NT = P::NT, KS = P::KS, VW = P::VW, GP = P::GP;
+  constexpr int ENT = P::ENT, XROW = P::XROW, THREADS = P::DIR_THREADS, KSTEPS = P::KS_DIR;
+  constexpr int EPT = (ENT + THREADS - 1) / THREADS;   // entries a thread
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long cid = blockIdx.x / C, ncl = gridDim.x / C;
+  const long long units = (rows + R - 1) / R;          // R rows a cluster step
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sL = reinterpret_cast<T*>(smem_raw);   // (il/2 / VW, ENT, VW)
+  T* xin = sL + P::D_SL;                    // (2, R, MS, c, sd, il/2)
+  T* sG = xin + P::D_XIN;                   // (GBUF, NPAD, GP): slot NB rr + 2 pp + hemisphere
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int p0 = rank * NP;
+  // The block's triangle entries: the rows of its K low m, then of their mirrors.
+  const int t_lo = tri_offset(rank * K, S::NX), t_hi = tri_offset(S::MX - (rank + 1) * K, S::NX);
+  const int e_lo = tri_offset((rank + 1) * K, S::NX) - t_lo;
+
+  // This warp's tile: parity par, wavenumber columns col_a = 16 mt + g and
+  // col_b = col_a + 8 (col = c h + q for m = 2q + par); the table's A
+  // fragments, A[col][i] = dft_fwd[par][i][col].
+  const int par = warp / P::MT_DIR, mt = warp - par * P::MT_DIR;
+  const int col_a = 16 * mt + gq;
+  const T* dfwd = static_cast<const T*>(g.tables) + par * S::IH * S::COLS;
+  AFrags<T, KSTEPS> a;
+#pragma unroll
+  for (int ks = 0; ks < KSTEPS; ++ks) {
+    const int k = ks * KS + tq;
+    if constexpr (sizeof(T) == 4)
+      a.set(ks, dfwd[k * S::COLS + col_a], dfwd[k * S::COLS + col_a + 8],
+            dfwd[(k + 4) * S::COLS + col_a], dfwd[(k + 4) * S::COLS + col_a + 8]);
+    else
+      a.set(ks, dfwd[k * S::COLS + col_a], dfwd[k * S::COLS + col_a + 8], T(0), T(0));
+  }
+  // Where this thread's Fourier values go: the block owning their m, at
+  // (local m, c) in its receive buffers.
+  T* xdst[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int col = col_a + 8 * half;
+    const int c = col / S::H, m = 2 * (col - c * S::H) + par;
+    xdst[half] = cluster.map_shared_rank(xin, owner_of(m, K, S::MX)) +
+                 (local_of(m, K, S::MX) * 2 + c) * 2 * S::IY;
+  }
+  // This thread's triangle entries: (m, n, local m).
+  int em[EPT], en[EPT], el_m[EPT];
+#pragma unroll
+  for (int u = 0; u < EPT; ++u) {
+    const int el = tid + u * THREADS;
+    const int e = el < e_lo ? t_lo + el : t_hi + el - e_lo;
+    em[u] = el < ENT ? m_of_entry(e, S::NX) : 0;
+    en[u] = el < ENT ? e - tri_offset(em[u], S::NX) : 0;
+    el_m[u] = local_of(em[u], K, S::MX);
+  }
+
+  // The block's Legendre table, resident; the pad slots of the band zero.
+  const T* leg = static_cast<const T*>(g.tables) + S::DFT;   // (il/2, triangle)
+  for (int idx = tid; idx < S::IY * ENT; idx += THREADS) {
+    const int p = idx / ENT, el = idx - p * ENT;
+    const int e = el < e_lo ? t_lo + el : t_hi + el - e_lo;
+    sL[((p / VW) * ENT + el) * VW + p % VW] = leg[p * S::TRI + e];
+  }
+  for (int bf = 0; bf < P::GBUF; ++bf)
+    for (int idx = tid; idx < (NPAD - R * NB) * GP; idx += THREADS)
+      sG[bf * P::D_ROWS + R * NB * GP + idx] = T(0);
+
+  // The band's grid rows of a unit's rows into buffer `buf`: slot NB rr + 2 pp
+  // (south, latitude p0 + pp) and NB rr + 2 pp + 1 (north, il - 1 - p0 - pp).
+  auto issue = [&](long long unit, int buf) {
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      const long long row = unit * R + rr;
+      if (row >= rows) break;
+      const Segment& s = g.seg[find_segment(g, row)];
+      const T* src = row_in<T>(s, row - s.first);
+      T* dst = sG + buf * P::D_ROWS + rr * NB * GP;
+      if (s.aligned) {
+        constexpr int CH = S::IX * static_cast<int>(sizeof(T)) / 16;
+        for (int q = tid; q < NB * CH; q += THREADS) {
+          const int n = q / CH, ch = q - n * CH;
+          const int lat = (n & 1) ? S::IL - 1 - (p0 + (n >> 1)) : p0 + (n >> 1);
+          cp_async16(reinterpret_cast<unsigned char*>(dst + n * GP) + 16 * ch,
+                     reinterpret_cast<const unsigned char*>(src + lat * S::IX) + 16 * ch);
+        }
+      } else {
+        for (int q = tid; q < NB * S::IX; q += THREADS) {
+          const int n = q / S::IX, i = q - n * S::IX;
+          const int lat = (n & 1) ? S::IL - 1 - (p0 + (n >> 1)) : p0 + (n >> 1);
+          cp_async_elem(dst + n * GP + i, src + lat * S::IX + i);
+        }
+      }
+    }
+  };
+
+  cluster.sync();   // every block of the cluster runs before any remote store
+  long long unit = cid;
+  if (unit < units) issue(unit, 0);
+  cp_async_commit();
+  for (int s = 0; unit < units; unit += ncl, s ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();
+    const T* gb = sG + (P::GBUF == 2 ? s : 0) * P::D_ROWS;
+    if (P::GBUF == 2 && unit + ncl < units) issue(unit + ncl, s ^ 1);
+    cp_async_commit();
+
+    // The folded DFT of the band: F[col][slot] = sum_i fold_par[slot][i] A[col][i],
+    // fold_0 = g[i] + g[i + ix/2], fold_1 = g[i] - g[i + ix/2].
+    T acc[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[nt][q] = T(0);
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      T b0[NT], b1[NT];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const T* r = gb + (nt * 8 + gq) * GP + ks * KS + tq;
+        const T u0 = r[0], v0 = r[S::IH];
+        b0[nt] = par ? u0 - v0 : u0 + v0;
+        b1[nt] = T(0);
+        if constexpr (sizeof(T) == 4) {
+          const T u1 = r[4], v1 = r[S::IH + 4];
+          b1[nt] = par ? u1 - v1 : u1 + v1;
+        }
+      }
+      mma_step(acc, a, ks, b0, b1);
+    }
+    // acc[nt] = F[col_a][south, north], F[col_b][south, north] of slot pair
+    // 8 nt + 2 t: the hemispheric sums (n even) and differences (n odd) into
+    // the owner's buffer s (rows past the group's end are never read).
+    const int xoff = s * R * XROW;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int n0 = nt * 8 + 2 * tq;
+      if (n0 < R * NB) {
+        const int rr = n0 / NB, pp = (n0 - rr * NB) >> 1;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const T south = acc[nt][2 * half], north = acc[nt][2 * half + 1];
+          T* d = xdst[half] + xoff + rr * XROW + p0 + pp;
+          d[0] = south + north;
+          d[S::IY] = south - north;
+        }
+      }
+    }
+    if (P::GBUF == 1) {
+      __syncthreads();   // the band's grid rows are read
+      if (unit + ncl < units) issue(unit + ncl, 0);
+      cp_async_commit();
+    }
+    cluster.sync();    // every block's Fourier values of these rows have arrived
+
+    // The Legendre sums of the block's entries, both rows:
+    // S[c][m][n] = sum_p L[p][e] X[m][c][n & 1][p].
+    const T* xs = xin + xoff;
+    T* out[R];
+    long long opair[R];
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      const long long row = unit * R + rr;
+      out[rr] = nullptr;
+      opair[rr] = 0;
+      if (row < rows) {
+        const Segment& sg = g.seg[find_segment(g, row)];
+        out[rr] = row_out<T>(sg, row - sg.first);
+        opair[rr] = sg.out_pair;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < EPT; ++u) {
+      const int el = tid + u * THREADS;
+      if (el < ENT) {
+        const int m = em[u], n = en[u];
+        const T* l = sL + el * VW;
+        const T* x = xs + (el_m[u] * 4 + (n & 1)) * S::IY;   // row 0, c = 0
+        T sum[R][2];
+#pragma unroll
+        for (int rr = 0; rr < R; ++rr) sum[rr][0] = sum[rr][1] = T(0);
+#pragma unroll
+        for (int pv = 0; pv < S::IY / VW; ++pv) {
+          const Vec<T, VW> lv = load_vec<T, VW>(l + pv * ENT * VW);
+#pragma unroll
+          for (int rr = 0; rr < R; ++rr)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const Vec<T, VW> xv = load_vec<T, VW>(x + rr * XROW + c * 2 * S::IY + pv * VW);
+#pragma unroll
+              for (int v = 0; v < VW; ++v) sum[rr][c] += lv.v[v] * xv.v[v];
+            }
+        }
+#pragma unroll
+        for (int rr = 0; rr < R; ++rr)
+          if (out[rr]) {
+            out[rr][m * S::NX + n] = sum[rr][0];
+            out[rr][opair[rr] + m * S::NX + n] = sum[rr][1];
+          }
+      }
+    }
+    // Zeros past the triangle: n = nx - m .. nx - 1 of the block's rows m.
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr)
+      if (out[rr])
+        for (int ml = 0; ml < MS; ++ml) {
+          const int m = slice_m(rank, ml, K, S::MX);
+          if (tid < m) {
+            out[rr][m * S::NX + S::NX - m + tid] = T(0);
+            out[rr][opair[rr] + m * S::NX + S::NX - m + tid] = T(0);
+          }
+        }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Inverse transform: spectral pairs -> grid rows
+// ---------------------------------------------------------------------------
+template <class S, typename T>
+__global__ void __launch_bounds__(Plan<S, T>::INV_THREADS, Plan<S, T>::INV_MINB)
+hires_inverse_cluster_kernel(const __grid_constant__ Group g, long long rows) {
+  using P = Plan<S, T>;
+  constexpr int C = P::C, K = P::K, MS = P::MS, NP = P::NP, NB = P::NB, R = P::R;
+  constexpr int NT = P::NT, KS = P::KS, VW = P::VW, SVW = P::SVW, FP = P::FP, PROW = P::PROW;
+  constexpr int ENT = P::ENT, THREADS = P::INV_THREADS, KSTEPS = P::KS_INV, SPH = P::SPH;
+  constexpr int PG = S::IY / SVW;   // items of pairs
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const long long cid = blockIdx.x / C, ncl = gridDim.x / C;
+  const long long units = (rows + R - 1) / R;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sL = reinterpret_cast<T*>(smem_raw);   // (ENT, il/2)
+  T* sP = sL + P::I_SL;                     // (2, R, c, MS, n parity, NH)
+  T* fin = sP + P::I_P;                     // (2, parity, COLS, FP): slot NB rr + 2 pp + hemisphere
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int p0 = rank * NP;
+  const int t_lo = tri_offset(rank * K, S::NX), t_hi = tri_offset(S::MX - (rank + 1) * K, S::NX);
+  const int e_lo = tri_offset((rank + 1) * K, S::NX) - t_lo;
+
+  // This warp's tile: parity par, longitudes i_a = 16 mt + g and i_a + 8;
+  // A[i][col] = dft_inv[par][col][i], 0 past ix/2.
+  const int par = warp / P::MT_INV, mt = warp - par * P::MT_INV;
+  const int ia = 16 * mt + gq;
+  const T* dinv = static_cast<const T*>(g.tables) + S::LEG + par * S::COLS * S::IH;
+  auto at = [&](int k, int i) -> T { return i < S::IH ? dinv[k * S::IH + i] : T(0); };
+  AFrags<T, KSTEPS> a;
+#pragma unroll
+  for (int ks = 0; ks < KSTEPS; ++ks) {
+    const int k = ks * KS + tq;
+    if constexpr (sizeof(T) == 4)
+      a.set(ks, at(k, ia), at(k, ia + 8), at(k + 4, ia), at(k + 4, ia + 8));
+    else
+      a.set(ks, at(k, ia), at(k, ia + 8), T(0), T(0));
+  }
+
+  // The block's Legendre table, resident as (entry, pair); both Fourier
+  // buffers zero (the pad slots stay so).
+  const T* leg = static_cast<const T*>(g.tables);   // (il/2, triangle)
+  for (int idx = tid; idx < ENT * S::IY; idx += THREADS) {
+    const int p = idx / ENT, el = idx - p * ENT;
+    sL[el * S::IY + p] = leg[p * S::TRI + (el < e_lo ? t_lo + el : t_hi + el - e_lo)];
+  }
+  for (int idx = tid; idx < P::I_FIN; idx += THREADS) fin[idx] = T(0);
+
+  // The block's spectral values of a unit's rows: for c = 0 and 1, the K low
+  // m and the K mirrors, all n, split by the parity of n.
+  auto issue = [&](long long unit, int buf) {
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      const long long row = unit * R + rr;
+      if (row >= rows) break;
+      const Segment& s = g.seg[find_segment(g, row)];
+      const T* src = row_in<T>(s, row - s.first);
+      T* dst = sP + (buf * R + rr) * PROW;
+#pragma unroll
+      for (int cr = 0; cr < 4; ++cr) {
+        const int c = cr >> 1, hi = cr & 1;
+        const T* from = src + c * s.in_pair + (hi ? S::MX - (rank + 1) * K : rank * K) * S::NX;
+        T* to = dst + (c * MS + hi * K) * 2 * P::NH;
+        for (int i = tid; i < K * S::NX; i += THREADS) {
+          const int mm = i / S::NX, n = i - mm * S::NX;
+          cp_async_elem(to + (mm * 2 + (n & 1)) * P::NH + (n >> 1), from + i);
+        }
+      }
+    }
+  };
+
+  cluster.sync();   // every block of the cluster runs before any remote store
+  long long unit = cid;
+  if (unit < units) issue(unit, 0);
+  cp_async_commit();
+  for (int s = 0; unit < units; unit += ncl, s ^= 1) {
+    cp_async_wait_all();
+    __syncthreads();
+    if (unit + ncl < units) issue(unit + ncl, s ^ 1);
+    cp_async_commit();
+
+    // The Legendre sums: an item is (m pair jl, SVW pairs pg, n parity); its
+    // thread sums E (even n) or O (odd n) over the low m and then over its
+    // mirror, for both rows and parts, swaps them with the other parity's
+    // thread, and stores part c = its parity of F south = E + O and north =
+    // E - O into the band owner's buffer s (0 for the imaginary part of m = 0).
+    const T* ps = sP + s * R * PROW;
+    for (int base = 0; base < P::ITEMS; base += THREADS) {
+      const int it = base + tid;
+      const bool act = it < P::ITEMS;
+      const int npar = it & 1, rest = act ? it >> 1 : 0;
+      const int jl = rest / PG, pg = rest - jl * PG;
+#pragma unroll
+      for (int side = 0; side < 2; ++side) {
+        const int ml = side ? 2 * K - 1 - jl : jl;
+        const int m = slice_m(rank, ml, K, S::MX);
+        const int el0 = ml < K ? tri_offset(m, S::NX) - t_lo : e_lo + tri_offset(m, S::NX) - t_hi;
+        const T* l = sL + el0 * S::IY + pg * SVW;
+        T acc[R][2][SVW];
+#pragma unroll
+        for (int rr = 0; rr < R; ++rr)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+#pragma unroll
+            for (int v = 0; v < SVW; ++v) acc[rr][c][v] = T(0);
+        // This parity's n < nx - m: n = 2 j + npar, VW of them a step (the
+        // spectral values as vectors, the last step masked).
+        const int cnt = (S::NX - m - npar + 1) / 2;
+        const T* pj = ps + (ml * 2 + npar) * P::NH;
+        for (int j = 0; j < cnt; j += VW) {
+          Vec<T, VW> pv[R][2];
+#pragma unroll
+          for (int rr = 0; rr < R; ++rr)
+#pragma unroll
+            for (int c = 0; c < 2; ++c)
+              pv[rr][c] = load_vec<T, VW>(pj + rr * PROW + c * MS * 2 * P::NH + j);
+#pragma unroll
+          for (int u = 0; u < VW; ++u) {
+            if (j + u < cnt) {
+              const T* lr = l + (2 * (j + u) + npar) * S::IY;
+              T lv[SVW];
+              if constexpr (SVW == 2) {
+                const Vec<T, 2> l2 = load_vec<T, 2>(lr);
+                lv[0] = l2.v[0];
+                lv[SVW - 1] = l2.v[1];
+              } else {
+                lv[0] = lr[0];
+              }
+#pragma unroll
+              for (int rr = 0; rr < R; ++rr)
+#pragma unroll
+                for (int c = 0; c < 2; ++c)
+#pragma unroll
+                  for (int v = 0; v < SVW; ++v) acc[rr][c][v] += lv[v] * pv[rr][c].v[u];
+            }
+          }
+        }
+        // This thread keeps part c = npar: E and O of it.
+        T e[R][SVW], o[R][SVW];
+#pragma unroll
+        for (int rr = 0; rr < R; ++rr)
+#pragma unroll
+          for (int v = 0; v < SVW; ++v) {
+            const T mine = acc[rr][npar][v];
+            const T theirs = __shfl_xor_sync(0xffffffffu, acc[rr][npar ^ 1][v], 1);
+            e[rr][v] = npar ? theirs : mine;
+            o[rr][v] = npar ? mine : theirs;
+          }
+        if (!act) continue;
+        const bool discard = m == 0 && npar == 1;   // the imaginary part of m = 0
+        const int col = ((s * 2 + (m & 1)) * S::COLS + npar * S::H + (m >> 1)) * FP;
+#pragma unroll
+        for (int rr = 0; rr < R; ++rr) {
+          T f[2 * SVW];
+#pragma unroll
+          for (int v = 0; v < SVW; ++v) {
+            f[2 * v] = discard ? T(0) : e[rr][v] + o[rr][v];
+            f[2 * v + 1] = discard ? T(0) : e[rr][v] - o[rr][v];
+          }
+          if constexpr (SVW == 2 && sizeof(T) == 4 && NP % 2 == 0 && NB % 4 == 0) {
+            // Two pairs of one band: four slots as one 16-byte vector.
+            const int p = pg * SVW, b = p / NP, pp = p - b * NP;
+            T* d = cluster.map_shared_rank(fin, b) + col + rr * NB + 2 * pp;
+            *reinterpret_cast<Vec<T, 4>*>(d) = Vec<T, 4>{{f[0], f[1], f[2], f[3]}};
+          } else {
+#pragma unroll
+            for (int v = 0; v < SVW; ++v) {
+              const int p = pg * SVW + v, b = p / NP, pp = p - b * NP;
+              T* d = cluster.map_shared_rank(fin, b) + col + rr * NB + 2 * pp;
+              *reinterpret_cast<Vec<T, 2>*>(d) = Vec<T, 2>{{f[2 * v], f[2 * v + 1]}};
+            }
+          }
+        }
+      }
+    }
+    cluster.sync();   // every block's Fourier values of these rows have arrived
+
+    // The folded inverse DFT of the band, this warp's parity:
+    // P_par[i][slot] = sum_col A[i][col] F[col][slot].
+    const T* fs = fin + (s * 2 + par) * S::COLS * FP;
+    T acc[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[nt][q] = T(0);
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      T b0[NT], b1[NT];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const T* b = fs + (ks * KS + tq) * FP + nt * 8 + gq;
+        b0[nt] = b[0];
+        b1[nt] = T(0);
+        if constexpr (sizeof(T) == 4) b1[nt] = b[4 * FP];
+      }
+      mma_step(acc, a, ks, b0, b1);
+    }
+    // One row at a time: Pe and Po staged as (parity, slot, longitude) in the
+    // used Fourier buffer; then g[i] = Pe + Po, g[i + ix/2] = Pe - Po, scaled
+    // where the field's flag says so, stored as 16-byte vectors.
+    const T* scale = static_cast<const T*>(g.scale);
+    T* stage = fin + s * 2 * S::COLS * FP;
+#pragma unroll
+    for (int rr = 0; rr < R; ++rr) {
+      const long long row = unit * R + rr;
+      if (row >= rows) break;
+      __syncthreads();   // the products have read the buffer, or the last row is stored
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int n0 = nt * 8 + 2 * tq;
+        if (n0 < rr * NB || n0 >= (rr + 1) * NB) continue;
+        const int slot = n0 - rr * NB;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int i = ia + 8 * (q >> 1);
+          if (i < S::IH) stage[(par * NB + slot + (q & 1)) * SPH + i] = acc[nt][q];
+        }
+      }
+      __syncthreads();
+      const Segment& sg = g.seg[find_segment(g, row)];
+      T* out = row_out<T>(sg, row - sg.first);
+      constexpr int CH = S::IH / VW;
+      for (int q = tid; q < NB * CH; q += THREADS) {
+        const int slot = q / CH, i = (q - slot * CH) * VW, pp = slot >> 1;
+        const int lat = (slot & 1) ? S::IL - 1 - (p0 + pp) : p0 + pp;
+        const Vec<T, VW> pe = load_vec<T, VW>(stage + slot * SPH + i);
+        const Vec<T, VW> po = load_vec<T, VW>(stage + (NB + slot) * SPH + i);
+        Vec<T, VW> x, y;
+#pragma unroll
+        for (int v = 0; v < VW; ++v) {
+          x.v[v] = pe.v[v] + po.v[v];
+          y.v[v] = pe.v[v] - po.v[v];
+        }
+        if (sg.flag) {
+          const T sc = scale[lat];
+#pragma unroll
+          for (int v = 0; v < VW; ++v) {
+            x.v[v] = x.v[v] * sc;
+            y.v[v] = y.v[v] * sc;
+          }
+        }
+        *reinterpret_cast<Vec<T, VW>*>(out + lat * S::IX + i) = x;
+        *reinterpret_cast<Vec<T, VW>*>(out + lat * S::IX + S::IH + i) = y;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The inverse where the cluster kernel measured slower (the plan's "pair",
+// the wrapper's choice): two kernels with the Fourier intermediate in a
+// scratch the wrapper allocates, mx * 4 * (il/2) values a row. hires_leg_inv_kernel: persistent
+// blocks over row pairs, 8 slices of m balanced by triangle entries, the
+// slice's Legendre rows in shared memory as (m, n, j); a thread keeps 4
+// latitudes x 2 rows x 2 parts of the even and odd partial sums E, O and
+// writes F[j] = E + O, F[il-1-j] = E - O to X[row, m, c, hemisphere, j] (0 for
+// the imaginary part of m = 0). hires_dft_inv_kernel: persistent blocks over
+// items (row, 12 latitude pairs), the folded inverse DFT table resident, the
+// item's Fourier coefficients copied by cp.async into a two-stage ring; a
+// thread keeps 8 latitudes x 2 longitudes of both parities on FFMA and stores
+// g[i] = Pe + Po, g[i + ix/2] = Pe - Po, scaled by 1/cos(lat) where the
+// field's flag says so.
+// ---------------------------------------------------------------------------
+constexpr int kPB = 12;   // latitude pairs of a DFT item
+template <class S>
+__host__ __device__ constexpr int scratch_row() { return S::MX * 4 * S::IY; }
 
 // Copy n elements into shared memory: cp.async in 16-byte chunks where the
 // source is aligned (n * sizeof(T) a multiple of 16), element by element
@@ -205,240 +914,6 @@ __device__ __forceinline__ void stage_copy(T* dst, const T* src, int n, bool ali
     for (int q = threadIdx.x; q < chunks; q += THREADS) cp_async16(d + 16 * q, s + 16 * q);
   } else {
     for (int q = threadIdx.x; q < n; q += THREADS) cp_async_elem(dst + q, src + q);
-  }
-}
-
-// The input of row lr of segment s (elements of its (il, ix) grid or of its
-// real part), and the output.
-template <typename T>
-__device__ __forceinline__ const T* row_in(const Segment& s, long long lr) {
-  const long long b = lr / s.per_member, kk = lr - b * s.per_member;
-  return static_cast<const T*>(s.in) + b * s.in_member + kk * s.in_row;
-}
-template <typename T>
-__device__ __forceinline__ T* row_out(const Segment& s, long long lr) {
-  const long long b = lr / s.per_member, kk = lr - b * s.per_member;
-  return static_cast<T*>(s.out) + b * s.out_member + kk * s.out_row;
-}
-
-// ---------------------------------------------------------------------------
-// Direct transform, stage 1: the folded zonal DFT of 12 latitude pairs of a
-// row, written as hemispheric sums (sd 0, even n) and differences (sd 1).
-// ---------------------------------------------------------------------------
-// The folded, transposed tile's pitch, even (8- or 16-byte loads of two
-// slots): 2 kPB + 2 at T63, where it turns the transposed store's 8-way bank
-// conflicts into 2-way ones and the kernel ran faster on the H100; 2 kPB at
-// T47, where the padded pitch ran slower.
-template <class S>
-__host__ __device__ constexpr int pitch_a() { return S::IL == 96 ? 2 * kPB + 2 : 2 * kPB; }
-template <class S>
-__host__ __device__ constexpr int dft_fwd_threads() { return 2 * (kPB / 2) * (S::COLS / 4); }
-template <class S, typename T>
-constexpr size_t dft_fwd_shared_bytes() {
-  return sizeof(T) * (2 * kPB * S::IX + S::DFT + 2 * S::IH * pitch_a<S>());
-}
-
-template <class S, typename T, int THREADS>
-__global__ void __launch_bounds__(THREADS)
-hires_dft_fwd_kernel(const __grid_constant__ Group g, long long items, void* scratch) {
-  constexpr int PB2 = 2 * kPB;             // latitude slots: south, then north
-  constexpr int NCB = S::COLS / 4;
-  constexpr int HALF = THREADS / 2;        // threads of one parity
-  constexpr int kPitchA = pitch_a<S>();
-  static_assert(HALF == (kPB / 2) * NCB, "register tile");
-  T* x = static_cast<T*>(scratch);
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* stage = reinterpret_cast<T*>(smem_raw);  // (2 PB, ix): south rows, north rows
-  T* sD = stage + PB2 * S::IX;                // (2 parity, ih, cols)
-  T* sA = sD + S::DFT;                        // (2 parity, ih, kPitchA) folded, transposed
-  const int tid = threadIdx.x;
-
-  // Item = (row, pair block pb): pairs p = pb*PB + t, latitudes p (south) and
-  // il-1-p (north). The south rows are one run of the grid, the north rows
-  // another (ascending: north slot PB + t is run row PB-1-t).
-  auto issue = [&](long long item) {
-    const long long row = item / S::NPB;
-    const int pb = static_cast<int>(item - row * S::NPB);
-    const Segment& s = g.seg[find_segment(g, row)];
-    const T* src = row_in<T>(s, row - s.first);
-    stage_copy<THREADS>(stage, src + pb * kPB * S::IX, kPB * S::IX, s.aligned != 0);
-    stage_copy<THREADS>(stage + kPB * S::IX, src + (S::IL - kPB - pb * kPB) * S::IX,
-                        kPB * S::IX, s.aligned != 0);
-  };
-  long long it = blockIdx.x;
-  if (it < items) issue(it);
-  stage_copy<THREADS>(sD, static_cast<const T*>(g.tables), S::DFT, true);
-  cp_async_commit();
-
-  const int par = tid / HALF, u = tid - par * HALF;
-  const int jb = u / NCB, cb = u - jb * NCB;
-  for (; it < items; it += gridDim.x) {
-    const long long row = it / S::NPB;
-    const int pb = static_cast<int>(it - row * S::NPB);
-    cp_async_wait_all();
-    __syncthreads();
-    // sA[0][i][slot] = g[i] + g[i+ih], sA[1][i][slot] = g[i] - g[i+ih].
-    for (int idx = tid; idx < PB2 * S::IH; idx += THREADS) {
-      const int slot = idx / S::IH, i = idx - slot * S::IH;
-      const int r = slot < kPB ? slot : 3 * kPB - 1 - slot;
-      const T a = stage[r * S::IX + i], c = stage[r * S::IX + i + S::IH];
-      sA[i * kPitchA + slot] = a + c;
-      sA[(S::IH + i) * kPitchA + slot] = a - c;
-    }
-    __syncthreads();
-    if (it + gridDim.x < items) issue(it + gridDim.x);
-    cp_async_commit();
-
-    // Slots 2jb, 2jb+1 (south) and PB+2jb, PB+2jb+1 (north) x columns
-    // 4cb..4cb+3 of this thread's parity.
-    const T* a_base = sA + par * S::IH * kPitchA + 2 * jb;
-    const T* b_base = sD + par * S::IH * S::COLS + 4 * cb;
-    T acc[4][4];
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) acc[jj][cc] = T(0);
-#pragma unroll 4
-    for (int k = 0; k < S::IH; ++k) {
-      const Vec<T, 2> as = load_vec<T, 2>(a_base + k * kPitchA);
-      const Vec<T, 2> an = load_vec<T, 2>(a_base + k * kPitchA + kPB);
-      const Vec<T, 2> b0 = load_vec<T, 2>(b_base + k * S::COLS);
-      const Vec<T, 2> b1 = load_vec<T, 2>(b_base + k * S::COLS + 2);
-      const T av[4] = {as.v[0], as.v[1], an.v[0], an.v[1]};
-      const T bv[4] = {b0.v[0], b0.v[1], b1.v[0], b1.v[1]};
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc) acc[jj][cc] += av[jj] * bv[cc];
-    }
-    T* xr = x + row * S::XROW + pb * kPB + 2 * jb;
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      const int col = 4 * cb + cc;
-      const int c = col / S::H, m = 2 * (col - c * S::H) + par;
-      T* dst = xr + (m * 2 + c) * 2 * S::IY;
-      store2(dst, acc[0][cc] + acc[2][cc], acc[1][cc] + acc[3][cc]);
-      store2(dst + S::IY, acc[0][cc] - acc[2][cc], acc[1][cc] - acc[3][cc]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Direct transform, stage 2: the Legendre sums of a slice of the triangle,
-// two rows at a time.
-// ---------------------------------------------------------------------------
-constexpr int kLegDirThreads = 256;
-constexpr int kLegDirPairs = 16;     // row pairs a block
-template <class S>
-__host__ __device__ constexpr int leg_dir_slices() { return (S::TRI + kLegDirThreads - 1) / kLegDirThreads; }
-// X values of slice sl for one row: the rows m of its entries.
-template <class S>
-__host__ __device__ constexpr int leg_dir_span(int sl) {
-  constexpr int NS = leg_dir_slices<S>();
-  const int e0 = sl * S::TRI / NS, e1 = (sl + 1) * S::TRI / NS;
-  return (m_of_entry(e1 - 1, S::NX) - m_of_entry(e0, S::NX) + 1) * 4 * S::IY;
-}
-template <class S, typename T>
-size_t leg_dir_shared_bytes() {
-  int span = 0;
-  for (int sl = 0; sl < leg_dir_slices<S>(); ++sl)
-    span = leg_dir_span<S>(sl) > span ? leg_dir_span<S>(sl) : span;
-  return sizeof(T) * 4 * static_cast<size_t>(span);
-}
-
-template <class S, typename T, int THREADS, int PAIRS>
-__global__ void __launch_bounds__(THREADS)
-hires_leg_dir_kernel(const __grid_constant__ Group g, long long rows, void* scratch) {
-  constexpr int NS = leg_dir_slices<S>();
-  constexpr int VW = 16 / static_cast<int>(sizeof(T));
-  const T* x = static_cast<const T*>(scratch);
-  const int sl = blockIdx.y;
-  const int e0 = sl * S::TRI / NS, e1 = (sl + 1) * S::TRI / NS;
-  const int mlo = m_of_entry(e0, S::NX), mhi = m_of_entry(e1 - 1, S::NX);
-  const int span = leg_dir_span<S>(sl);
-  // Rows m whose zeros past the triangle this slice writes: those that end in it.
-  const int zhi = tri_offset(mhi + 1, S::NX) <= e1 ? mhi : mhi - 1;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* xs = reinterpret_cast<T*>(smem_raw);   // (2 stages, 2 rows, span)
-  const int tid = threadIdx.x;
-  const int e = e0 + tid;
-  const bool active = e < e1;
-  int m = 0, n = 0;
-  if (active) {
-    m = m_of_entry(e, S::NX);
-    n = e - tri_offset(m, S::NX);
-  }
-  T L[S::IY];
-  const T* leg = static_cast<const T*>(g.tables) + S::DFT;   // (iy, triangle)
-#pragma unroll
-  for (int j = 0; j < S::IY; ++j) L[j] = active ? leg[j * S::TRI + e] : T(0);
-  // This entry's X values in a stage: (m - mlo, c, sd = n & 1, j).
-  const int xoff = ((m - mlo) * 4 + (n & 1)) * S::IY;
-
-  const long long npairs = (rows + 1) / 2;
-  auto issue = [&](long long pr, int buf) {
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const long long row = 2 * pr + rr;
-      if (row < rows)
-        stage_copy<THREADS>(xs + (buf * 2 + rr) * span, x + row * S::XROW + mlo * 4 * S::IY,
-                            span, true);
-    }
-  };
-  // This block's run of row pairs; the grid's x dimension covers them all.
-  long long pr = blockIdx.x * static_cast<long long>(PAIRS);
-  const long long pr_end = pr + PAIRS < npairs ? pr + PAIRS : npairs;
-  int buf = 0;
-  if (pr < pr_end) issue(pr, 0);
-  cp_async_commit();
-  for (; pr < pr_end; ++pr, buf ^= 1) {
-    cp_async_wait_all();
-    __syncthreads();
-    if (pr + 1 < pr_end) issue(pr + 1, buf ^ 1);
-    cp_async_commit();
-    const long long row0 = 2 * pr;
-    const bool two = row0 + 1 < rows;
-    if (active) {
-      const T* x0 = xs + buf * 2 * span + xoff;   // row 0, real part
-      const T* x1 = x0 + 2 * S::IY;               // row 0, imaginary part
-      const T* x2 = x0 + span;                    // row 1
-      const T* x3 = x2 + 2 * S::IY;
-      T s0 = T(0), s1 = T(0), s2 = T(0), s3 = T(0);
-#pragma unroll
-      for (int j = 0; j < S::IY; j += VW) {
-        const Vec<T, VW> a0 = load_vec<T, VW>(x0 + j), a1 = load_vec<T, VW>(x1 + j);
-        const Vec<T, VW> a2 = load_vec<T, VW>(x2 + j), a3 = load_vec<T, VW>(x3 + j);
-#pragma unroll
-        for (int q = 0; q < VW; ++q) {
-          s0 += L[j + q] * a0.v[q];
-          s1 += L[j + q] * a1.v[q];
-          s2 += L[j + q] * a2.v[q];
-          s3 += L[j + q] * a3.v[q];
-        }
-      }
-      const Segment& sa = g.seg[find_segment(g, row0)];
-      T* out = row_out<T>(sa, row0 - sa.first) + m * S::NX + n;
-      out[0] = s0;
-      out[sa.out_pair] = s1;
-      if (two) {
-        const Segment& sb = g.seg[find_segment(g, row0 + 1)];
-        T* outb = row_out<T>(sb, row0 + 1 - sb.first) + m * S::NX + n;
-        outb[0] = s2;
-        outb[sb.out_pair] = s3;
-      }
-    }
-    // Zeros past the triangle: n = nx - m .. nx - 1 of the rows m that end here.
-    for (int rr = 0; rr < (two ? 2 : 1); ++rr) {
-      const Segment& s = g.seg[find_segment(g, row0 + rr)];
-      T* out = row_out<T>(s, row0 + rr - s.first);
-      for (int mm = mlo; mm <= zhi; ++mm)
-        for (int nn = S::NX - mm + tid; nn < S::NX; nn += THREADS) {
-          out[mm * S::NX + nn] = T(0);
-          out[s.out_pair + mm * S::NX + nn] = T(0);
-        }
-    }
   }
 }
 
@@ -499,7 +974,7 @@ hires_leg_inv_kernel(const __grid_constant__ Group g, long long rows, void* scra
       const long long row = 2 * pr + rr;
       if (row >= rows) continue;
       const Segment& s = g.seg[find_segment(g, row)];
-      const T* src = row_in<T>(s, row - s.first) + m0 * S::NX;
+      const T* src = row_in<T, long long>(s, row - s.first) + m0 * S::NX;
       T* dst = sP + (buf * 4 + rr * 2) * run;
       for (int q = tid; q < run; q += THREADS) {
         cp_async_elem(dst + q, src + q);
@@ -556,7 +1031,7 @@ hires_leg_inv_kernel(const __grid_constant__ Group g, long long rows, void* scra
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
         if (rr == 1 && !two) break;
-        T* xr = x + (row0 + rr) * S::XROW + m * 4 * S::IY + 4 * jq;
+        T* xr = x + (row0 + rr) * scratch_row<S>() + m * 4 * S::IY + 4 * jq;
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           T* dst = xr + c * 2 * S::IY;
@@ -604,10 +1079,10 @@ hires_dft_inv_kernel(const __grid_constant__ Group g, long long items, void* scr
   // Item = (row, pb): its F runs X[row, m, c, hemisphere, pb*PB ..] into
   // sA[stage][parity of m][c*h + m/2][hemisphere*PB ..].
   auto issue = [&](long long item, int buf) {
-    const long long row = item / S::NPB;
-    const int pb = static_cast<int>(item - row * S::NPB);
+    const long long row = item / (S::IY / kPB);
+    const int pb = static_cast<int>(item - row * (S::IY / kPB));
     const unsigned char* src = reinterpret_cast<const unsigned char*>(
-        x + row * S::XROW + pb * kPB);
+        x + row * scratch_row<S>() + pb * kPB);
     unsigned char* dst = reinterpret_cast<unsigned char*>(sA + buf * TILE);
     for (int q = tid; q < S::MX * 4 * CH; q += THREADS) {
       const int r = q / CH, ch = q - r * CH;           // r = (m * 2 + c) * 2 + hemisphere
@@ -626,8 +1101,8 @@ hires_dft_inv_kernel(const __grid_constant__ Group g, long long items, void* scr
   const int jb = tid / NIB, ib = tid - jb * NIB;
   int buf = 0;
   for (; it < items; it += gridDim.x, buf ^= 1) {
-    const long long row = it / S::NPB;
-    const int pb = static_cast<int>(it - row * S::NPB);
+    const long long row = it / (S::IY / kPB);
+    const int pb = static_cast<int>(it - row * (S::IY / kPB));
     cp_async_wait_all();
     __syncthreads();
     if (it + gridDim.x < items) issue(it + gridDim.x, buf ^ 1);
@@ -658,7 +1133,7 @@ hires_dft_inv_kernel(const __grid_constant__ Group g, long long items, void* scr
         }
     }
     const Segment& s = g.seg[find_segment(g, row)];
-    T* out = row_out<T>(s, row - s.first);
+    T* out = row_out<T, long long>(s, row - s.first);
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
       const int slot = 8 * jb + jj;
@@ -679,12 +1154,68 @@ hires_dft_inv_kernel(const __grid_constant__ Group g, long long items, void* scr
 // Launchers
 // ---------------------------------------------------------------------------
 
+void cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, int cluster,
+                    long long clusters, int threads, size_t bytes, cudaStream_t stream) {
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = static_cast<unsigned>(cluster);
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(static_cast<unsigned>(clusters * cluster), 1, 1);
+  cfg.blockDim = dim3(static_cast<unsigned>(threads), 1, 1);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+}
+
+// Clusters of the kernel the current device holds at once, asked once per
+// kernel and device (the statics belong to one instantiation).
+template <auto kernel>
+int resident_clusters(int cluster, int threads, size_t bytes, int* clusters) {
+  static int cached_device = -1, cached = 0;
+  int dev = 0;
+  int rc = static_cast<int>(cudaGetDevice(&dev));
+  if (rc != 0) return rc;
+  if (dev != cached_device) {
+    rc = static_cast<int>(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
+    if (rc != 0) return rc;
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    cluster_config(cfg, attr, cluster, 1, threads, bytes, nullptr);
+    rc = static_cast<int>(cudaOccupancyMaxActiveClusters(&cached, kernel, &cfg));
+    if (rc != 0) return rc;
+    if (cached < 1) return -5;
+    cached_device = dev;
+  }
+  *clusters = cached;
+  return 0;
+}
+
+// Persistent clusters: as many as the card holds at once, at most one a row.
+template <auto kernel>
+int launch(int cluster, int threads, size_t bytes, const Group& g, long long rows,
+           cudaStream_t stream) {
+  int most = 0;
+  int rc = resident_clusters<kernel>(cluster, threads, bytes, &most);
+  if (rc != 0) return rc;
+  const long long clusters = most < rows ? most : rows;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cluster_config(cfg, attr, cluster, clusters, threads, bytes, stream);
+  rc = static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, g, rows));
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename K>
 int allow_shared(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
 }
+
 
 // Resident blocks per SM and SMs of the current device, asked once per
 // kernel and device (the statics belong to one instantiation).
@@ -710,10 +1241,10 @@ int residency(int threads, size_t bytes, int* blocks_per_sm, int* sms) {
   return 0;
 }
 
-// A launch of `slices` columns of persistent blocks: as many blocks as fit
+// A launch of `slices` columns of persistent blocks (the inverse pair): as many blocks as fit
 // on the card at once, shared by the columns, at most one per unit of work.
 template <auto kernel>
-int launch(int threads, size_t bytes, int slices, const Group& g, long long units,
+int launch_blocks(int threads, size_t bytes, int slices, const Group& g, long long units,
            long long n, void* scratch, cudaStream_t stream) {
   int bps = 0, sms = 0;
   int rc = residency<kernel>(threads, bytes, &bps, &sms);
@@ -726,44 +1257,29 @@ int launch(int threads, size_t bytes, int slices, const Group& g, long long unit
   return static_cast<int>(cudaGetLastError());
 }
 
-// A launch of the Legendre stage: `slices` columns of blocks, each block a
-// run of `pairs` row pairs; the hardware balances the blocks of light and
-// heavy slices over the SMs.
-template <auto kernel>
-int launch_pairs(int threads, size_t bytes, int slices, int pairs, const Group& g,
-                 long long rows, void* scratch, cudaStream_t stream) {
-  int bps = 0, sms = 0;
-  int rc = residency<kernel>(threads, bytes, &bps, &sms);
-  if (rc != 0) return rc;
-  const long long npairs = (rows + 1) / 2;
-  const long long blocks = (npairs + pairs - 1) / pairs;
-  kernel<<<dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(slices)), threads, bytes,
-           stream>>>(g, rows, scratch);
-  return static_cast<int>(cudaGetLastError());
+template <class S, typename T>
+int run_direct(const Group& g, long long rows, cudaStream_t s) {
+  using P = Plan<S, T>;
+  return launch<hires_direct_cluster_kernel<S, T>>(P::C, P::DIR_THREADS, P::DIR_SMEM, g, rows, s);
 }
 
 template <class S, typename T>
-int run_direct(const Group& g, long long rows, void* scratch, cudaStream_t s) {
-  constexpr int t1 = dft_fwd_threads<S>();
-  const long long items = rows * S::NPB;
-  int rc = launch<hires_dft_fwd_kernel<S, T, t1>>(t1, dft_fwd_shared_bytes<S, T>(), 1, g, items,
-                                                  items, scratch, s);
-  if (rc != 0) return rc;
-  return launch_pairs<hires_leg_dir_kernel<S, T, kLegDirThreads, kLegDirPairs>>(
-      kLegDirThreads, leg_dir_shared_bytes<S, T>(), leg_dir_slices<S>(), kLegDirPairs, g, rows,
-      scratch, s);
+int run_inverse_cluster(const Group& g, long long rows, cudaStream_t s) {
+  using P = Plan<S, T>;
+  return launch<hires_inverse_cluster_kernel<S, T>>(P::C, P::INV_THREADS, P::INV_SMEM, g, rows, s);
 }
 
 template <class S, typename T>
-int run_inverse(const Group& g, long long rows, void* scratch, cudaStream_t s) {
+int run_inverse_pair(const Group& g, long long rows, void* scratch, cudaStream_t s) {
+  if (scratch == nullptr || reinterpret_cast<unsigned long long>(scratch) % 16 != 0) return -8;
   constexpr int t2 = dft_inv_threads<S>();
-  int rc = launch<hires_leg_inv_kernel<S, T, kLegInvThreads>>(
+  int rc = launch_blocks<hires_leg_inv_kernel<S, T, kLegInvThreads>>(
       kLegInvThreads, leg_inv_shared_bytes<S, T>(), kLegInvSlices, g, (rows + 1) / 2, rows,
       scratch, s);
   if (rc != 0) return rc;
-  const long long items = rows * S::NPB;
-  return launch<hires_dft_inv_kernel<S, T, t2>>(t2, dft_inv_shared_bytes<S, T>(), 1, g, items,
-                                                items, scratch, s);
+  const long long items = rows * (S::IY / kPB);
+  return launch_blocks<hires_dft_inv_kernel<S, T, t2>>(t2, dft_inv_shared_bytes<S, T>(), 1, g,
+                                                       items, items, scratch, s);
 }
 
 bool aligned16(long long address, long long stride, int esize) {
@@ -810,15 +1326,35 @@ template <class S, typename T>
 int run(int kind, int count, const void* const* tables, const long long* desc, void* scratch,
         cudaStream_t s) {
   Group g;
-  const long long rows = read_group(g, count, desc, tables, kind == 1,
+  const long long rows = read_group(g, count, desc, tables, kind != 0,
                                     static_cast<int>(sizeof(T)), S::IX);
   if (rows < 0) return static_cast<int>(rows);
-  if (reinterpret_cast<unsigned long long>(scratch) % 16 != 0) return -8;
-  return kind == 0 ? run_direct<S, T>(g, rows, scratch, s) : run_inverse<S, T>(g, rows, scratch, s);
+  if (kind == 0) return run_direct<S, T>(g, rows, s);
+  return kind == 1 ? run_inverse_pair<S, T>(g, rows, scratch, s)
+                   : run_inverse_cluster<S, T>(g, rows, s);
 }
 
 template <auto kernel>
-int occupancy(int threads, size_t bytes, int* out) {
+int occupancy(int cluster, int threads, size_t bytes, int* out) {
+  int clusters = 0;
+  int rc = resident_clusters<kernel>(cluster, threads, bytes, &clusters);
+  if (rc != 0) return rc;
+  cudaFuncAttributes attr;
+  rc = static_cast<int>(cudaFuncGetAttributes(&attr, kernel));
+  if (rc != 0) return rc;
+  out[0] = clusters;
+  out[1] = threads;
+  out[2] = static_cast<int>(bytes);
+  out[3] = attr.numRegs;
+  out[4] = static_cast<int>(attr.localSizeBytes);
+  out[5] = cluster;
+  return 0;
+}
+
+// The inverse pair's stages: resident blocks per SM, threads, shared memory,
+// registers, local bytes, slices of the grid.
+template <auto kernel>
+int block_occupancy(int threads, size_t bytes, int slices, int* out) {
   int rc = allow_shared(kernel, bytes);
   if (rc != 0) return rc;
   cudaFuncAttributes attr;
@@ -833,21 +1369,39 @@ int occupancy(int threads, size_t bytes, int* out) {
   out[2] = static_cast<int>(bytes);
   out[3] = attr.numRegs;
   out[4] = static_cast<int>(attr.localSizeBytes);
+  out[5] = slices;
   return 0;
 }
 
 template <class S, typename T>
-int occupancy_of(int stage, int* out) {
-  constexpr int t1 = dft_fwd_threads<S>(), t2 = dft_inv_threads<S>();
-  switch (stage) {
-    case 0: return occupancy<hires_dft_fwd_kernel<S, T, t1>>(t1, dft_fwd_shared_bytes<S, T>(), out);
-    case 1: return occupancy<hires_leg_dir_kernel<S, T, kLegDirThreads, kLegDirPairs>>(
-        kLegDirThreads, leg_dir_shared_bytes<S, T>(), out);
-    case 2: return occupancy<hires_leg_inv_kernel<S, T, kLegInvThreads>>(
-        kLegInvThreads, leg_inv_shared_bytes<S, T>(), out);
-    case 3: return occupancy<hires_dft_inv_kernel<S, T, t2>>(t2, dft_inv_shared_bytes<S, T>(), out);
-    default: return -4;
+int occupancy_of(int kind, int* out) {
+  using P = Plan<S, T>;
+  constexpr int t2 = dft_inv_threads<S>();
+  switch (kind) {
+    case 0:
+      return occupancy<hires_direct_cluster_kernel<S, T>>(P::C, P::DIR_THREADS, P::DIR_SMEM, out);
+    case 1:
+      return occupancy<hires_inverse_cluster_kernel<S, T>>(P::C, P::INV_THREADS, P::INV_SMEM,
+                                                           out);
+    case 2:
+      return block_occupancy<hires_leg_inv_kernel<S, T, kLegInvThreads>>(
+          kLegInvThreads, leg_inv_shared_bytes<S, T>(), kLegInvSlices, out);
+    case 3:
+      return block_occupancy<hires_dft_inv_kernel<S, T, t2>>(t2, dft_inv_shared_bytes<S, T>(), 1,
+                                                             out);
+    default:
+      return -4;
   }
+}
+
+// The plan of a shape and type, as ints (see pyspeedy_fused_transform_hires_plan).
+template <class S, typename T>
+void plan_of(int* out) {
+  using P = Plan<S, T>;
+  const int v[] = {P::C, P::K, P::NP, P::R, P::NPAD, P::KS, P::DIR_THREADS,
+                   static_cast<int>(P::DIR_SMEM), P::INV_THREADS,
+                   static_cast<int>(P::INV_SMEM), P::GBUF, P::INVERSE, scratch_row<S>()};
+  for (int q = 0; q < 13; ++q) out[q] = v[q];
 }
 
 // 47 or 63 for the shapes the kernels are built for, else 0.
@@ -859,22 +1413,40 @@ int shape_of(int il, int ix, int mx, int nx) {
 
 }  // namespace
 
-// out: resident blocks per SM, threads a block, shared memory a block
-// (bytes), registers, local memory (bytes) of stage 0 (direct DFT), 1
-// (direct Legendre), 2 (inverse Legendre) or 3 (inverse DFT) at truncation
-// 47 or 63 in mode 0 (float) or 1 (double), from the CUDA runtime; out[5]
-// the stage's slices (the grid's second dimension).
-extern "C" int pyspeedy_fused_transform_hires_occupancy(int stage, int trunc, int mode, int* out) {
-  out[5] = stage == 1 ? (trunc == 47 ? leg_dir_slices<T47>() : leg_dir_slices<T63>())
-           : stage == 2 ? kLegInvSlices : 1;
-  if (trunc == 47 && mode == 0) return occupancy_of<T47, float>(stage, out);
-  if (trunc == 47 && mode == 1) return occupancy_of<T47, double>(stage, out);
-  if (trunc == 63 && mode == 0) return occupancy_of<T63, float>(stage, out);
-  if (trunc == 63 && mode == 1) return occupancy_of<T63, double>(stage, out);
+// out, the Plan at truncation 47 or 63 in mode 0 (float) or 1 (double), 13
+// ints: blocks a cluster, m pairs of a block, latitude pairs of a band, rows
+// a cluster step, MMA columns of a step, MMA depth; the direct cluster
+// kernel's threads and shared memory (bytes); the inverse cluster kernel's;
+// the direct block's grid buffers; the inverse design a call runs (the kind
+// of pyspeedy_fused_transform_hires: 1 the pair, 2 the cluster kernel); the
+// pair's scratch a row (values). Needs no device.
+extern "C" int pyspeedy_fused_transform_hires_plan(int trunc, int mode, int* out) {
+  if (trunc == 47 && mode == 0) plan_of<T47, float>(out);
+  else if (trunc == 47 && mode == 1) plan_of<T47, double>(out);
+  else if (trunc == 63 && mode == 0) plan_of<T63, float>(out);
+  else if (trunc == 63 && mode == 1) plan_of<T63, double>(out);
+  else return -1;
+  return 0;
+}
+
+// out, from the CUDA runtime, at truncation 47 or 63 in mode 0 (float) or 1
+// (double): kind 0 the direct cluster kernel, kind 1 the inverse cluster
+// kernel: clusters the current device holds at once, threads a block, shared
+// memory a block (bytes), registers, local memory (bytes), blocks a cluster;
+// kinds 2 and 3 the inverse pair's hires_leg_inv_kernel and
+// hires_dft_inv_kernel: resident blocks per SM, threads, shared memory,
+// registers, local memory, slices of the grid.
+extern "C" int pyspeedy_fused_transform_hires_occupancy(int kind, int trunc, int mode, int* out) {
+  if (trunc == 47 && mode == 0) return occupancy_of<T47, float>(kind, out);
+  if (trunc == 47 && mode == 1) return occupancy_of<T47, double>(kind, out);
+  if (trunc == 63 && mode == 0) return occupancy_of<T63, float>(kind, out);
+  if (trunc == 63 && mode == 1) return occupancy_of<T63, double>(kind, out);
   return -1;
 }
 
-// kind: 0 direct transform of a group, 1 inverse transform of a group.
+// kind: 0 direct transform of a group; inverse transform of a group, 1 by
+//   the pair of kernels, 2 by the cluster kernel (the wrapper passes the
+//   Plan's INVERSE for the shape and type).
 // mode: 0 float, 1 double.
 // count: the group's segments.
 // tables: 0: the direct folded tables (ops/spectral.py::_fold_tables);
@@ -882,14 +1454,15 @@ extern "C" int pyspeedy_fused_transform_hires_occupancy(int stage, int trunc, in
 // desc: 11 int64 words per segment: input and output address, rows, rows
 //   per member, input member, pair and row strides, output member, pair and
 //   row strides (elements), flag (inverse: 1 = scale by 1/cos(lat)).
-// scratch: mx * 4 * (il / 2) values of the mode's type for every row of the
-//   group, 16-byte aligned (the Fourier intermediate between the stages).
+// scratch: kind 1's Fourier intermediate, mx * 4 * (il/2) values of the
+//   mode's type for every row of the group, 16-byte aligned; else unused (may
+//   be null).
 extern "C" int pyspeedy_fused_transform_hires(int kind, int mode, int count, int il, int ix,
                                               int mx, int nx, const void* const* tables,
                                               const long long* desc, void* scratch,
                                               void* stream) {
   if (count <= 0) return 0;
-  if (mode < 0 || mode > 1 || kind < 0 || kind > 1) return -1;
+  if (mode < 0 || mode > 1 || kind < 0 || kind > 2) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (shape_of(il, ix, mx, nx)) {
     case 47:

@@ -1,17 +1,31 @@
-"""Device time of the two diagnostic kernels (the transform probes and the
-DFT chain) on one CUDA card, through their public wrappers only.
+"""Device time of the transform kernels that the step's speed or a
+diagnostic rests on, on one CUDA card, through their public wrappers only.
 
-    python3 -m pyspeedy_tpu_torch.kernel_time
+    python3 -m pyspeedy_tpu_torch.kernel_time [probes] [dft_chain] [hires]
+        [--source FILE.cu]
 
-The times come from ``utils.profiling.kernel_device_ms`` of the package
-it runs in. Prints the card's name and power limit, one
-line per probe stage at 256 and 9,344 rows (float32 and float64) and per
-DFT-chain type at 256 members, and a JSON line with every time. Only
-``ops.transform_kernels.fused_probe_cuda``, ``ops.dft_chain.dft_chain_cuda``
-and their tables are used, so the module also runs in another tree of this
-package: copy it into that tree's package and run both trees on one card in
-turns (parent, change, change, parent) to compare two designs. Without a
-CUDA device it exits non-zero.
+With no argument it times all three: the transform probes at 256 and 9,344
+rows (float32 and float64), the DFT chain at 256 members, and rows 3-4 at
+T47 and T63 (``fused_grid2spec_many_cuda`` / ``fused_spec2grid_many_cuda``
+on the step's three transform groups at B=128: the direct group of 10
+fields, the dynamics' 7 inverse fields and the physics' 5, float32 and
+float64). The times come from the profiler's device records: a probe or a
+DFT-chain launch through ``utils.profiling.kernel_device_ms``, a T47/T63
+group as the sum over the device kernels one call launches
+(``hires_kernel_plan``'s, or the earlier design's two a direction in a
+tree without it) of each one's mean record, from windows that hold no
+other kernel and all or all but one of its launches, two windows
+agreeing. It prints the card's name and power limit, one line per time
+and a JSON line with every time. Only the wrappers, their tables and
+``build_consts`` / ``build_spectral`` are used, so the module also runs in
+another tree of this package: copy it into that tree's package and run
+both trees on one card in turns (parent, change, change, parent) to compare two designs.
+``--source`` builds another version of ``csrc/fused_transform_hires.cu``
+(an edit of this tree's design: the same kernels a call) with the same
+flags and times the T47/T63 groups under it and under the tree's own
+build in turns in one process (tree, other, other, tree), the wrapper's
+library swapped between them; each pair of calls is checked bitwise equal.
+Without a CUDA device it exits non-zero.
 """
 
 from __future__ import annotations
@@ -19,15 +33,169 @@ from __future__ import annotations
 import dataclasses
 import json
 import sys
+import time
 
 import numpy as np
 import torch
 
 PROBE_ROWS = (256, 9344)   # the JAX tool's rows; the step's group at B=128
 DFT_MEMBERS = 256          # the JAX tool's members
+HIRES_MEMBERS = 128        # the step's transform groups at B=128
+SECTIONS = ("probes", "dft_chain", "hires")
 
 
-def main() -> int:
+# The device kernels of a T47/T63 call in a tree whose wrappers do not
+# report them (the earlier design: two kernels a direction).
+PAIR_KERNELS = {"direct": ("hires_dft_fwd_kernel", "hires_leg_dir_kernel"),
+                "inverse": ("hires_leg_inv_kernel", "hires_dft_inv_kernel")}
+
+
+def device_ms_all(fn, kernels, reps: int = 10) -> float:
+    """Device ms one call of fn spends in `kernels` (the names of the device
+    kernels it launches, each once a call): the sum over them of the mean
+    of each one's records in a profiled window of `reps` calls. A window
+    counts only if each kernel has at least reps - 1 and at most `reps`
+    records and no other kernel named ``hires_`` has any (the tracer drops
+    a record now and then on an H100, for one kernel one record in every
+    window of a call; the mean of what it recorded is unbiased), and the
+    time is taken once two such windows agree within 5 % (their mean). A
+    window that does not count is profiled again a second later, eight
+    windows at most, and then this raises."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    taken = []
+    for attempt in range(8):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and "hires_" in e.key]
+        mine = {k: [e for e in hits if k in e.key] for k in kernels}
+        counts = {k: sum(e.count for e in v) for k, v in mine.items()}
+        whole = sum(counts.values()) == sum(e.count for e in hits)
+        if whole and all(reps - 1 <= n <= reps for n in counts.values()):
+            taken.append(1e-3 * sum(
+                sum(e.self_device_time_total for e in mine[k]) / counts[k]
+                for k in kernels))
+            if len(taken) > 1 and abs(taken[-1] - taken[-2]) \
+                    <= 0.05 * min(taken[-2:]):
+                return (taken[-1] + taken[-2]) / 2
+            continue
+        print(f"  (profiler window {attempt + 1}: records {counts} of "
+              f"{reps} calls; profiling again in a second)", flush=True)
+        time.sleep(1.0)
+    raise RuntimeError(f"the profiler recorded no two agreeing whole "
+                       f"windows of {kernels}: {taken}")
+
+
+def hires_groups(sp, params, rng) -> dict:
+    """The step's three transform groups at B=HIRES_MEMBERS, seeded, with
+    the step's row counts (the direct group: one surface field and nine
+    level stacks; the dynamics' inverse group: six level stacks and the
+    stacked log-ps gradient; the physics' group: four stacks, log ps, kcos 2
+    for the winds), the pair axis at 1. Returns {name: (kind, fields,
+    kcos)}."""
+    b, kx = HIRES_MEMBERS, params.kx
+    tri = torch.from_numpy((np.arange(sp.mx)[:, None]
+                            + np.arange(sp.nx)[None] <= sp.nx - 1)
+                           .astype(np.float64)).to("cuda", sp.rdtype)
+    spec = lambda *s: torch.from_numpy(rng.standard_normal(
+        (b, 2) + s + (sp.mx, sp.nx))).to("cuda", sp.rdtype) * tri
+    grid = lambda *s: torch.from_numpy(rng.standard_normal(
+        (b,) + s + (sp.il, sp.ix))).to("cuda", sp.rdtype)
+    return {
+        "direct": ("direct", [grid()] + [grid(kx) for _ in range(9)], None),
+        "inverse, dynamics": ("inverse", [spec(kx) for _ in range(6)]
+                              + [spec(2)], [1] * 7),
+        "inverse, physics": ("inverse", [spec(kx) for _ in range(4)]
+                             + [spec()], [2, 2, 1, 1, 1]),
+    }
+
+
+def other_build(source: str):
+    """The C entry of `source`, a version of csrc/fused_transform_hires.cu,
+    built into the kernels' build directory with the tree's flags."""
+    import ctypes
+    import pathlib
+    import subprocess
+    from .ops import column_kernels as ck
+    spec = ck.KERNELS["fused_transform_hires"]
+    out = ck._BUILD_DIR / f"other_{pathlib.Path(source).stem}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([ck.find_nvcc(), *ck.NVCC_FLAGS, *spec.extra_flags, "-o",
+                    str(out), source], check=True, capture_output=True)
+    fn = getattr(ctypes.CDLL(str(out)), spec.symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = list(spec.argtypes)
+    return fn
+
+
+def time_hires(card, rng, source=None) -> dict:
+    from .ops import column_kernels as ck
+    from .ops import geometry as G
+    from .ops import spectral as S
+    from .ops import transform_kernels as tk
+    from .params import T47L8, T63L8
+    out = {}
+    builds = {"": None}
+    if source:
+        ck._load("fused_transform_hires")
+        builds = {" [tree]": ck._fns["fused_transform_hires"],
+                  " [other]": other_build(source)}
+    order = list(builds) + list(builds)[::-1] if source else [""]
+    for base in (T47L8, T63L8):
+        for prec in ("f32", "f64"):
+            params = dataclasses.replace(base, precision=prec,
+                                         fft_mode="matmul")
+            sp = S.build_spectral(params, G.build_geometry(params),
+                                  use_matmul_fft=True, device="cuda")
+            plan = (tk.hires_kernel_plan(sp) if hasattr(
+                tk, "hires_kernel_plan") else None)
+            for name, (kind, fields, kcos) in hires_groups(
+                    sp, params, rng).items():
+                call = lambda f=fields: tk.fused_grid2spec_many_cuda(sp, f, 1)
+                if kind == "inverse":
+                    call = lambda f=fields, k=kcos: \
+                        tk.fused_spec2grid_many_cuda(sp, f, k, 1)
+                kernels = (plan[f"{kind}_kernels"] if plan
+                           else PAIR_KERNELS[kind])
+                first = None
+                for tag in order:
+                    if builds[tag] is not None:
+                        ck._fns["fused_transform_hires"] = builds[tag]
+                        got = call()
+                        first = first or got
+                        if not all(torch.equal(a, b)
+                                   for a, b in zip(got, first)):
+                            raise RuntimeError(f"{tag} differs at T"
+                                               f"{params.trunc} {name}")
+                    ms = device_ms_all(call, kernels)
+                    key = f"T{params.trunc} {prec} {name}{tag}"
+                    out.setdefault(key, []).append(ms)
+                    print(f"rows 3-4 {key} (B={HIRES_MEMBERS}, "
+                          f"{len(fields)} fields, {' + '.join(kernels)}): "
+                          f"{ms:.4f} ms [{card}]", flush=True)
+    if source:
+        ck._fns["fused_transform_hires"] = builds[" [tree]"]
+    return {k: v[0] if len(v) == 1 else v for k, v in out.items()}
+
+
+def main(argv=()) -> int:
+    argv, source = list(argv), None
+    if "--source" in argv:
+        at = argv.index("--source")
+        source = argv[at + 1] if at + 1 < len(argv) else ""
+        del argv[at:at + 2]
+        if not source:
+            print("kernel_time: --source needs a file", file=sys.stderr)
+            return 2
+    sections = argv or list(SECTIONS)
+    if any(s not in SECTIONS for s in sections):
+        print(f"kernel_time: sections are {SECTIONS}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("kernel_time needs a CUDA device", file=sys.stderr)
         return 2
@@ -40,9 +208,9 @@ def main() -> int:
     card = nvidia_smi_line()
     print(f"card: {card}")
     rng = np.random.default_rng(0)
-    result = {"card": card, "probes": {}, "dft_chain": {}}
+    result = {"card": card, "probes": {}, "dft_chain": {}, "hires": {}}
     # Each wrapper launches one kernel, named *_kernel in either design.
-    for prec in ("f32", "f64"):
+    for prec in ("f32", "f64") if "probes" in sections else ():
         params = dataclasses.replace(T30L8, precision=prec, fft_mode="matmul")
         consts, _ = M.build_consts(params, device="cuda", physics_on=False)
         sp = consts.sp
@@ -54,7 +222,8 @@ def main() -> int:
                     lambda: tk.fused_probe_cuda(sp, stage, g), "_kernel")
                 result["probes"][f"p{stage} {prec} {n}"] = ms
                 print(f"probe p{stage} {prec} {n} rows: {ms:.4f} ms [{card}]")
-    for dtype in (torch.float32, torch.float64):
+    for dtype in (torch.float32, torch.float64) \
+            if "dft_chain" in sections else ():
         shape = (DFT_MEMBERS, DC.NFIELDS, DC.KX, DC.IL, DC.MX)
         fre, fim = (torch.from_numpy(rng.standard_normal(shape)).to(
             "cuda", dtype) for _ in range(2))
@@ -64,9 +233,11 @@ def main() -> int:
         name = "f32" if dtype == torch.float32 else "f64"
         result["dft_chain"][f"{name} {DFT_MEMBERS}"] = ms
         print(f"dft_chain {name} B={DFT_MEMBERS}: {ms:.4f} ms [{card}]")
+    if "hires" in sections:
+        result["hires"] = time_hires(card, rng, source)
     print(json.dumps(result))
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -94,9 +94,11 @@ KERNELS = {
         argtypes=(_I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
         counters=("fused_grid2spec", "fused_grid2spec_bf16",
                   "fused_spec2grid", "fused_probe")),
-    # The same transforms at T47 and T63, two kernels a direction launched
-    # by one call (counted once): kind 0 direct, 1 inverse, with the
-    # wrapper's scratch. Wrappers: ops/transform_kernels.py.
+    # The same transforms at T47 and T63, launched by one call a group: kind
+    # 0 direct (one kernel on thread-block clusters), 1 inverse (a cluster
+    # kernel, or two kernels with the wrapper's scratch where that is
+    # faster; the source's Plan says which, and
+    # pyspeedy_fused_transform_hires_plan reports it).
     "fused_transform_hires": KernelSpec(
         source=_CSRC / "fused_transform_hires.cu",
         symbol="pyspeedy_fused_transform_hires",

@@ -11,11 +11,19 @@ and the Legendre transform of a row in one pass with the Fourier intermediate
 in shared memory (the design is in the source's note). The probes are the
 direct kernel stopped after one stage. Those kernels are built for T30. At
 T47 and T63 (``HIRES_SHAPES``), whose folded Legendre tables do not fit in one
-block, a group takes two kernels a direction, launched by one call: the DFT
-over latitude pairs and the Legendre sums over slices of the wavenumbers,
-with the Fourier intermediate in a scratch the wrapper allocates (the design
-is in that source's note). ``KERNEL_SHAPES`` are the (il, ix, mx, nx) the
-kernels serve; the probes and the 2-byte operand mode stay at ``T30_SHAPE``.
+block, the direct transform of a group is one kernel launched on
+thread-block clusters: each block of a cluster owns a band of latitude pairs
+for the DFT (on the tensor cores) and a slice of the wavenumbers for the
+Legendre sums, and the Fourier intermediate goes from block to block through
+the cluster's shared memory. The inverse runs the mirror image on clusters
+at T63 in float64; elsewhere, where that kernel measured slower, two kernels
+with the Fourier intermediate in a scratch the wrapper allocates (the
+designs are in that source's note; the library's plan, which
+:func:`hires_kernel_plan` reads, says which inverse runs, and
+:func:`hires_cluster_plan` gives the decomposition for the CPU model of
+it). ``KERNEL_SHAPES`` are the (il, ix,
+mx, nx) the kernels serve; the probes and the 2-byte operand mode stay at
+``T30_SHAPE``.
 
 Dispatch rule (:func:`fused_grid2spec`, :func:`fused_spec2grid`, the grouped
 :func:`fused_grid2spec_many`, :func:`fused_spec2grid_many`, and
@@ -40,8 +48,8 @@ is for its kernels. ``plain_chain_calls`` counts the dense chain's calls and
 ``einsum_chain_calls`` the einsum chain's as a plain version (the einsum
 route of other shapes and of the latitude bands is not counted), so a run
 can show that it took neither on the card. ``launch_counts`` (in
-``ops.column_kernels``) counts launches (one a call at T47/T63, of both
-kernels), ``field_counts`` here the fields those launches transformed.
+``ops.column_kernels``) counts launches (one a group and element type),
+``field_counts`` here the fields those launches transformed.
 
 A bfloat16 grid (the ``bf16_tendencies`` configuration, float32 tables only)
 takes the 2-byte operand mode of the direct transform: DFT and Legendre
@@ -68,7 +76,8 @@ __all__ = ["fused_grid2spec", "fused_spec2grid", "fused_probe",
            "T30_SHAPE", "T47_SHAPE", "T63_SHAPE", "HIRES_SHAPES",
            "KERNEL_SHAPES", "einsum_grid2spec", "einsum_spec2grid",
            "grid2spec_hires_plain", "spec2grid_hires_plain",
-           "einsum_chain_calls", "reset_einsum_chain_calls"]
+           "einsum_chain_calls", "reset_einsum_chain_calls",
+           "hires_cluster_plan", "hires_kernel_plan"]
 
 # The probes: the stages of the direct transform alone, real part only.
 PROBE_STAGES = (0, 1, 2, 3)
@@ -84,6 +93,11 @@ HIRES_SHAPES = (T47_SHAPE, T63_SHAPE)
 KERNEL_SHAPES = (T30_SHAPE,) + HIRES_SHAPES
 
 _KIND_DIRECT, _KIND_INVERSE, _KIND_PROBE0 = 0, 1, 2
+# The T47/T63 inverse designs: their kind in csrc/fused_transform_hires.cu
+# and their device kernels.
+_HIRES_INVERSE = {
+    "pair": (1, ("hires_leg_inv_kernel", "hires_dft_inv_kernel")),
+    "cluster": (2, ("hires_inverse_cluster_kernel",))}
 _MODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
 plain_chain_calls = {"grid2spec": 0, "spec2grid": 0}
@@ -112,6 +126,82 @@ field_counts = {"fused_grid2spec": 0, "fused_grid2spec_bf16": 0,
 def reset_field_counts() -> None:
     for name in field_counts:
         field_counts[name] = 0
+
+
+def hires_cluster_plan(shape, dtype) -> dict:
+    """The decomposition of the T47/T63 cluster kernels at shape (il, ix,
+    mx, nx) and an element type, from the two choices of ``Plan<S, T>`` in
+    ``csrc/fused_transform_hires.cu`` (blocks a cluster, rows a step; the
+    card's tests hold them against the library's :func:`hires_kernel_plan`):
+
+    * ``cluster``: blocks a cluster (4; 8 for T63 in float64);
+    * ``bands``: block b's latitude pairs [b0, b1), an equal share of the
+      il/2 mirror pairs, whose zonal DFT it computes;
+    * ``m_slices``: block r's wavenumbers, whose Legendre sums it computes:
+      the K = mx / (2 C) lowest from r K and their mirrors mx - 1 - m, so
+      every block holds K (2 nx - mx + 1) entries of the (m, n) triangle;
+    * ``rows_per_step``: field rows a cluster transforms between two
+      exchanges; ``band_columns``: the MMA columns of a step, (row, pair,
+      hemisphere) in that order, padded to a multiple of 8 with zeros;
+    * ``mma_k``: the depth of one tensor-core product (8 for 3xTF32, 4 for
+      DMMA), the order in which the DFT's k loop adds its terms.
+    """
+    il, ix, mx, nx = shape = tuple(shape)
+    if shape not in HIRES_SHAPES or dtype not in (torch.float32,
+                                                  torch.float64):
+        raise ValueError(f"the T47/T63 kernels are built for {HIRES_SHAPES} "
+                         f"in float32 and float64, got {shape} {dtype}")
+    f64 = dtype == torch.float64
+    c = 8 if f64 and il == 96 else 4
+    k, rows, pairs = mx // (2 * c), 2, il // 2 // c
+    return {
+        "cluster": c, "pairs_per_band": pairs, "rows_per_step": rows,
+        "band_columns": -(-rows * 2 * pairs // 8) * 8,
+        "bands": tuple((r * pairs, (r + 1) * pairs) for r in range(c)),
+        "m_slices": tuple(tuple(range(r * k, (r + 1) * k))
+                          + tuple(range(mx - (r + 1) * k, mx - r * k))
+                          for r in range(c)),
+        "mma_k": 4 if f64 else 8,
+    }
+
+
+_PLAN_FIELDS = ("cluster", "m_pairs", "pairs_per_band", "rows_per_step",
+                "band_columns", "mma_k", "direct_threads", "direct_smem",
+                "inverse_threads", "inverse_smem", "grid_buffers",
+                "inverse_kind", "pair_scratch_per_row")
+_kernel_plans: dict = {}
+
+
+def hires_kernel_plan(sp) -> dict:
+    """The plan of the T47/T63 kernels at sp's shape and type as the
+    library reports it (``pyspeedy_fused_transform_hires_plan``; builds and
+    loads the library at first use): the decomposition (blocks a cluster,
+    m pairs of a block, latitude pairs of a band, rows a step, MMA columns
+    and depth), threads and shared memory (bytes) of the direct and inverse
+    cluster blocks, the direct block's grid buffers, the pair's scratch a
+    row (values), and ``inverse``, the design a call runs ("cluster" at T63
+    in float64, "pair" elsewhere), with ``direct_kernels`` /
+    ``inverse_kernels``, the device kernels a call launches."""
+    key = (sp.il, sp.ix, sp.mx, sp.nx, sp.rdtype)
+    if key not in _kernel_plans:
+        if key[:4] not in HIRES_SHAPES:
+            raise ValueError(f"the T47/T63 kernels are built for "
+                             f"{HIRES_SHAPES}, got {key[:4]}")
+        from .column_kernels import build_kernels
+        lib = ctypes.CDLL(str(build_kernels(["fused_transform_hires"])[
+            "fused_transform_hires"]))
+        out = (ctypes.c_int * len(_PLAN_FIELDS))()
+        rc = lib.pyspeedy_fused_transform_hires_plan(
+            47 if sp.il == T47_SHAPE[0] else 63, _MODES[sp.rdtype], out)
+        if rc != 0:
+            raise RuntimeError(f"the plan query failed with {rc}")
+        plan = dict(zip(_PLAN_FIELDS, out))
+        plan["inverse"] = {kind: d for d, (kind, _) in
+                           _HIRES_INVERSE.items()}[plan["inverse_kind"]]
+        plan["direct_kernels"] = ("hires_direct_cluster_kernel",)
+        plan["inverse_kernels"] = _HIRES_INVERSE[plan["inverse"]][1]
+        _kernel_plans[key] = plan
+    return _kernel_plans[key]
 
 
 # ---------------------------------------------------------------------------
@@ -326,9 +416,11 @@ def _call(kernel, kind, mode, count, sp, tables, desc, device, what,
             f"il={sp.il}, ix={sp.ix}, mx={sp.mx}, nx={sp.nx}, mode={mode})")
 
 
-def _launch_groups(kind, sp, plans, tables_of, device, what):
+def _launch_groups(kind, sp, plans, tables_of, device, what, design=None):
     """One launch per element type among `plans` [(mode, counter, words)],
-    in the order the types first appear; empty fields take no segment."""
+    in the order the types first appear; empty fields take no segment. At
+    T47/T63 the inverse runs the library plan's design for the type, or
+    `design` ("cluster" or "pair", for :func:`_spec2grid_many_design`)."""
     by_mode = {}
     for mode, counter, words in plans:
         if words is not None:
@@ -339,13 +431,19 @@ def _launch_groups(kind, sp, plans, tables_of, device, what):
         ptrs = [t.data_ptr() for t in tables]
         desc = [w for seg in segs for w in seg]
         if counter.endswith("_hires"):
-            # Both T47/T63 kernels of a direction, the Fourier intermediate
-            # between them in a scratch of mx * 4 * (il/2) values a row.
-            rows = sum(seg[2] for seg in segs)
-            scratch = torch.empty(rows * sp.mx * 4 * (sp.il // 2),
-                                  dtype=sp.rdtype, device=device)
-            _call("fused_transform_hires", kind, mode, len(segs), sp, ptrs,
-                  desc, device, what, ctypes.c_void_p(scratch.data_ptr()))
+            hkind, scratch = kind, None
+            if kind == _KIND_INVERSE:
+                plan = hires_kernel_plan(sp)
+                hkind = _HIRES_INVERSE[design or plan["inverse"]][0]
+                if hkind == _HIRES_INVERSE["pair"][0]:
+                    # the pair's Fourier intermediate
+                    rows = sum(seg[2] for seg in segs)
+                    scratch = torch.empty(
+                        rows * plan["pair_scratch_per_row"], dtype=sp.rdtype,
+                        device=device)
+            _call("fused_transform_hires", hkind, mode, len(segs), sp, ptrs,
+                  desc, device, what, ctypes.c_void_p(
+                      None if scratch is None else scratch.data_ptr()))
         else:
             _call("fused_transform", kind, mode, len(segs), sp, ptrs, desc,
                   device, what)
@@ -416,7 +514,8 @@ def fused_grid2spec_many_cuda(sp, grids, pdim: int = 0) -> list:
     group of up to MAX_SEGMENTS fields: each grid (..., il, ix) in the
     tables' type, or bfloat16 against float32 tables at T30, -> its
     spectral pair in the tables' type, the pair axis at `pdim`. One launch
-    per element type in the list (at T47/T63 one call of both kernels); the
+    per element type in the list (at T47/T63 one kernel on thread-block
+    clusters); the
     leading axes of each grid may be strided (a slice of a level stack, an
     expanded member axis) as long as they collapse to a member and a row
     stride. Raises on anything else, before anything is built or launched;
@@ -441,14 +540,26 @@ def fused_spec2grid_many_cuda(sp, pairs, kcos=1, pdim: int = 0) -> list:
     group of up to MAX_SEGMENTS spectral pairs (pair axis at `pdim`), each
     read in place through its member, pair and row strides -> a new dense
     grid (..., il, ix) each; `kcos` is one value or one per field: the field
-    is scaled by 1/cos(lat) at the store unless its kcos == 1. Raises on
-    anything the kernel does not take, before anything is built or launched;
-    does not synchronise."""
+    is scaled by 1/cos(lat) at the store unless its kcos == 1. At T47/T63
+    the design is the library plan's for the shape and type
+    (:func:`hires_kernel_plan`). Raises on anything the kernel does not
+    take, before anything is built or launched; does not synchronise."""
+    return _spec2grid_many_design(sp, pairs, kcos, pdim, None)
+
+
+def _spec2grid_many_design(sp, pairs, kcos, pdim, design) -> list:
+    """fused_spec2grid_many_cuda with the T47/T63 inverse's design named:
+    None (the plan's), "cluster" or "pair". The design the plan does not
+    pick is here to be measured and checked against (``chip_smoke.py``),
+    not for the model."""
     pairs = list(pairs)
     what = "fused_spec2grid_many_cuda"
     kcos = kcos_list(kcos, len(pairs))
     _check_count(pairs, what)
     hires = _is_hires(sp)
+    if design not in (None,) + (tuple(_HIRES_INVERSE) if hires else ()):
+        raise ValueError(f"inverse design {design!r}: at T47/T63 one of "
+                         f"{tuple(_HIRES_INVERSE)}, elsewhere None")
     plans = [_inverse_plan(sp, p, k, pdim, hires)
              for p, k in zip(pairs, kcos)]
     if not pairs:
@@ -456,7 +567,7 @@ def fused_spec2grid_many_cuda(sp, pairs, kcos=1, pdim: int = 0) -> list:
     device = _check_device(pairs, what)
     _launch_groups(_KIND_INVERSE, sp, [plan for _, plan in plans],
                    lambda mode: (sp.fold_inv, sp.cosgr),
-                   device, "fused_spec2grid")
+                   device, "fused_spec2grid", design)
     return [out for out, _ in plans]
 
 

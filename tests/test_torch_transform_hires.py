@@ -2,25 +2,33 @@
 pyspeedy_tpu_torch/csrc/fused_transform_hires.cu and their routes.
 
 At these shapes the folded Legendre table does not fit in one block, so a
-group takes two kernels a direction: the DFT over blocks of 12 latitude
-pairs, then the Legendre sums over slices of the (m, n) triangle (direct,
-an equal share of the entries a slice) or of the wavenumbers m (inverse,
-balanced by triangle entries), with the Fourier intermediate in a scratch.
-Here, on the CPU:
+group takes one kernel a direction on thread-block clusters: each block of
+a cluster owns a band of latitude pairs for the zonal DFT (on the tensor
+cores) and a slice of the wavenumbers m for the Legendre sums, and the
+Fourier intermediate goes from block to block through the cluster's shared
+memory (``ops.transform_kernels.hires_cluster_plan`` gives the
+decomposition; the library reports its own plan, and the card's tests hold
+the two against each other). Here, on the CPU:
 
 * the table facts those kernels rely on, at T47 and T63;
-* a numpy model of the kernels' decomposition (the latitude-pair blocks,
-  the slices, the even and odd partial sums) against the JAX package's
-  ``grid2spec_p`` / ``spec2grid_p``, float64, 1e-12 of the largest value;
+* the plan: the bands cover every latitude once, the slices every (m, n)
+  entry once with equal work a block, and each block's working set fits in
+  its shared memory;
+* a numpy model of the cluster decomposition (the bands, the slices, the
+  Fourier values sent from band to slice and back, the DFT's k loop in the
+  tensor-core products' order, the even and odd partial sums) with the plan
+  of each element type, against the JAX package's ``grid2spec_p`` /
+  ``spec2grid_p``, float64, 1e-12 of the largest value;
 * the route as a function of shape and device: the kernels at T30, T47 and
   T63 with the matmul DFT on a CUDA tensor, the einsum chain for a CPU
   tensor there (bitwise the einsum route's result), the einsum route at
   every other shape;
 * what the T47/T63 wrappers refuse, before anything is built.
 
-The gpu-marked tests run on the card only: the kernels against the einsum
-chain, a group against its fields launched one by one, and a T47 member
-alone bitwise the same member of a batch of 8 over a few steps. The module
+The gpu-marked tests run on the card only: the library's plan against the
+modelled decomposition, the kernels against the einsum chain, a group
+against its fields launched one by one, and a member alone
+bitwise the same member of a batch of 8 over a few steps, at T47 and T63. The module
 imports no JAX at module level (the JAX tables are built inside the tests
 that compare with them), so ``-m gpu`` runs it on a card without JAX.
 """
@@ -46,10 +54,10 @@ from pyspeedy_tpu_torch.testing import make_demo_model
 torch.set_num_threads(1)
 
 PRESETS = {"T47": T_T47L8, "T63": T_T63L8}
-# The kernels' tiles (csrc/fused_transform_hires.cu): latitude pairs of a
-# DFT item, threads of a direct Legendre slice, slices of the inverse one.
+DTYPES = {"f32": torch.float32, "f64": torch.float64}
+# The inverse pair's tiles (csrc/fused_transform_hires.cu, where the plan's
+# inverse is "pair"): latitude pairs of a DFT item, slices of m.
 PAIRS = 12
-LEG_DIR_THREADS = 256
 LEG_INV_SLICES = 8
 _cache = {}
 
@@ -151,8 +159,64 @@ def test_dft_tables_have_half_period_symmetry_to_rounding(preset, prec):
 
 
 # ---------------------------------------------------------------------------
-# (b) A numpy model of the kernels' decomposition against the JAX functions
+# (b) The cluster plan and a numpy model of it against the JAX functions
 # ---------------------------------------------------------------------------
+
+def plan_of(preset, plan_prec):
+    tsp = transforms(preset)
+    return TK.hires_cluster_plan((tsp.il, tsp.ix, tsp.mx, tsp.nx),
+                                 DTYPES[plan_prec])
+
+
+@pytest.mark.parametrize("plan_prec", sorted(DTYPES))
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_the_plan_covers_every_latitude_and_entry_once(preset, plan_prec):
+    """The bands hold every latitude once (pair p: p and il-1-p), the slices
+    every (m, n) entry of the triangle once, every block the same number of
+    entries; the MMA columns hold a step's rows, pairs and hemispheres in
+    tiles of 8; a cluster is portable (at most 8 blocks)."""
+    tsp = transforms(preset)
+    il, mx, nx = tsp.il, tsp.mx, tsp.nx
+    plan = plan_of(preset, plan_prec)
+    c = plan["cluster"]
+    assert c <= 8 and len(plan["bands"]) == len(plan["m_slices"]) == c
+    lats = [q for b0, b1 in plan["bands"] for p in range(b0, b1)
+            for q in (p, il - 1 - p)]
+    assert sorted(lats) == list(range(il))
+    assert all(b1 - b0 == plan["pairs_per_band"] for b0, b1 in plan["bands"])
+    entries = [(m, n) for ms in plan["m_slices"] for m in ms
+               for n in range(nx - m)]
+    assert sorted(entries) == sorted(zip(*triangle_pairs(mx, nx)))
+    work = {sum(nx - m for m in ms) for ms in plan["m_slices"]}
+    assert work == {len(entries) // c}
+    cols = plan["rows_per_step"] * 2 * plan["pairs_per_band"]
+    assert plan["band_columns"] % 8 == 0
+    assert cols <= plan["band_columns"] < cols + 8
+
+
+@pytest.mark.parametrize("plan_prec", sorted(DTYPES))
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_each_block_of_the_plan_fits_in_shared_memory(preset, plan_prec):
+    """Each block's working set under the plan fits in the 227 KiB a block
+    may use: direct, its slice of the Legendre table, the Fourier values of
+    a step's rows it receives (its m, c, sum and difference, il/2 pairs)
+    and its band's grid rows of the step; inverse, the table slice, its
+    spectral values of the step (c, its m, n) and its band's Fourier values
+    (parity, column, MMA column). The kernels' own layout (pitches, second
+    buffers) is the library's: the compiler holds it to the same limit, and
+    the card's test of the library's plan reads it."""
+    tsp = transforms(preset)
+    il, ix, mx, nx = tsp.il, tsp.ix, tsp.mx, tsp.nx
+    plan = plan_of(preset, plan_prec)
+    w = DTYPES[plan_prec].itemsize
+    iy, cols, rows = il // 2, 2 * ((mx + 1) // 2), plan["rows_per_step"]
+    npad = plan["band_columns"]
+    for ms in plan["m_slices"]:
+        ent = sum(nx - m for m in ms)
+        direct = w * (iy * ent + rows * len(ms) * 2 * 2 * iy + npad * ix)
+        inverse = w * (ent * iy + rows * 2 * len(ms) * nx + 2 * cols * npad)
+        assert max(direct, inverse) <= 227 * 1024
+
 
 def unpack(tsp, direct):
     """The folded tables as the kernels read them: DFT (2 parity, ih, 2h)
@@ -165,45 +229,120 @@ def unpack(tsp, direct):
     return t[ntri:].reshape(2, -1, ih), t[:ntri].reshape(iy, -1)
 
 
-def model_direct(tsp, grid):
-    """hires_dft_fwd_kernel then hires_leg_dir_kernel on a (rows, il, ix)
-    grid -> (rows, 2, mx, nx). Stage 1, per block of PAIRS latitude pairs:
-    the south rows p and north rows il-1-p folded by half a period, the DFT
-    of each parity, the hemispheric sums (sd 0) and differences (sd 1) into
-    X[row, m, c, sd, pair]. Stage 2, per slice of an equal share of the
-    triangle's entries: for entry (m, n), the sum over the pairs of
-    L[j, entry] X[row, m, c, n % 2, j]; zeros past the triangle."""
+def k_tiled(a, b, depth):
+    """a (..., K) @ b (K, N) as the tensor-core products add it: one
+    product of `depth` terms after the other, k ascending."""
+    out = 0.0
+    for k0 in range(0, a.shape[-1], depth):
+        out = out + a[..., k0:k0 + depth] @ b[k0:k0 + depth]
+    return out
+
+
+def slots(plan, il, band):
+    """The latitude of each MMA column (row of the step, pair, hemisphere)
+    of a band, and that column's (row, pair)."""
+    b0, b1 = band
+    out = []
+    for rr in range(plan["rows_per_step"]):
+        for p in range(b0, b1):
+            out += [(rr, p, p), (rr, p, il - 1 - p)]
+    return out
+
+
+def model_direct(tsp, grid, plan):
+    """The direct cluster kernel on a (rows, il, ix) grid -> (rows, 2, mx,
+    nx). A cluster step takes rows_per_step rows. Each block's band: its
+    grid rows in MMA columns, folded by half a period, the DFT of each
+    parity as k-tiled products against the folded table, the hemispheric
+    sums (sd 0) and differences (sd 1) of each pair sent to the block that
+    owns the column's m. Each block's slice: for entry (m, n), the sum over
+    all pairs of L[p, entry] X[row, m, c, n % 2, p]; zeros past the
+    triangle."""
     D, L = unpack(tsp, True)
     il, ix, mx, nx = tsp.il, tsp.ix, tsp.mx, tsp.nx
     ih, iy, h = ix // 2, il // 2, (mx + 1) // 2
+    step = plan["rows_per_step"]
     rows = grid.shape[0]
-    X = np.zeros((rows, mx, 2, 2, iy))
-    for pb in range(iy // PAIRS):
-        p = np.arange(pb * PAIRS, (pb + 1) * PAIRS)
-        lat = np.concatenate([p, il - 1 - p])              # the item's slots
-        g = grid[:, lat]
-        folded = (g[..., :ih] + g[..., ih:], g[..., :ih] - g[..., ih:])
-        for par in range(2):
-            F = folded[par] @ D[par]                       # (rows, slots, 2h)
-            for col in range(2 * h):
-                c, m = col // h, 2 * (col % h) + par
-                south, north = F[:, :PAIRS, col], F[:, PAIRS:, col]
-                X[:, m, c, 0, p] = south + north
-                X[:, m, c, 1, p] = south - north
-    tm, tn = triangle_pairs(mx, nx)
+    owner = {m: (r, ms.index(m)) for r, ms in enumerate(plan["m_slices"])
+             for m in ms}
+    # The receive buffers of every block: (rows, its m, c, sd, pair).
+    xin = [np.full((rows + step, len(ms), 2, 2, iy), np.nan)
+           for ms in plan["m_slices"]]
+    g = np.concatenate([grid, np.zeros((step,) + grid.shape[1:])])
+    for r0 in range(0, rows, step):
+        for band in plan["bands"]:
+            cols = slots(plan, il, band)
+            gb = np.stack([g[r0 + rr, lat] for rr, _, lat in cols])
+            folded = (gb[:, :ih] + gb[:, ih:], gb[:, :ih] - gb[:, ih:])
+            for par in range(2):
+                F = k_tiled(folded[par], D[par], plan["mma_k"])  # (cols, 2h)
+                for col in range(2 * h):
+                    c, m = col // h, 2 * (col % h) + par
+                    r, ml = owner[m]
+                    for q in range(0, len(cols), 2):
+                        rr, p, _ = cols[q]
+                        south, north = F[q, col], F[q + 1, col]
+                        xin[r][r0 + rr, ml, c, :, p] = (south + north,
+                                                        south - north)
     S = np.zeros((rows, 2, mx, nx))
-    ns = -(-tm.size // LEG_DIR_THREADS)
-    for sl in range(ns):
-        e = np.arange(sl * tm.size // ns, (sl + 1) * tm.size // ns)
-        m, n = tm[e], tn[e]
-        xs = X[:, m, :, n % 2, :]                          # (e, rows, c, j)
-        S[:, :, m, n] = np.einsum("je,ercj->rce", L[:, e], xs)
+    for r, ms in enumerate(plan["m_slices"]):
+        for ml, m in enumerate(ms):
+            for n in range(nx - m):
+                x = xin[r][:rows, ml, :, n % 2, :]             # (rows, c, p)
+                S[:, :, m, n] = x @ L[:, tri_offset(m, nx) + n]
     return S
 
 
-def model_inverse(tsp, p, kcos):
-    """hires_leg_inv_kernel then hires_dft_inv_kernel on a (rows, 2, mx,
-    nx) pair -> (rows, il, ix). Stage 1, per slice of m (the first row
+def model_inverse_cluster(tsp, p, kcos, plan):
+    """The inverse cluster kernel on a (rows, 2, mx, nx) pair -> (rows, il,
+    ix). Each block's slice: for each of its m, the even and odd partial
+    sums E, O over n of L[j, m, n] p[c, m, n]; F south = E + O, north =
+    E - O (the imaginary part of m = 0 set to 0) sent to the block that
+    owns the pair's band, into its MMA column. Each block's band: the DFT
+    of the even and odd wavenumbers as k-tiled products against the folded
+    table over half the longitudes, g[i] = Pe + Po, g[i + ix/2] = Pe - Po,
+    then 1/cos(lat) unless kcos == 1."""
+    B, L = unpack(tsp, False)
+    il, ix, mx, nx = tsp.il, tsp.ix, tsp.mx, tsp.nx
+    ih, h = ix // 2, (mx + 1) // 2
+    step = plan["rows_per_step"]
+    rows = p.shape[0]
+    band_of = {q: b for b, (b0, b1) in enumerate(plan["bands"])
+               for q in range(b0, b1)}
+    # The receive buffers of every band: (rows, parity, column, slot).
+    fin = [np.full((rows, 2, 2 * h, len(slots(plan, il, band)) // step),
+                   np.nan) for band in plan["bands"]]
+    for ms in plan["m_slices"]:
+        for m in ms:
+            lm = L[:, tri_offset(m, nx):tri_offset(m, nx) + nx - m]
+            pm = p[:, :, m, :nx - m]
+            E = np.einsum("jn,rcn->rcj", lm[:, 0::2], pm[..., 0::2])
+            O = np.einsum("jn,rcn->rcj", lm[:, 1::2], pm[..., 1::2])
+            if m == 0:
+                E[:, 1], O[:, 1] = 0.0, 0.0
+            for c in range(2):
+                for q in range(il // 2):
+                    b = band_of[q]
+                    pp = q - plan["bands"][b][0]
+                    col = c * h + m // 2
+                    fin[b][:, m % 2, col, 2 * pp] = E[:, c, q] + O[:, c, q]
+                    fin[b][:, m % 2, col, 2 * pp + 1] = (E[:, c, q]
+                                                         - O[:, c, q])
+    g = np.zeros((rows, il, ix))
+    for b, band in enumerate(plan["bands"]):
+        lats = [lat for _, _, lat in slots(plan, il, band)][:fin[b].shape[-1]]
+        Pe = k_tiled(np.swapaxes(fin[b][:, 0], 1, 2), B[0], plan["mma_k"])
+        Po = k_tiled(np.swapaxes(fin[b][:, 1], 1, 2), B[1], plan["mma_k"])
+        g[:, lats] = np.concatenate([Pe + Po, Pe - Po], axis=-1)
+    if kcos != 1:
+        g = g * tsp.cosgr.numpy()[:, None]
+    return g
+
+
+def model_inverse_pair(tsp, p, kcos):
+    """The inverse pair (where the plan's inverse is "pair"):
+    hires_leg_inv_kernel then hires_dft_inv_kernel on a (rows, 2, mx, nx)
+    pair -> (rows, il, ix). Stage 1, per slice of m (the first row
     starting at or past an equal share of the triangle's entries): the even
     and odd partial sums E, O over n of L[j, m, n] p[c, m, n]; F south =
     E + O, north = E - O, the imaginary part of m = 0 set to 0. Stage 2, per
@@ -246,31 +385,48 @@ def model_inverse(tsp, p, kcos):
     return g
 
 
+def model_inverse(tsp, p, kcos, plan, design):
+    """The inverse by design "cluster" (the plan's blocks) or "pair"."""
+    if design == "cluster":
+        return model_inverse_cluster(tsp, p, kcos, plan)
+    return model_inverse_pair(tsp, p, kcos)
+
+
+@pytest.mark.parametrize("plan_prec", sorted(DTYPES))
 @pytest.mark.parametrize("preset", sorted(PRESETS))
-def test_model_of_the_direct_kernels_matches_jax(preset):
+def test_model_of_the_direct_kernels_matches_jax(preset, plan_prec):
     JS, jsp = jax_transforms(preset)
     tsp = transforms(preset)
     rng = np.random.default_rng(1300 + tsp.il)
     grid = rng.standard_normal((3, tsp.il, tsp.ix))
     want = JS.grid2spec_p(jsp, grid)                       # (2, 3, mx, nx)
-    assert rel_err(model_direct(tsp, grid), np.moveaxis(want, 0, 1)) \
-        <= 1e-12
+    got = model_direct(tsp, grid, plan_of(preset, plan_prec))
+    assert rel_err(got, np.moveaxis(want, 0, 1)) <= 1e-12
 
 
+@pytest.mark.parametrize("design, plan_prec", [("cluster", "f32"),
+                                               ("cluster", "f64"),
+                                               ("pair", "f64")])
 @pytest.mark.parametrize("kcos", [1, 2])
 @pytest.mark.parametrize("preset", sorted(PRESETS))
-def test_model_of_the_inverse_kernels_matches_jax(preset, kcos):
+def test_model_of_the_inverse_kernels_matches_jax(preset, kcos, design,
+                                                  plan_prec):
+    """Both inverse designs (the wrapper runs the library plan's; the
+    other is there to be measured), the cluster one with the blocks of each
+    type."""
     JS, jsp = jax_transforms(preset)
     tsp = transforms(preset)
+    plan = plan_of(preset, plan_prec)
     rng = np.random.default_rng(1310 + tsp.il + kcos)
     spec = random_pair(rng, (3,), tsp.mx, tsp.nx)
     want = JS.spec2grid_p(jsp, np.moveaxis(spec, 1, 0), kcos)
-    assert rel_err(model_inverse(tsp, spec, kcos), want) <= 1e-12
+    assert rel_err(model_inverse(tsp, spec, kcos, plan, design), want) \
+        <= 1e-12
     dirty = spec.copy()
     dirty[:, 1, 0, :] = 1e3 * rng.standard_normal((3, tsp.nx))
     spec[:, 1, 0, :] = 0.0
-    assert np.array_equal(model_inverse(tsp, dirty, kcos),
-                          model_inverse(tsp, spec, kcos))
+    assert np.array_equal(model_inverse(tsp, dirty, kcos, plan, design),
+                          model_inverse(tsp, spec, kcos, plan, design))
 
 
 # ---------------------------------------------------------------------------
@@ -414,6 +570,9 @@ def _refusals(preset):
                           ValueError, "dense"),
         "inverse_layout": (i, (tsp, [z(2, 2, 4, 3, mx, nx).transpose(2, 3)],
                                1, 1), ValueError, "copies nothing"),
+        "inverse_design": (TK._spec2grid_many_design,
+                           (tsp, [p], 1, 1, "fused"), ValueError,
+                           "inverse design"),
         "off_the_kernel_route": (
             d, (tsp._replace(use_fused_kernels=False), [g]), ValueError,
             "kernel route"),
@@ -471,6 +630,28 @@ def _card_fields(sp, seed):
 @pytest.mark.gpu
 @pytest.mark.parametrize("prec", ["f64", "f32"])
 @pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_the_library_plan_is_the_modelled_decomposition(preset, prec):
+    """Needs nvcc (and a card for the tables): the plan the library reports
+    has the CPU model's blocks a cluster, bands, m pairs a block, rows a
+    step, MMA columns and depth; each cluster block's shared memory fits in
+    227 KiB; the inverse runs its cluster kernel at T63 in float64 and the
+    pair, with its scratch, elsewhere."""
+    sp = _card_tables(preset, prec)
+    plan = TK.hires_kernel_plan(sp)
+    model = plan_of(preset, prec)
+    for key in ("cluster", "pairs_per_band", "rows_per_step", "band_columns",
+                "mma_k"):
+        assert plan[key] == model[key], key
+    assert plan["m_pairs"] == len(model["m_slices"][0]) // 2
+    assert max(plan["direct_smem"], plan["inverse_smem"]) <= 227 * 1024
+    default = "cluster" if (preset, prec) == ("T63", "f64") else "pair"
+    assert plan["inverse"] == default
+    assert plan["pair_scratch_per_row"] == sp.mx * 4 * (sp.il // 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["f64", "f32"])
+@pytest.mark.parametrize("preset", sorted(PRESETS))
 def test_kernels_match_the_einsum_chain_on_the_card(preset, prec):
     """Needs an NVIDIA GPU and nvcc: 1e-12 (f64) / 1e-5 (f32) of the
     largest value, in strided layouts, kcos 1 and 2."""
@@ -512,13 +693,15 @@ def test_a_group_equals_its_fields_one_by_one_on_the_card(preset, prec):
 
 
 @pytest.mark.gpu
-def test_a_t47_member_alone_is_bitwise_that_member_of_a_batch():
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_a_member_alone_is_bitwise_that_member_of_a_batch(preset):
     """Needs an NVIDIA GPU and nvcc: member 5 of 8 distinct members, run
     alone, equals that member of the batch bitwise after 6 steps of the
-    full-physics T47 model through the kernels."""
+    full-physics T47 / T63 model through the kernels."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
-    p = dataclasses.replace(T_T47L8, precision="f32", fft_mode="matmul")
+    p = dataclasses.replace(PRESETS[preset], precision="f32",
+                            fft_mode="matmul")
     consts, state1, cal = make_demo_model(p, device="cuda")
     assert consts.sp.use_fused_kernels
     run = TE.make_run_steps_batched(consts, device="cuda")
