@@ -146,12 +146,9 @@ PEAK_FLOPS_TENSOR = {torch.float32: 495e12 / 3,
 N_MEMBERS = 128
 # Rows 3-4 at T47/T63 (csrc/fused_transform_hires.cu): every device kernel,
 # and those one wrapper call launches by shape and type (the library's plan,
-# ops/transform_kernels.py::hires_kernel_plan): the direct one kernel on
-# thread-block clusters; the inverse one on clusters at T63 in float64, a
-# pair of kernels with a scratch between them elsewhere.
-HIRES_KERNEL_NAMES = ("hires_direct_cluster_kernel",
-                      "hires_inverse_cluster_kernel", "hires_leg_inv_kernel",
-                      "hires_dft_inv_kernel")
+# ops/transform_kernels.py::hires_kernel_plan): one kernel on thread-block
+# clusters a direction.
+HIRES_KERNEL_NAMES = ("hires_direct_cluster_kernel", "hires_inverse_ws_kernel")
 
 
 def hires_kernels(sp, direction: str) -> tuple:
@@ -900,29 +897,28 @@ def hires_bound(sp, nrows: int, direct: bool):
 
 def hires_occupancy(libs, sp, trunc: int, prec: str) -> dict:
     """{device kernel: six numbers from the CUDA runtime} of the T47/T63
-    kernels one shape and type runs: a cluster kernel (clusters the card
-    holds at once, cudaOccupancyMaxActiveClusters; threads a block, shared
-    memory a block, registers, local bytes, blocks a cluster), raising
-    unless its threads, shared memory and cluster size are those of the
-    library's plan (ops.transform_kernels.hires_kernel_plan) and its shared
-    memory fits in a block; a kernel of the inverse pair (resident blocks
-    per SM, threads, shared memory, registers, local bytes, slices of the
-    grid). Raises unless the library's decomposition is the one the CPU
-    tests model (ops.transform_kernels.hires_cluster_plan)."""
+    kernels one shape and type runs, each on thread-block clusters (clusters
+    the card holds at once, cudaOccupancyMaxActiveClusters; threads a block,
+    shared memory a block, registers, local bytes, blocks a cluster),
+    raising unless its threads, shared memory and cluster size are those of
+    the library's plan (ops.transform_kernels.hires_kernel_plan) and its
+    shared memory fits in a block. Raises unless the library's
+    decomposition is the one the CPU tests model
+    (ops.transform_kernels.hires_cluster_plan)."""
     import ctypes
     fn = ctypes.CDLL(str(libs["fused_transform_hires"])) \
         .pyspeedy_fused_transform_hires_occupancy
     plan = tk.hires_kernel_plan(sp)
     model = tk.hires_cluster_plan((sp.il, sp.ix, sp.mx, sp.nx), sp.rdtype)
     got = {k: plan[k] for k in ("cluster", "pairs_per_band", "rows_per_step",
-                                "band_columns", "mma_k")}
+                                "band_columns", "mma_k", "inverse_threads",
+                                "inverse_pairs_per_item",
+                                "inverse_rows_per_step")}
     want = {k: model[k] for k in got}
     if got != want or plan["m_pairs"] != len(model["m_slices"][0]) // 2:
         raise RuntimeError(f"the library's plan at T{trunc} {prec} {plan} is "
                            f"not the modelled decomposition {model}")
-    kinds = {"hires_direct_cluster_kernel": 0,
-             "hires_inverse_cluster_kernel": 1, "hires_leg_inv_kernel": 2,
-             "hires_dft_inv_kernel": 3}
+    kinds = {"hires_direct_cluster_kernel": 0, "hires_inverse_ws_kernel": 1}
     out, rows = (ctypes.c_int * 6)(), {}
     for direction in ("direct", "inverse"):
         for name in plan[f"{direction}_kernels"]:
@@ -931,8 +927,6 @@ def hires_occupancy(libs, sp, trunc: int, prec: str) -> dict:
                 raise RuntimeError(f"occupancy query of {name} at T{trunc} "
                                    f"{prec} failed with {rc}")
             rows[name] = tuple(out)
-            if kinds[name] > 1:
-                continue
             want = (plan[f"{direction}_threads"], plan[f"{direction}_smem"],
                     plan["cluster"])
             if (out[1], out[2], out[5]) != want or out[2] > 227 * 1024:
@@ -1037,11 +1031,8 @@ def check_transforms_hires(params, limit: float, card: str, libs) -> dict:
                            f"imaginary part")
     occ = hires_occupancy(libs, sp, params.trunc, prec)
     print(f"  rows 3-4 at {tag}, from the CUDA runtime: " + "; ".join(
-        (f"{k} on clusters of {o[5]} blocks, {o[0]} clusters at once, "
-         if "cluster" in k else
-         f"{k} (the inverse pair) {o[0]} blocks per SM, {o[5]} "
-         f"slice(s), ")
-        + f"{o[1]} threads, {o[2] / 1024:.1f} KB shared memory a block, "
+        f"{k} on clusters of {o[5]} blocks, {o[0]} clusters at once, "
+        f"{o[1]} threads, {o[2] / 1024:.1f} KB shared memory a block, "
         f"{o[3]} registers, {o[4]} B local" for k, o in occ.items()))
     res = {}
     g, p = transform_inputs(sp, N_MEMBERS, kx, seed=7)
@@ -1101,32 +1092,6 @@ def check_transforms_hires(params, limit: float, card: str, libs) -> dict:
                   f"{100 * t['bound_ms'] / t['ms']:.0f}%, on the tensor cores "
                   f"{t['tc_bound_ms']:.4f} ms by {t['tc_bound_by']} = "
                   f"{100 * t['tc_bound_ms'] / t['ms']:.0f}% [{card}]")
-    # The inverse design the plan does not pick, on the step's inverse
-    # groups: against the einsum chain and timed by its own kernels, the
-    # record behind the plan's choice.
-    other = "cluster" if tk.hires_kernel_plan(sp)["inverse"] == "pair" \
-        else "pair"
-    alt = {}
-    for gname, (gkind, fields, kcos) in groups.items():
-        if gkind != "inverse":
-            continue
-        launch = lambda f=fields, k=kcos: tk._spec2grid_many_design(
-            sp, f, k, 1, other)
-        err = max(_rel(a, s2g(sp, f, k, 1))
-                  for a, f, k in zip(launch(), fields, kcos))
-        if not err <= limit:
-            raise RuntimeError(f"the {other} inverse at {tag} disagrees with "
-                               f"the einsum chain: {err:.3e}")
-        alt[gname] = {"max_rel_err": err, "ms": sum(
-            kernel_device_ms(launch, k, reps=10)
-            for k in tk._HIRES_INVERSE[other][1])}
-    print(f"  the other inverse design at {tag}, {other} ("
-          + " + ".join(tk._HIRES_INVERSE[other][1]) + "): "
-          + ", ".join(f"group {n} {v['ms']:.4f} ms (max rel err "
-                      f"{v['max_rel_err']:.3e})" for n, v in alt.items())
-          + f" [{card}]")
-    res["fused_spec2grid_hires"]["other_inverse"] = {"design": other,
-                                                     "groups": alt}
     return res
 
 
@@ -1897,7 +1862,7 @@ def occupancy_report(libs) -> dict:
     column-parallel kernels at T30 (nx = 32, one tracer), from the CUDA
     runtime (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     import ctypes
-    rows, out = {}, (ctypes.c_int * 5)()
+    rows, out = {}, (ctypes.c_int * 7)()
     phys = ctypes.CDLL(str(libs["grid_physics"])).pyspeedy_grid_physics_occupancy
     glue = ctypes.CDLL(str(libs["spectral_update"])).pyspeedy_spectral_update_occupancy
     word = lambda flag: "true" if flag else "false"
@@ -1913,7 +1878,7 @@ def occupancy_report(libs) -> dict:
         rc = call()
         if rc != 0:
             raise RuntimeError(f"occupancy query of {name} failed with {rc}")
-        rows[name] = tuple(out)
+        rows[name] = tuple(out[:5])
     return rows
 
 
@@ -2428,23 +2393,38 @@ def card_vs_cpu(params, n_members: int, n_steps: int, what: str):
 
 
 def glue_plan(libs, params) -> dict:
-    """Row 6's launch plan at params' (kx, ntr, nx), from the kernel's own
-    planner and the CUDA runtime: member lanes a block (a lane is 2*nx
-    points rounded up to whole warps), threads and dynamic shared memory a
-    block, resident blocks per SM, registers."""
+    """Row 6's launch plan at params' (kx, ntr, nx) for N_MEMBERS members
+    on this card, from the kernel's own planner, held to its model
+    (GK.update_launch_plan), and the CUDA runtime's occupancy of it: members
+    a unit, threads and dynamic shared memory a block, blocks per SM (the
+    plan's, which the runtime must allow), registers, local memory, blocks,
+    members a block (the tile) and the waves of the grid."""
     import ctypes
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 7)()
     fn = ctypes.CDLL(str(libs["spectral_update"])) \
         .pyspeedy_spectral_update_occupancy
-    rc = fn(4 if params.precision == "f32" else 8, params.kx, params.ntr,
-            params.nx, out)
+    size = 4 if params.precision == "f32" else 8
+    rc = fn(size, params.kx, params.ntr, params.nx, out)
     if rc != 0:
         raise RuntimeError(f"spectral_update launch plan at nx={params.nx} "
                            f"failed with {rc}")
-    blocks, threads, smem, regs, _ = out
-    pslots = -(-2 * params.nx // 32) * 32
-    return {"nx": params.nx, "lanes": threads // pslots, "threads": threads,
-            "smem_bytes": smem, "blocks_per_sm": blocks, "registers": regs}
+    resident, threads, smem, regs, local, _, _ = out
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lib = GK.library_launch_plan(size, params.kx, params.ntr, params.nx,
+                                 params.mx, N_MEMBERS, sms)
+    model = GK.update_launch_plan(params.nx, params.mx, params.kx,
+                                  params.ntr, size, N_MEMBERS, sms)
+    if any(lib[k] != model[k] for k in lib) or resident < lib[
+            "blocks_per_sm"] or local:
+        raise RuntimeError(f"spectral_update plan at nx={params.nx}: the "
+                           f"library's {lib}, the model's {model}, the "
+                           f"runtime's {resident} blocks an SM, {local} "
+                           f"bytes of local memory")
+    return {"nx": params.nx, "lanes": lib["lanes"], "threads": threads,
+            "smem_bytes": smem, "blocks_per_sm": lib["blocks_per_sm"],
+            "registers": regs, "blocks": lib["blocks"], "tile": lib["tile"],
+            "waves": lib["blocks"] / (sms * lib["blocks_per_sm"]),
+            "busy_lanes": lib["lanes"] * 2 * params.nx / threads}
 
 
 def explicit_path(card: str, phases) -> dict:
@@ -2563,12 +2543,18 @@ def preset_path(name: str, base, libs, card: str, phases) -> dict:
            "phys": check_physics(p32, N_MEMBERS, 1e-5, card, ("grid_phi",),
                                  timed=True),
            "glue": check_spectral_update(p32, 1e-5, card, startup=False),
+           "glue_f64": check_spectral_update(
+               dataclasses.replace(base, fft_mode="matmul"), 1e-12, card,
+               startup=False),
            "plan": glue_plan(libs, p32), "plan_f64": glue_plan(libs, base)}
-    print(f"spectral_update launch plan at {name} (nx = {base.nx}): "
+    print(f"spectral_update launch plan at {name} (nx = {base.nx}), "
+          f"B={N_MEMBERS}: "
           + "; ".join(f"{prec} {r['lanes']} member lanes, {r['threads']} "
-                      f"threads and {r['smem_bytes'] / 1024:.1f} KB shared "
+                      f"threads ({100 * r['busy_lanes']:.1f} % on points) "
+                      f"and {r['smem_bytes'] / 1024:.1f} KB shared "
                       f"memory a block, {r['blocks_per_sm']} blocks per SM, "
-                      f"{r['registers']} registers"
+                      f"{r['registers']} registers, {r['blocks']} blocks of "
+                      f"{r['tile']} members = {r['waves']:.3f} waves"
                       for prec, r in (("f32", res["plan"]),
                                       ("f64", res["plan_f64"]))))
     n_steps = p32.nsteps
@@ -2609,6 +2595,10 @@ def preset_path(name: str, base, libs, card: str, phases) -> dict:
           f"{1e3 * secs / n_steps:.3f} ms/step; member 0 of B={N_MEMBERS} "
           f"bitwise equal to it alone after the day ({', '.join(names)}) "
           f"[{card}]")
+    # The physics kernel on the path's own columns after the day (float32,
+    # the path's grid_phi mode), the inverse transforms' bits in its inputs.
+    check_physics(p32, N_MEMBERS, 1e-5, card, ("grid_phi",),
+                  inputs=state_physics_inputs(consts, state))
     gph = graphs_phase(f"{name} path", consts, run, state0, cal, n_steps,
                        state, cal_day, captured, card)
     gph.pop("state")
@@ -3983,6 +3973,9 @@ def main() -> None:
     for name in presets:
         glue["presets"][name]["launch_plan"] = presets[name]["plan"]
         glue["presets"][name]["launch_plan_f64"] = presets[name]["plan_f64"]
+        glue["presets"][name]["f64"] = {k: presets[name]["glue_f64"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+            "max_rel_err")}
     glue["launches_bf16_path"] = launches_b["spectral_update"]
     glue["launches_multidevice_2x2_per_rank"] = md_2x2["spectral_update"]
     glue["launches_f64_day"] = launches64["spectral_update"]

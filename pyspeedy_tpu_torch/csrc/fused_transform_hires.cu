@@ -1,9 +1,9 @@
 // The fused spectral transforms at T47 (il 72, ix 144, mx 48, nx 49) and T63
 // (il 96, ix 192, mx 64, nx 65) for NVIDIA Hopper (sm_90a): the zonal DFT and
-// the Legendre transform of a group of fields. The direct transform is one
-// kernel launched on thread-block clusters; the inverse is its mirror image on
-// clusters at T63 in double and, where that kernel measured slower (float at
-// both shapes, double at T47), a pair of kernels with a scratch between them.
+// the Legendre transform of a group of fields. Each direction is one kernel
+// launched on thread-block clusters; the inverse is the direct one's mirror
+// image, its Legendre sums and its DFT on different warps of a block and on
+// successive steps.
 //
 // Replaces, at these shapes, the two Pallas experiments of the JAX package
 // that csrc/fused_transform.cu replaces at T30:
@@ -35,8 +35,9 @@
 // / double) and 402 / 804 KB (T63), above the 227 KB a block can hold, and
 // the transform factorises: a DFT a latitude over all m, then a Legendre sum
 // an m over all latitudes. So a cluster of C blocks (Plan::C: 4, and 8 for
-// T63 in double) takes R = 2 field rows at a time, persistent over the rows,
-// and splits them both ways:
+// T63 in double) takes R field rows at a time (2 direct; the inverse 4 at
+// T47 in float, 2 elsewhere), persistent over the rows, and splits them
+// both ways:
 //   * by latitude: block b owns the band of NP = (il/2)/C mirror pairs
 //     b NP .. (b+1) NP - 1, both hemispheres (so the hemispheric sums
 //     F[j] +- F[il-1-j] form inside a thread);
@@ -55,20 +56,21 @@
 //   each block sums its entries over all il/2 pairs for both rows, one entry
 //   a thread (16-byte vectors of the table and of the Fourier values), and
 //   writes the pairs and the zeros past the triangle.
-// hires_inverse_cluster_kernel (T63, double): the mirror image. A thread of
-//   block r sums E (even n) or O (odd n) of an m pair for two pairs of
-//   latitudes (the spectral values held by the parity of n, read as
-//   vectors), swaps with its partner lane, and writes F = E + O (south) and
-//   E - O (north) into the shared memory of the band's owner (0 for the
-//   imaginary part of m = 0); one cluster barrier; each block runs the
-//   folded inverse DFT of its band on the tensor cores, a warp a (16
-//   longitudes, parity) tile, stages Pe and Po of a row in the used Fourier
-//   buffer and stores g[i] = Pe + Po, g[i + ix/2] = Pe - Po (scaled by
+// hires_inverse_ws_kernel: the mirror image, warp-specialised. Four Legendre
+//   warps of block r: a thread sums E (even n) or O (odd n) of an m pair for
+//   a few latitude pairs and all rows of a step (the spectral values held by
+//   the parity of n, read as vectors), swaps with its partner lane, and
+//   writes F = E + O (south) and E - O (north) into the shared memory of the
+//   band's owner (0 for the imaginary part of m = 0), a pair's rows as
+//   16-byte vectors; the DFT warps of every block run the folded inverse DFT
+//   of their band on the tensor cores, a warp a (16 longitudes, parity)
+//   tile, one step behind the Legendre warps, stage Pe and Po of the step's
+//   rows and store g[i] = Pe + Po, g[i + ix/2] = Pe - Po (scaled by
 //   1/cos(lat) where the field's flag says so) as 16-byte vectors.
-// The Fourier intermediate never reaches device memory in these two kernels:
-// it lives in the receiving block's shared memory for one step, double-
-// buffered by the step's parity, so one cluster barrier a step orders both
-// the exchange and the buffers' reuse.
+// The Fourier intermediate never reaches device memory: it lives in the
+// receiving block's shared memory for one step, double-buffered by the
+// step's parity, so one cluster barrier a step orders both the exchange and
+// the buffers' reuse (in the inverse, its two halves: see the kernel).
 //
 // The products on the tensor cores, A the DFT table (kept in registers for
 // the kernel's life, loaded once), B the band's data (M 16 wavenumber columns
@@ -87,7 +89,7 @@
 // thread, the exchange places values and adds nothing, and there are no
 // atomics. Which cluster takes a row, and which row shares its step, change
 // no bit: a member alone is bitwise the same member in any batch, and a group
-// equals its fields launched one by one (the inverse pair below likewise).
+// equals its fields launched one by one.
 //
 // What bounds it on an H100 (3.35 TB/s; 67 TFLOP/s float and 34 TFLOP/s
 // double outside the tensor cores, 67 TFLOP/s double on DMMA, 495 TFLOP/s
@@ -96,11 +98,14 @@
 // work is il mx ix + il triangle multiply-adds, 1.39 M a row (41 ns at the
 // float peak outside the tensor cores; 85 % of it is DFT, which the tensor
 // cores take at 14 ns in 3xTF32). So on the tensor cores the bytes bind, in
-// both types, at both shapes. What holds the cluster kernels at 18-25 % of
-// that on the card (PERF.md): a block is alone on its SM but at T47 in float
-// (6-12 warps), and every step waits on its copies, one cluster barrier and
-// the slowest block; the tensor-core products issue at about a third of
-// their rate, the Legendre stages are bound by shared-memory wavefronts.
+// both types, at both shapes. What holds the kernels at 20-35 % of that on
+// the card (PERF.md): a block is alone on its SM but at T47 in float (6-16
+// warps), the tensor-core products (three mma.sync a 3xTF32 product) issue
+// well below their peak, and the direct kernel's steps wait on its copies,
+// one cluster barrier and the slowest block; the inverse's (clock64 spans
+// of scratch builds, PERF.md) on its DFT warps' products and stores, its
+// Legendre warps' sums and their remote stores, and the barrier between the
+// two.
 //
 // Interface: plain C, loaded with ctypes. The launches go to the stream they
 // are given, allocate nothing and do not synchronise; the function returns
@@ -143,6 +148,22 @@ __host__ __device__ constexpr int m_of_entry(int e, int nx) {
 }
 // What to add to a to reach b modulo m, in 0 .. m-1.
 constexpr int pad_to(int a, int b, int m) { return ((b - a % m) % m + m) % m; }
+// The least pitch >= n (elements) of a Fourier column of the products' B
+// operand that puts a warp's loads (four k rows at once) on distinct banks:
+// 8 or 24 mod 32 words in float, 4 or 12 mod 16 doubles in double.
+constexpr int mma_pitch(int n, bool f64) {
+  const int m = f64 ? 16 : 32, a = f64 ? 4 : 8, b = f64 ? 12 : 24;
+  while (n % m != a && n % m != b) ++n;
+  return n;
+}
+// The fewest latitude pairs an item of the warp-specialised inverse's
+// Legendre stage sums (a divisor of iy) so that its k m pairs x 2 n
+// parities x iy / svw items take at most `threads` threads.
+constexpr int leg_svw(int iy, int k, int threads) {
+  int svw = 1;
+  while (svw < iy && (iy % svw != 0 || k * (iy / svw) * 2 > threads)) ++svw;
+  return svw;
+}
 
 // The wavenumbers of a block: block r of a cluster owns the k lowest m from
 // r k and their mirrors mx - 1 - m, whose triangle rows together hold
@@ -176,15 +197,12 @@ struct Plan {
   static constexpr int NT = NPAD / 8;                      // n tiles
   static constexpr int KS = F64 ? 4 : 8;                   // MMA depth
   static constexpr int VW = 16 / static_cast<int>(sizeof(T));   // a 16-byte vector
-  // Pitches, in elements, that put the B fragments' loads on distinct banks:
-  // a grid row GP = 4 mod 32 words (float) / 4 mod 16 doubles, a Fourier
-  // column FP = 8 mod 32 / 4 mod 16.
+  // The pitch, in elements, of a grid row that puts the B fragments' loads
+  // on distinct banks: 4 mod 32 words (float) / 4 mod 16 doubles.
   static constexpr int GP = S::IX + pad_to(S::IX, 4, F64 ? 16 : 32);
-  static constexpr int FP = NPAD + pad_to(NPAD, F64 ? 4 : 8, F64 ? 16 : 32);
   static constexpr int MT_DIR = S::COLS / 16;              // column tiles of a parity
   static constexpr int MT_INV = (S::IH + 15) / 16;         // longitude tiles
   static constexpr int DIR_THREADS = 2 * 32 * MT_DIR;      // a warp a (parity, tile)
-  static constexpr int INV_THREADS = 2 * 32 * MT_INV;      // a warp a (tile, parity)
   static constexpr int KS_DIR = S::IH / KS, KS_INV = S::COLS / KS;
   // Direct: the block's Legendre table (il/2 / VW, ENT, VW), the Fourier
   // values it receives (2 buffers, R rows, MS, c, sum / difference, il/2),
@@ -199,35 +217,46 @@ struct Plan {
           ? 2 : 1;
   static constexpr int D_GRID = GBUF * D_ROWS;
   static constexpr size_t DIR_SMEM = sizeof(T) * (D_SL + D_XIN + D_GRID);
-  // Inverse: the block's table (ENT, il/2), its spectral values (2 buffers,
-  // R rows, c, MS, n parity, NH: the even n, then the odd ones, each run
-  // padded to whole 16-byte vectors), the band's Fourier values (2 buffers,
-  // parity, COLS, FP).
-  static constexpr int NH = ((S::NX + 1) / 2 + VW - 1) / VW * VW;
-  static constexpr int PROW = 2 * MS * 2 * NH;
-  static constexpr int I_SL = ENT * S::IY, I_P = 2 * R * PROW, I_FIN = 4 * S::COLS * FP;
-  // A row's even and odd sums Pe, Po staged in the used Fourier buffer
-  // before g = Pe +- Po is stored in 16-byte vectors: (parity, NB, SPH), the
-  // pitch SPH = 4 mod 16 so a warp's scattered writes miss each other's banks.
-  static constexpr int SPH = S::IH + pad_to(S::IH, 4, 16);
-  static constexpr size_t INV_SMEM = sizeof(T) * (I_SL + I_P + I_FIN);
   // Blocks an SM holds by their shared memory (1 KB of each is the system's),
   // the registers' budget of __launch_bounds__.
   static constexpr int DIR_MINB = 2 * (DIR_SMEM + 1024) <= 233472 ? 2 : 1;
-  static constexpr int INV_MINB = 2 * (INV_SMEM + 1024) <= 233472 && INV_THREADS <= 256 ? 2 : 1;
-  // The inverse Legendre stage's items: (m pair, SVW pairs, n parity), about
-  // one a thread.
-  static constexpr int SVW = (F64 && S::IL == 96) ? 1 : 2;
-  static constexpr int ITEMS = K * (S::IY / SVW) * 2;
-  // The inverse design a call runs, as the entry's kind: 2, the cluster
-  // kernel, at T63 in double; 1, the pair of kernels below, elsewhere, where
-  // the cluster kernel measured slower on an H100 (PERF.md).
-  static constexpr int INVERSE = (F64 && S::IL == 96) ? 2 : 1;
+  // Inverse (hires_inverse_ws_kernel): INV_DFT_WARPS warps of the DFT, a
+  // (parity, 16 longitudes) tile each, and INV_LEG_WARPS warps of the
+  // Legendre stage, one item (m pair, INV_SVW latitude pairs, n parity) a
+  // thread. INV_R rows a cluster step (4 at T47 in float, where they fit,
+  // else 2); MMA columns (pair, row, hemisphere: a pair's 2 INV_R values
+  // contiguous) and n tiles; the Fourier column pitch (mma_pitch). Its
+  // shared memory: the block's table (ENT, il/2), its spectral values (2
+  // buffers, INV_R rows, c, MS, n parity, NH: the even n, then the odd ones,
+  // each run padded to whole 16-byte vectors), the band's Fourier values (2
+  // buffers, parity, COLS, INV_FP), INV_SR rows' Pe and Po staged for the
+  // stores (by longitude tile: row, parity, NB, INV_LP) and the band's
+  // 1/cos(lat).
+  static constexpr int INV_DFT_WARPS = 2 * MT_INV, INV_LEG_WARPS = 4;
+  static constexpr int INV_THREADS = 32 * (INV_DFT_WARPS + INV_LEG_WARPS);
+  static constexpr int INV_SVW = leg_svw(S::IY, K, 32 * INV_LEG_WARPS);
+  static constexpr int INV_ITEMS = K * (S::IY / INV_SVW) * 2;
+  static constexpr int INV_R = (S::IL == 72 && !F64) ? 4 : 2;
+  static constexpr int INV_NPAD = (INV_R * NB + 7) / 8 * 8, INV_NT = INV_NPAD / 8;
+  static constexpr int INV_FP = mma_pitch(INV_NPAD, F64);
+  static constexpr int NH = ((S::NX + 1) / 2 + VW - 1) / VW * VW;
+  static constexpr int PROW = 2 * MS * 2 * NH;
+  static constexpr int I_SL = ENT * S::IY, I_P = 2 * INV_R * PROW, I_FIN = 4 * S::COLS * INV_FP;
+  static constexpr int INV_LP = 16 + (F64 ? 2 : 4);
+  static constexpr size_t inv_smem(int sr) {
+    return sizeof(T) * (I_SL + I_P + I_FIN + MT_INV * sr * 2 * NB * INV_LP + NB);
+  }
+  // Rows staged at once: the step's where they fit, else one.
+  static constexpr int INV_SR = inv_smem(INV_R) <= kSmemLimit ? INV_R : 1;
+  static constexpr int I_STAGE = MT_INV * INV_SR * 2 * NB * INV_LP;
+  static constexpr size_t INV_SMEM = inv_smem(INV_SR);
   static_assert(S::IY % C == 0 && S::IY % VW == 0 && S::MX % (2 * C) == 0, "bands and slices");
   static_assert(S::IH % KS == 0 && S::COLS % KS == 0, "MMA depth");
   static_assert(DIR_SMEM <= kSmemLimit && INV_SMEM <= kSmemLimit, "shared memory of a block");
-  static_assert(2 * NB * SPH <= 2 * S::COLS * FP && (SPH * sizeof(T)) % 16 == 0, "a staged row");
-  static_assert(S::IY % SVW == 0 && S::IH % VW == 0, "items and vectors");
+  static_assert(S::IH % VW == 0, "vectors of a row");
+  static_assert(INV_ITEMS <= 32 * INV_LEG_WARPS && S::IY % INV_SVW == 0, "Legendre items");
+  static_assert((I_SL + I_P) % VW == 0 && INV_FP % VW == 0 && (2 * INV_R) % VW == 0,
+                "16-byte vectors of a pair's Fourier values");
 };
 
 struct Segment {
@@ -246,6 +275,11 @@ struct Group {
   int nseg;
   const void* tables;     // ops/spectral.py::_fold_tables, this direction's
   const void* scale;      // inverse: 1/cos(lat) (il,)
+};
+
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
 };
 
 template <typename T, int N>
@@ -285,19 +319,15 @@ __device__ __forceinline__ int find_segment(const Group& g, long long r) {
 
 // The input of row lr of segment s (elements of its (il, ix) grid or of its
 // real part), and the output, the row split into member and row of the
-// member in the index type I. The cluster kernels split it in int (a group
-// holds fewer than 2^31 rows: read_group checks); the inverse pair in 64
-// bits, as it was first built: with the int split nvcc interleaves the
-// Legendre kernel's shared loads with its FFMAs in the n loop, and in float
-// that kernel ran up to a quarter slower (PERF.md).
-template <typename T, typename I = int>
+// member in int (a group holds fewer than 2^31 rows: read_group checks).
+template <typename T>
 __device__ __forceinline__ const T* row_in(const Segment& s, long long lr) {
-  const I r = static_cast<I>(lr), b = r / s.per_member, kk = r - b * s.per_member;
+  const int r = static_cast<int>(lr), b = r / s.per_member, kk = r - b * s.per_member;
   return static_cast<const T*>(s.in) + b * s.in_member + kk * s.in_row;
 }
-template <typename T, typename I = int>
+template <typename T>
 __device__ __forceinline__ T* row_out(const Segment& s, long long lr) {
-  const I r = static_cast<I>(lr), b = r / s.per_member, kk = r - b * s.per_member;
+  const int r = static_cast<int>(lr), b = r / s.per_member, kk = r - b * s.per_member;
   return static_cast<T*>(s.out) + b * s.out_member + kk * s.out_row;
 }
 
@@ -344,6 +374,31 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
+// x split for 3xTF32 by integer arithmetic on its bits (no cvt): hi = x
+// rounded to TF32 (to nearest, ties away, as cvt.rna), lo = x - hi (exact in
+// float) with its low 13 bits dropped.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+// The two halves of a cluster barrier, each thread alternating them: arrive
+// (release: this thread's stores, remote ones too, before it) and wait
+// (acquire: until every thread of the cluster has arrived).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+// arrive without release: for a thread whose stores others need not see.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+// Barrier `id` (not 0, __syncthreads' own) over `count` threads of the block,
+// whole warps.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
 // D += A . B on the FP64 tensor cores, m16n8k4: a0 = A[g][t], a1 = A[g+8][t],
 // b = B[t][g]; d as above.
 __device__ __forceinline__ void mma_f64(double (&d)[4], double a0, double a1, double b) {
@@ -384,17 +439,23 @@ struct AFrags<double, K> {
 // acc[nt] += A(k step ks) . B[nt] for the NT n tiles, B[nt] given by this
 // lane's values b0[nt], b1[nt] (b1 unused in double). A tile's three 3xTF32
 // products add in the order lo.hi, hi.lo, hi.hi; the tiles interleave, so
-// consecutive products are independent.
-template <int NT, int K>
+// consecutive products are independent. B is split by cvt.rna, or with
+// SPLIT by split_tf32.
+template <int NT, int K, bool SPLIT = false>
 __device__ __forceinline__ void mma_step(float (&acc)[NT][4], const AFrags<float, K>& a, int ks,
                                          const float (&b0)[NT], const float (&b1)[NT]) {
   uint32_t bh[NT][2], bl[NT][2];
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) {
-    bh[nt][0] = tf32_rna(b0[nt]);
-    bh[nt][1] = tf32_rna(b1[nt]);
-    bl[nt][0] = tf32_rna(b0[nt] - __uint_as_float(bh[nt][0]));
-    bl[nt][1] = tf32_rna(b1[nt] - __uint_as_float(bh[nt][1]));
+    if constexpr (SPLIT) {
+      split_tf32(b0[nt], bh[nt][0], bl[nt][0]);
+      split_tf32(b1[nt], bh[nt][1], bl[nt][1]);
+    } else {
+      bh[nt][0] = tf32_rna(b0[nt]);
+      bh[nt][1] = tf32_rna(b1[nt]);
+      bl[nt][0] = tf32_rna(b0[nt] - __uint_as_float(bh[nt][0]));
+      bl[nt][1] = tf32_rna(b1[nt] - __uint_as_float(bh[nt][1]));
+    }
   }
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) mma_tf32(acc[nt], a.lo[ks], bh[nt]);
@@ -403,7 +464,7 @@ __device__ __forceinline__ void mma_step(float (&acc)[NT][4], const AFrags<float
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt) mma_tf32(acc[nt], a.hi[ks], bh[nt]);
 }
-template <int NT, int K>
+template <int NT, int K, bool SPLIT = false>
 __device__ __forceinline__ void mma_step(double (&acc)[NT][4], const AFrags<double, K>& a, int ks,
                                          const double (&b0)[NT], const double (&)[NT]) {
 #pragma unroll
@@ -633,16 +694,43 @@ hires_direct_cluster_kernel(const __grid_constant__ Group g, long long rows) {
 }
 
 // ---------------------------------------------------------------------------
-// Inverse transform: spectral pairs -> grid rows
+// Inverse transform: spectral pairs -> grid rows, the direct kernel's
+// decomposition with its two stages on different warps and steps
 // ---------------------------------------------------------------------------
+// The Legendre warps of every block compute step u + 1's Fourier values
+// while the DFT warps transform step u's: F goes into the band owner's
+// buffer u % 2, and the cluster barrier's two halves order the buffers. Phase u completes once every Legendre thread
+// has stored F of step u (it arrives, with release, after its stores) and
+// every DFT thread has read F of step u - 1 (it arrives, relaxed, right
+// after its products, before it stages and stores that step's rows); a
+// Legendre thread waits for phase u before it stores F of step u + 1 into
+// buffer (u + 1) % 2, which step u - 1 was the last to read. Each half of
+// the block keeps its own named barrier: the Legendre warps stage their
+// spectral values by cp.async (two buffers, the next step's in flight), the
+// DFT warps stage a row's Pe and Po in an area of their own before the
+// 16-byte stores. The Legendre sums run in whole vectors of n without a
+// test while they can (the rest with one), so their loads issue ahead of
+// the multiply-adds; each step's spectral values are copied for the
+// triangle only (n < nx - m), each thread its own fixed entries. The B
+// operands of the float products are split by integer arithmetic
+// (split_tf32), not by cvt. An inverse on clusters with one thread role and
+// one cluster barrier a step measured slower than a pair of kernels with a
+// scratch in float; on an H100 (clock64 spans of scratch builds, PERF.md)
+// this design's steps were first bound by Legendre sums that kept their
+// partial sums in local memory (indexed by the n parity), then by 4-byte
+// copies of every (m, n) of the slice, then by the DFT warps' stores; what
+// is above is what removed each.
 template <class S, typename T>
-__global__ void __launch_bounds__(Plan<S, T>::INV_THREADS, Plan<S, T>::INV_MINB)
-hires_inverse_cluster_kernel(const __grid_constant__ Group g, long long rows) {
+__global__ void __launch_bounds__(Plan<S, T>::INV_THREADS, 1)
+hires_inverse_ws_kernel(const __grid_constant__ Group g, long long rows) {
   using P = Plan<S, T>;
-  constexpr int C = P::C, K = P::K, MS = P::MS, NP = P::NP, NB = P::NB, R = P::R;
-  constexpr int NT = P::NT, KS = P::KS, VW = P::VW, SVW = P::SVW, FP = P::FP, PROW = P::PROW;
-  constexpr int ENT = P::ENT, THREADS = P::INV_THREADS, KSTEPS = P::KS_INV, SPH = P::SPH;
+  constexpr int C = P::C, K = P::K, MS = P::MS, NP = P::NP, NB = P::NB, R = P::INV_R;
+  constexpr int NT = P::INV_NT, KS = P::KS, VW = P::VW, SVW = P::INV_SVW, FP = P::INV_FP;
+  constexpr int PROW = P::PROW, ENT = P::ENT, KSTEPS = P::KS_INV;
+  constexpr int ND = 32 * P::INV_DFT_WARPS, NL = 32 * P::INV_LEG_WARPS;
   constexpr int PG = S::IY / SVW;   // items of pairs
+  constexpr int LP = P::INV_LP;        // a staged slot's pitch
+  constexpr int kLegBar = 1, kTileBar = 2;   // + the tile: the DFT warps of a tile
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const long long cid = blockIdx.x / C, ncl = gridDim.x / C;
@@ -651,82 +739,176 @@ hires_inverse_cluster_kernel(const __grid_constant__ Group g, long long rows) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sL = reinterpret_cast<T*>(smem_raw);   // (ENT, il/2)
   T* sP = sL + P::I_SL;                     // (2, R, c, MS, n parity, NH)
-  T* fin = sP + P::I_P;                     // (2, parity, COLS, FP): slot NB rr + 2 pp + hemisphere
+  T* fin = sP + P::I_P;                   // (2, parity, COLS, FP): slot NB rr + 2 pp + hemisphere
+  T* stage = fin + P::I_FIN;              // (tile, row, parity, NB, LP): Pe, Po
+  T* band_scale = stage + P::I_STAGE;       // (NB): 1/cos(lat) of the band's slots
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, tq = lane & 3;
   const int p0 = rank * NP;
   const int t_lo = tri_offset(rank * K, S::NX), t_hi = tri_offset(S::MX - (rank + 1) * K, S::NX);
   const int e_lo = tri_offset((rank + 1) * K, S::NX) - t_lo;
 
-  // This warp's tile: parity par, longitudes i_a = 16 mt + g and i_a + 8;
-  // A[i][col] = dft_inv[par][col][i], 0 past ix/2.
-  const int par = warp / P::MT_INV, mt = warp - par * P::MT_INV;
-  const int ia = 16 * mt + gq;
-  const T* dinv = static_cast<const T*>(g.tables) + S::LEG + par * S::COLS * S::IH;
-  auto at = [&](int k, int i) -> T { return i < S::IH ? dinv[k * S::IH + i] : T(0); };
-  AFrags<T, KSTEPS> a;
-#pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-    const int k = ks * KS + tq;
-    if constexpr (sizeof(T) == 4)
-      a.set(ks, at(k, ia), at(k, ia + 8), at(k + 4, ia), at(k + 4, ia + 8));
-    else
-      a.set(ks, at(k, ia), at(k, ia + 8), T(0), T(0));
-  }
-
   // The block's Legendre table, resident as (entry, pair); both Fourier
-  // buffers zero (the pad slots stay so).
+  // buffers zero (the pad slots stay so); every block of the cluster runs
+  // before any remote store.
   const T* leg = static_cast<const T*>(g.tables);   // (il/2, triangle)
-  for (int idx = tid; idx < ENT * S::IY; idx += THREADS) {
+  for (int idx = tid; idx < ENT * S::IY; idx += P::INV_THREADS) {
     const int p = idx / ENT, el = idx - p * ENT;
     sL[el * S::IY + p] = leg[p * S::TRI + (el < e_lo ? t_lo + el : t_hi + el - e_lo)];
   }
-  for (int idx = tid; idx < P::I_FIN; idx += THREADS) fin[idx] = T(0);
+  for (int idx = tid; idx < P::I_FIN; idx += P::INV_THREADS) fin[idx] = T(0);
+  for (int q = tid; q < NB; q += P::INV_THREADS) {
+    const int pp = q >> 1;
+    band_scale[q] = static_cast<const T*>(g.scale)[(q & 1) ? S::IL - 1 - (p0 + pp) : p0 + pp];
+  }
+  cluster.sync();
 
-  // The block's spectral values of a unit's rows: for c = 0 and 1, the K low
-  // m and the K mirrors, all n, split by the parity of n.
-  auto issue = [&](long long unit, int buf) {
+  if (warp < P::INV_DFT_WARPS) {
+    // --- The DFT warps: this warp's tile, parity par, longitudes i_a =
+    // 16 mt + g and i_a + 8; A[i][col] = dft_inv[par][col][i], 0 past ix/2.
+    const int gq = lane >> 2, tq = lane & 3;
+    const int par = warp / P::MT_INV, mt = warp - par * P::MT_INV;
+    const int ia = 16 * mt + gq;
+    const T* dinv = static_cast<const T*>(g.tables) + S::LEG + par * S::COLS * S::IH;
+    auto at = [&](int k, int i) -> T { return i < S::IH ? dinv[k * S::IH + i] : T(0); };
+    AFrags<T, KSTEPS> a;
 #pragma unroll
-    for (int rr = 0; rr < R; ++rr) {
-      const long long row = unit * R + rr;
-      if (row >= rows) break;
-      const Segment& s = g.seg[find_segment(g, row)];
-      const T* src = row_in<T>(s, row - s.first);
-      T* dst = sP + (buf * R + rr) * PROW;
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      const int k = ks * KS + tq;
+      if constexpr (sizeof(T) == 4)
+        a.set(ks, at(k, ia), at(k, ia + 8), at(k + 4, ia), at(k + 4, ia + 8));
+      else
+        a.set(ks, at(k, ia), at(k, ia + 8), T(0), T(0));
+    }
+    T* tstage = stage + mt * P::INV_SR * 2 * NB * LP;   // this tile's (row, parity, slot, LP)
+    long long unit = cid;
+    if (unit < units) cluster_arrive_relaxed();   // phase 0: no step read yet
+    for (int s = 0; unit < units; unit += ncl, s ^= 1) {
+      cluster_wait();     // every block's Fourier values of this step are in
+      // The folded inverse DFT of the band, this warp's parity:
+      // P_par[i][slot] = sum_col A[i][col] F[col][slot].
+      const T* fs = fin + (s * 2 + par) * S::COLS * FP;
+      T acc[NT][4];
 #pragma unroll
-      for (int cr = 0; cr < 4; ++cr) {
-        const int c = cr >> 1, hi = cr & 1;
-        const T* from = src + c * s.in_pair + (hi ? S::MX - (rank + 1) * K : rank * K) * S::NX;
-        T* to = dst + (c * MS + hi * K) * 2 * P::NH;
-        for (int i = tid; i < K * S::NX; i += THREADS) {
-          const int mm = i / S::NX, n = i - mm * S::NX;
-          cp_async_elem(to + (mm * 2 + (n & 1)) * P::NH + (n >> 1), from + i);
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[nt][q] = T(0);
+#pragma unroll
+      for (int ks = 0; ks < KSTEPS; ++ks) {
+        T b0[NT], b1[NT];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const T* b = fs + (ks * KS + tq) * FP + nt * 8 + gq;
+          b0[nt] = b[0];
+          b1[nt] = T(0);
+          if constexpr (sizeof(T) == 4) b1[nt] = b[4 * FP];
+        }
+        mma_step<NT, KSTEPS, true>(acc, a, ks, b0, b1);
+      }
+      // Done with this step's Fourier values (the next phase, if any).
+      if (unit + ncl < units) cluster_arrive_relaxed();
+      // SR rows at a time (all of the step's where they fit), the two warps
+      // of this longitude tile (both parities) alone: Pe and Po staged as
+      // (row, parity, slot, longitude of the tile); then g[i] = Pe + Po,
+      // g[i + ix/2] = Pe - Po, scaled where the field's flag says so, as
+      // 16-byte vectors.
+      constexpr int SR = P::INV_SR, CH = 16 / VW;   // CH: vectors of a tile's longitudes
+#pragma unroll
+      for (int r0 = 0; r0 < R; r0 += SR) {
+        if (unit * R + r0 >= rows) break;
+        named_sync(kTileBar + mt, 64);   // the last rows are stored
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          // MMA column n0 (and n0 + 1): pair n0 / 2R, row (n0 % 2R) / 2,
+          // the south (and north) hemisphere.
+          const int n0 = nt * 8 + 2 * tq, pp = n0 / (2 * R), rs = (n0 - pp * 2 * R) / 2 - r0;
+          if (pp >= NP || rs < 0 || rs >= SR) continue;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int i = gq + 8 * (q >> 1);
+            if (ia + 8 * (q >> 1) < S::IH)
+              tstage[((rs * 2 + par) * NB + 2 * pp + (q & 1)) * LP + i] = acc[nt][q];
+          }
+        }
+        named_sync(kTileBar + mt, 64);
+        for (int q = lane + 32 * par; q < SR * NB * CH; q += 64) {
+          const int rs = q / (NB * CH), slot = q / CH - rs * NB;
+          const int iv = (q - (q / CH) * CH) * VW, pp = slot >> 1, i = 16 * mt + iv;
+          const long long row = unit * R + r0 + rs;
+          if (i >= S::IH || row >= rows) continue;
+          const Segment& sg = g.seg[find_segment(g, row)];
+          T* out = row_out<T>(sg, row - sg.first);
+          const int lat = (slot & 1) ? S::IL - 1 - (p0 + pp) : p0 + pp;
+          const T* st = tstage + (rs * 2 * NB + slot) * LP + iv;
+          const Vec<T, VW> pe = load_vec<T, VW>(st);
+          const Vec<T, VW> po = load_vec<T, VW>(st + NB * LP);
+          Vec<T, VW> x, y;
+#pragma unroll
+          for (int v = 0; v < VW; ++v) {
+            x.v[v] = pe.v[v] + po.v[v];
+            y.v[v] = pe.v[v] - po.v[v];
+          }
+          if (sg.flag) {
+            const T sc = band_scale[slot];
+#pragma unroll
+            for (int v = 0; v < VW; ++v) {
+              x.v[v] = x.v[v] * sc;
+              y.v[v] = y.v[v] * sc;
+            }
+          }
+          *reinterpret_cast<Vec<T, VW>*>(out + lat * S::IX + i) = x;
+          *reinterpret_cast<Vec<T, VW>*>(out + lat * S::IX + S::IH + i) = y;
         }
       }
     }
-  };
-
-  cluster.sync();   // every block of the cluster runs before any remote store
-  long long unit = cid;
-  if (unit < units) issue(unit, 0);
-  cp_async_commit();
-  for (int s = 0; unit < units; unit += ncl, s ^= 1) {
-    cp_async_wait_all();
-    __syncthreads();
-    if (unit + ncl < units) issue(unit + ncl, s ^ 1);
+  } else {
+    // --- The Legendre warps: thread lt takes item lt (m pair jl, SVW
+    // pairs pg, n parity).
+    const int lt = tid - ND;
+    // The block's spectral values of a unit's rows: for c = 0 and 1, its
+    // triangle entries (the K low m and the K mirrors, n < nx - m) split by
+    // the parity of n. This thread's entries lt, lt + NL, ... are the same
+    // every step: their offsets in a part of a row (m nx + n) and in its
+    // staged part ((local m, parity) run, n / 2), -1 past the block's.
+    constexpr int EPT = (ENT + NL - 1) / NL;
+    int soff[EPT], doff[EPT];
+#pragma unroll
+    for (int u = 0; u < EPT; ++u) {
+      const int el = lt + u * NL;
+      const int e = el < e_lo ? t_lo + el : t_hi + el - e_lo;
+      const int m = el < ENT ? m_of_entry(e, S::NX) : 0, n = e - tri_offset(m, S::NX);
+      soff[u] = el < ENT ? m * S::NX + n : -1;
+      doff[u] = (local_of(m, K, S::MX) * 2 + (n & 1)) * P::NH + (n >> 1);
+    }
+    auto issue = [&](long long unit, int buf) {
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr) {
+        const long long row = unit * R + rr;
+        if (row >= rows) break;
+        const Segment& s = g.seg[find_segment(g, row)];
+        const T* src = row_in<T>(s, row - s.first);
+        T* dst = sP + (buf * R + rr) * PROW;
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+#pragma unroll
+          for (int u = 0; u < EPT; ++u)
+            if (soff[u] >= 0)
+              cp_async_elem(dst + c * MS * 2 * P::NH + doff[u], src + c * s.in_pair + soff[u]);
+      }
+    };
+    const bool act = lt < P::INV_ITEMS;
+    const int npar = lt & 1, rest = act ? lt >> 1 : 0;
+    const int jl = rest / PG, pg = rest - jl * PG;
+    long long unit = cid;
+    if (unit < units) issue(unit, 0);
     cp_async_commit();
-
-    // The Legendre sums: an item is (m pair jl, SVW pairs pg, n parity); its
-    // thread sums E (even n) or O (odd n) over the low m and then over its
-    // mirror, for both rows and parts, swaps them with the other parity's
-    // thread, and stores part c = its parity of F south = E + O and north =
-    // E - O into the band owner's buffer s (0 for the imaginary part of m = 0).
-    const T* ps = sP + s * R * PROW;
-    for (int base = 0; base < P::ITEMS; base += THREADS) {
-      const int it = base + tid;
-      const bool act = it < P::ITEMS;
-      const int npar = it & 1, rest = act ? it >> 1 : 0;
-      const int jl = rest / PG, pg = rest - jl * PG;
+    int steps = 0;
+    for (int s = 0; unit < units; unit += ncl, s ^= 1, ++steps) {
+      cp_async_wait_all();
+      named_sync(kLegBar, NL);   // this step's values are in; last step's buffer is read
+      if (unit + ncl < units) issue(unit + ncl, s ^ 1);
+      cp_async_commit();
+      if (steps > 0) cluster_wait();   // the DFT warps are done with buffer s
+      const T* ps = sP + s * R * PROW;
 #pragma unroll
       for (int side = 0; side < 2; ++side) {
         const int ml = side ? 2 * K - 1 - jl : jl;
@@ -744,7 +926,9 @@ hires_inverse_cluster_kernel(const __grid_constant__ Group g, long long rows) {
         // spectral values as vectors, the last step masked).
         const int cnt = (S::NX - m - npar + 1) / 2;
         const T* pj = ps + (ml * 2 + npar) * P::NH;
-        for (int j = 0; j < cnt; j += VW) {
+        // VW terms from n = 2 j + npar on, all of them (a true Flag) or those
+        // below cnt.
+        auto terms = [&](int j, auto full) {
           Vec<T, VW> pv[R][2];
 #pragma unroll
           for (int rr = 0; rr < R; ++rr)
@@ -753,15 +937,24 @@ hires_inverse_cluster_kernel(const __grid_constant__ Group g, long long rows) {
               pv[rr][c] = load_vec<T, VW>(pj + rr * PROW + c * MS * 2 * P::NH + j);
 #pragma unroll
           for (int u = 0; u < VW; ++u) {
-            if (j + u < cnt) {
+            if (decltype(full)::value || j + u < cnt) {
               const T* lr = l + (2 * (j + u) + npar) * S::IY;
               T lv[SVW];
-              if constexpr (SVW == 2) {
-                const Vec<T, 2> l2 = load_vec<T, 2>(lr);
-                lv[0] = l2.v[0];
-                lv[SVW - 1] = l2.v[1];
+              if constexpr (SVW % 4 == 0 && sizeof(T) == 4) {
+#pragma unroll
+                for (int v = 0; v < SVW; v += 4) {
+                  const Vec<T, 4> l4 = load_vec<T, 4>(lr + v);
+                  lv[v] = l4.v[0]; lv[v + 1] = l4.v[1]; lv[v + 2] = l4.v[2]; lv[v + 3] = l4.v[3];
+                }
+              } else if constexpr (SVW % 2 == 0) {
+#pragma unroll
+                for (int v = 0; v < SVW; v += 2) {
+                  const Vec<T, 2> l2 = load_vec<T, 2>(lr + v);
+                  lv[v] = l2.v[0]; lv[v + 1] = l2.v[1];
+                }
               } else {
-                lv[0] = lr[0];
+#pragma unroll
+                for (int v = 0; v < SVW; ++v) lv[v] = lr[v];
               }
 #pragma unroll
               for (int rr = 0; rr < R; ++rr)
@@ -771,382 +964,45 @@ hires_inverse_cluster_kernel(const __grid_constant__ Group g, long long rows) {
                   for (int v = 0; v < SVW; ++v) acc[rr][c][v] += lv[v] * pv[rr][c].v[u];
             }
           }
-        }
-        // This thread keeps part c = npar: E and O of it.
-        T e[R][SVW], o[R][SVW];
-#pragma unroll
-        for (int rr = 0; rr < R; ++rr)
-#pragma unroll
-          for (int v = 0; v < SVW; ++v) {
-            const T mine = acc[rr][npar][v];
-            const T theirs = __shfl_xor_sync(0xffffffffu, acc[rr][npar ^ 1][v], 1);
-            e[rr][v] = npar ? theirs : mine;
-            o[rr][v] = npar ? mine : theirs;
-          }
-        if (!act) continue;
+        };
+        int j = 0;
+        for (; j + VW <= cnt; j += VW) terms(j, Flag<true>{});
+        if (j < cnt) terms(j, Flag<false>{});
+        // This thread keeps part c = npar: E and O of it, its partner lane
+        // (the other parity) the other part.
         const bool discard = m == 0 && npar == 1;   // the imaginary part of m = 0
         const int col = ((s * 2 + (m & 1)) * S::COLS + npar * S::H + (m >> 1)) * FP;
 #pragma unroll
-        for (int rr = 0; rr < R; ++rr) {
-          T f[2 * SVW];
+        for (int v = 0; v < SVW; ++v) {
+          // Pair p's 2 R slots (row, hemisphere) are contiguous in the
+          // owner's column: whole 16-byte vectors.
+          T f[2 * R];
 #pragma unroll
-          for (int v = 0; v < SVW; ++v) {
-            f[2 * v] = discard ? T(0) : e[rr][v] + o[rr][v];
-            f[2 * v + 1] = discard ? T(0) : e[rr][v] - o[rr][v];
+          for (int rr = 0; rr < R; ++rr) {
+            // (selected, not indexed by npar: acc stays in registers)
+            const T a0 = acc[rr][0][v], a1 = acc[rr][1][v];
+            const T mine = npar ? a1 : a0;
+            const T theirs = __shfl_xor_sync(0xffffffffu, npar ? a0 : a1, 1);
+            const T e = npar ? theirs : mine, o = npar ? mine : theirs;
+            f[2 * rr] = discard ? T(0) : e + o;
+            f[2 * rr + 1] = discard ? T(0) : e - o;
           }
-          if constexpr (SVW == 2 && sizeof(T) == 4 && NP % 2 == 0 && NB % 4 == 0) {
-            // Two pairs of one band: four slots as one 16-byte vector.
-            const int p = pg * SVW, b = p / NP, pp = p - b * NP;
-            T* d = cluster.map_shared_rank(fin, b) + col + rr * NB + 2 * pp;
-            *reinterpret_cast<Vec<T, 4>*>(d) = Vec<T, 4>{{f[0], f[1], f[2], f[3]}};
-          } else {
+          const int p = pg * SVW + v, b = p / NP, pp = p - b * NP;
+          if (act) {
+            T* d = cluster.map_shared_rank(fin, b) + col + pp * 2 * R;
 #pragma unroll
-            for (int v = 0; v < SVW; ++v) {
-              const int p = pg * SVW + v, b = p / NP, pp = p - b * NP;
-              T* d = cluster.map_shared_rank(fin, b) + col + rr * NB + 2 * pp;
-              *reinterpret_cast<Vec<T, 2>*>(d) = Vec<T, 2>{{f[2 * v], f[2 * v + 1]}};
+            for (int q = 0; q < 2 * R; q += VW) {
+              Vec<T, VW> x;
+#pragma unroll
+              for (int w = 0; w < VW; ++w) x.v[w] = f[q + w];
+              *reinterpret_cast<Vec<T, VW>*>(d + q) = x;
             }
           }
         }
       }
+      cluster_arrive();   // this step's Fourier values are stored
     }
-    cluster.sync();   // every block's Fourier values of these rows have arrived
-
-    // The folded inverse DFT of the band, this warp's parity:
-    // P_par[i][slot] = sum_col A[i][col] F[col][slot].
-    const T* fs = fin + (s * 2 + par) * S::COLS * FP;
-    T acc[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[nt][q] = T(0);
-#pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks) {
-      T b0[NT], b1[NT];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const T* b = fs + (ks * KS + tq) * FP + nt * 8 + gq;
-        b0[nt] = b[0];
-        b1[nt] = T(0);
-        if constexpr (sizeof(T) == 4) b1[nt] = b[4 * FP];
-      }
-      mma_step(acc, a, ks, b0, b1);
-    }
-    // One row at a time: Pe and Po staged as (parity, slot, longitude) in the
-    // used Fourier buffer; then g[i] = Pe + Po, g[i + ix/2] = Pe - Po, scaled
-    // where the field's flag says so, stored as 16-byte vectors.
-    const T* scale = static_cast<const T*>(g.scale);
-    T* stage = fin + s * 2 * S::COLS * FP;
-#pragma unroll
-    for (int rr = 0; rr < R; ++rr) {
-      const long long row = unit * R + rr;
-      if (row >= rows) break;
-      __syncthreads();   // the products have read the buffer, or the last row is stored
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int n0 = nt * 8 + 2 * tq;
-        if (n0 < rr * NB || n0 >= (rr + 1) * NB) continue;
-        const int slot = n0 - rr * NB;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int i = ia + 8 * (q >> 1);
-          if (i < S::IH) stage[(par * NB + slot + (q & 1)) * SPH + i] = acc[nt][q];
-        }
-      }
-      __syncthreads();
-      const Segment& sg = g.seg[find_segment(g, row)];
-      T* out = row_out<T>(sg, row - sg.first);
-      constexpr int CH = S::IH / VW;
-      for (int q = tid; q < NB * CH; q += THREADS) {
-        const int slot = q / CH, i = (q - slot * CH) * VW, pp = slot >> 1;
-        const int lat = (slot & 1) ? S::IL - 1 - (p0 + pp) : p0 + pp;
-        const Vec<T, VW> pe = load_vec<T, VW>(stage + slot * SPH + i);
-        const Vec<T, VW> po = load_vec<T, VW>(stage + (NB + slot) * SPH + i);
-        Vec<T, VW> x, y;
-#pragma unroll
-        for (int v = 0; v < VW; ++v) {
-          x.v[v] = pe.v[v] + po.v[v];
-          y.v[v] = pe.v[v] - po.v[v];
-        }
-        if (sg.flag) {
-          const T sc = scale[lat];
-#pragma unroll
-          for (int v = 0; v < VW; ++v) {
-            x.v[v] = x.v[v] * sc;
-            y.v[v] = y.v[v] * sc;
-          }
-        }
-        *reinterpret_cast<Vec<T, VW>*>(out + lat * S::IX + i) = x;
-        *reinterpret_cast<Vec<T, VW>*>(out + lat * S::IX + S::IH + i) = y;
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The inverse where the cluster kernel measured slower (the plan's "pair",
-// the wrapper's choice): two kernels with the Fourier intermediate in a
-// scratch the wrapper allocates, mx * 4 * (il/2) values a row. hires_leg_inv_kernel: persistent
-// blocks over row pairs, 8 slices of m balanced by triangle entries, the
-// slice's Legendre rows in shared memory as (m, n, j); a thread keeps 4
-// latitudes x 2 rows x 2 parts of the even and odd partial sums E, O and
-// writes F[j] = E + O, F[il-1-j] = E - O to X[row, m, c, hemisphere, j] (0 for
-// the imaginary part of m = 0). hires_dft_inv_kernel: persistent blocks over
-// items (row, 12 latitude pairs), the folded inverse DFT table resident, the
-// item's Fourier coefficients copied by cp.async into a two-stage ring; a
-// thread keeps 8 latitudes x 2 longitudes of both parities on FFMA and stores
-// g[i] = Pe + Po, g[i + ix/2] = Pe - Po, scaled by 1/cos(lat) where the
-// field's flag says so.
-// ---------------------------------------------------------------------------
-constexpr int kPB = 12;   // latitude pairs of a DFT item
-template <class S>
-__host__ __device__ constexpr int scratch_row() { return S::MX * 4 * S::IY; }
-
-// Copy n elements into shared memory: cp.async in 16-byte chunks where the
-// source is aligned (n * sizeof(T) a multiple of 16), element by element
-// otherwise; both complete at the caller's next cp_async_wait_all.
-template <int THREADS, typename T>
-__device__ __forceinline__ void stage_copy(T* dst, const T* src, int n, bool aligned) {
-  if (aligned) {
-    const int chunks = n * static_cast<int>(sizeof(T)) / 16;
-    auto* d = reinterpret_cast<unsigned char*>(dst);
-    auto* s = reinterpret_cast<const unsigned char*>(src);
-    for (int q = threadIdx.x; q < chunks; q += THREADS) cp_async16(d + 16 * q, s + 16 * q);
-  } else {
-    for (int q = threadIdx.x; q < n; q += THREADS) cp_async_elem(dst + q, src + q);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Inverse transform, stage 1: the Legendre synthesis of a slice of m, two
-// rows at a time, written as F of both hemispheres.
-// ---------------------------------------------------------------------------
-constexpr int kLegInvThreads = 128;
-constexpr int kLegInvSlices = 8;
-// First m of slice sl: the first row of the triangle that starts at or past
-// the slice's equal share of the entries.
-template <class S>
-__host__ __device__ constexpr int leg_inv_m0(int sl) {
-  const int e = sl * S::TRI / kLegInvSlices;
-  int m = 0;
-  while (m < S::MX && tri_offset(m, S::NX) < e) ++m;
-  return m;
-}
-template <class S, typename T>
-size_t leg_inv_shared_bytes() {
-  size_t most = 0;
-  for (int sl = 0; sl < kLegInvSlices; ++sl) {
-    const int m0 = leg_inv_m0<S>(sl), m1 = leg_inv_m0<S>(sl + 1);
-    const size_t n = static_cast<size_t>(tri_offset(m1, S::NX) - tri_offset(m0, S::NX)) * S::IY +
-                     2 * 4 * static_cast<size_t>(m1 - m0) * S::NX;
-    most = n > most ? n : most;
-  }
-  return sizeof(T) * most;
-}
-
-template <class S, typename T, int THREADS>
-__global__ void __launch_bounds__(THREADS)
-hires_leg_inv_kernel(const __grid_constant__ Group g, long long rows, void* scratch) {
-  constexpr int JQ = S::IY / 4;            // latitude quads
-  T* x = static_cast<T*>(scratch);
-  const int sl = blockIdx.y;
-  const int m0 = leg_inv_m0<S>(sl), m1 = leg_inv_m0<S>(sl + 1);
-  if (m0 >= m1) return;
-  const int t0 = tri_offset(m0, S::NX);
-  const int ent = tri_offset(m1, S::NX) - t0;
-  const int run = (m1 - m0) * S::NX;       // a part's values of the slice, one row
-  const int items = (m1 - m0) * JQ;
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sL = reinterpret_cast<T*>(smem_raw);  // (entries of the slice, iy)
-  T* sP = sL + ent * S::IY;                // (2 stages, 2 rows, 2 parts, run)
-  const int tid = threadIdx.x;
-  const T* leg = static_cast<const T*>(g.tables);    // (iy, triangle)
-  for (int idx = tid; idx < ent * S::IY; idx += THREADS) {
-    const int j = idx / ent, q = idx - j * ent;
-    sL[q * S::IY + j] = leg[j * S::TRI + t0 + q];
-  }
-
-  const long long npairs = (rows + 1) / 2;
-  auto issue = [&](long long pr, int buf) {
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const long long row = 2 * pr + rr;
-      if (row >= rows) continue;
-      const Segment& s = g.seg[find_segment(g, row)];
-      const T* src = row_in<T, long long>(s, row - s.first) + m0 * S::NX;
-      T* dst = sP + (buf * 4 + rr * 2) * run;
-      for (int q = tid; q < run; q += THREADS) {
-        cp_async_elem(dst + q, src + q);
-        cp_async_elem(dst + run + q, src + s.in_pair + q);
-      }
-    }
-  };
-  long long pr = blockIdx.x;
-  int buf = 0;
-  if (pr < npairs) issue(pr, 0);
-  cp_async_commit();
-  for (; pr < npairs; pr += gridDim.x, buf ^= 1) {
-    cp_async_wait_all();
-    __syncthreads();
-    if (pr + gridDim.x < npairs) issue(pr + gridDim.x, buf ^ 1);
-    cp_async_commit();
-    const long long row0 = 2 * pr;
-    const bool two = row0 + 1 < rows;
-    for (int it = tid; it < items; it += THREADS) {
-      const int mm = it / JQ, jq = it - mm * JQ, m = m0 + mm;
-      const T* l = sL + (tri_offset(m, S::NX) - t0) * S::IY + 4 * jq;
-      const T* p = sP + buf * 4 * run + mm * S::NX;   // + (rr * 2 + c) * run
-      T e[4][4], o[4][4];                             // [rr * 2 + c][latitude]
-#pragma unroll
-      for (int rc = 0; rc < 4; ++rc)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) e[rc][jj] = o[rc][jj] = T(0);
-      const int nn = S::NX - m;
-      int n = 0;
-      for (; n + 1 < nn; n += 2) {
-        T le[4], lo[4];
-        load4(l + n * S::IY, le);
-        load4(l + (n + 1) * S::IY, lo);
-#pragma unroll
-        for (int rc = 0; rc < 4; ++rc) {
-          const T pe = p[rc * run + n], po = p[rc * run + n + 1];
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            e[rc][jj] += le[jj] * pe;
-            o[rc][jj] += lo[jj] * po;
-          }
-        }
-      }
-      if (n < nn) {
-        T le[4];
-        load4(l + n * S::IY, le);
-#pragma unroll
-        for (int rc = 0; rc < 4; ++rc) {
-          const T pe = p[rc * run + n];
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) e[rc][jj] += le[jj] * pe;
-        }
-      }
-#pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        if (rr == 1 && !two) break;
-        T* xr = x + (row0 + rr) * scratch_row<S>() + m * 4 * S::IY + 4 * jq;
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          T* dst = xr + c * 2 * S::IY;
-          const int rc = rr * 2 + c;
-          const bool discard = m == 0 && c == 1;   // the imaginary part of m = 0
-#pragma unroll
-          for (int jj = 0; jj < 4; jj += 2) {
-            store2(dst + jj, discard ? T(0) : e[rc][jj] + o[rc][jj],
-                   discard ? T(0) : e[rc][jj + 1] + o[rc][jj + 1]);
-            store2(dst + S::IY + jj, discard ? T(0) : e[rc][jj] - o[rc][jj],
-                   discard ? T(0) : e[rc][jj + 1] - o[rc][jj + 1]);
-          }
-        }
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Inverse transform, stage 2: the folded inverse DFT of 12 latitude pairs of
-// a row.
-// ---------------------------------------------------------------------------
-template <class S>
-__host__ __device__ constexpr int dft_inv_threads() { return (2 * kPB / 8) * (S::IH / 2); }
-template <class S, typename T>
-constexpr size_t dft_inv_shared_bytes() {
-  return sizeof(T) * (S::DFT + 2 * 2 * S::COLS * 2 * kPB);
-}
-
-template <class S, typename T, int THREADS>
-__global__ void __launch_bounds__(THREADS)
-hires_dft_inv_kernel(const __grid_constant__ Group g, long long items, void* scratch) {
-  constexpr int PB2 = 2 * kPB;
-  constexpr int NIB = S::IH / 2;
-  constexpr int CH = kPB * static_cast<int>(sizeof(T)) / 16;   // 16-byte chunks of a run
-  constexpr int TILE = 2 * S::COLS * PB2;                      // one stage
-  static_assert(THREADS == (PB2 / 8) * NIB, "register tile");
-  const T* x = static_cast<const T*>(scratch);
-
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sD = reinterpret_cast<T*>(smem_raw);  // (2 parity, cols, ih)
-  T* sA = sD + S::DFT;                     // (2 stages, 2 parity, cols, 2 PB)
-  const int tid = threadIdx.x;
-
-  // Item = (row, pb): its F runs X[row, m, c, hemisphere, pb*PB ..] into
-  // sA[stage][parity of m][c*h + m/2][hemisphere*PB ..].
-  auto issue = [&](long long item, int buf) {
-    const long long row = item / (S::IY / kPB);
-    const int pb = static_cast<int>(item - row * (S::IY / kPB));
-    const unsigned char* src = reinterpret_cast<const unsigned char*>(
-        x + row * scratch_row<S>() + pb * kPB);
-    unsigned char* dst = reinterpret_cast<unsigned char*>(sA + buf * TILE);
-    for (int q = tid; q < S::MX * 4 * CH; q += THREADS) {
-      const int r = q / CH, ch = q - r * CH;           // r = (m * 2 + c) * 2 + hemisphere
-      const int m = r >> 2, c = (r >> 1) & 1, hemi = r & 1;
-      const int k = (m & 1) * S::COLS + c * S::H + (m >> 1);
-      cp_async16(dst + sizeof(T) * (k * PB2 + hemi * kPB) + 16 * ch,
-                 src + sizeof(T) * r * S::IY + 16 * ch);
-    }
-  };
-  long long it = blockIdx.x;
-  if (it < items) issue(it, 0);
-  stage_copy<THREADS>(sD, static_cast<const T*>(g.tables) + S::LEG, S::DFT, true);
-  cp_async_commit();
-  const T* scale = static_cast<const T*>(g.scale);
-
-  const int jb = tid / NIB, ib = tid - jb * NIB;
-  int buf = 0;
-  for (; it < items; it += gridDim.x, buf ^= 1) {
-    const long long row = it / (S::IY / kPB);
-    const int pb = static_cast<int>(it - row * (S::IY / kPB));
-    cp_async_wait_all();
-    __syncthreads();
-    if (it + gridDim.x < items) issue(it + gridDim.x, buf ^ 1);
-    cp_async_commit();
-
-    const T* ae_base = sA + buf * TILE + 8 * jb;
-    const T* ao_base = ae_base + S::COLS * PB2;
-    const T* be_base = sD + 2 * ib;
-    const T* bo_base = be_base + S::COLS * S::IH;
-    T pe[8][2], po[8][2];
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) pe[jj][0] = pe[jj][1] = po[jj][0] = po[jj][1] = T(0);
-#pragma unroll 4
-    for (int k = 0; k < S::COLS; ++k) {
-      T ae[8], ao[8];
-      load4(ae_base + k * PB2, ae);
-      load4(ae_base + k * PB2 + 4, ae + 4);
-      load4(ao_base + k * PB2, ao);
-      load4(ao_base + k * PB2 + 4, ao + 4);
-      const Vec<T, 2> be = load_vec<T, 2>(be_base + k * S::IH);
-      const Vec<T, 2> bo = load_vec<T, 2>(bo_base + k * S::IH);
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj)
-#pragma unroll
-        for (int ii = 0; ii < 2; ++ii) {
-          pe[jj][ii] += ae[jj] * be.v[ii];
-          po[jj][ii] += ao[jj] * bo.v[ii];
-        }
-    }
-    const Segment& s = g.seg[find_segment(g, row)];
-    T* out = row_out<T, long long>(s, row - s.first);
-#pragma unroll
-    for (int jj = 0; jj < 8; ++jj) {
-      const int slot = 8 * jb + jj;
-      const int lat = slot < kPB ? pb * kPB + slot : S::IL - 1 - (pb * kPB + slot - kPB);
-      T x0 = pe[jj][0] + po[jj][0], x1 = pe[jj][1] + po[jj][1];
-      T y0 = pe[jj][0] - po[jj][0], y1 = pe[jj][1] - po[jj][1];
-      if (s.flag) {
-        const T sc = scale[lat];
-        x0 = x0 * sc; x1 = x1 * sc; y0 = y0 * sc; y1 = y1 * sc;
-      }
-      store2(out + lat * S::IX + 2 * ib, x0, x1);
-      store2(out + lat * S::IX + S::IH + 2 * ib, y0, y1);
-    }
+    if (steps > 0) cluster_wait();
   }
 }
 
@@ -1209,54 +1065,6 @@ int launch(int cluster, int threads, size_t bytes, const Group& g, long long row
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename K>
-int allow_shared(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
-}
-
-
-// Resident blocks per SM and SMs of the current device, asked once per
-// kernel and device (the statics belong to one instantiation).
-template <auto kernel>
-int residency(int threads, size_t bytes, int* blocks_per_sm, int* sms) {
-  static int cached_device = -1, cached_blocks = 0, cached_sms = 0;
-  int dev = 0;
-  int rc = static_cast<int>(cudaGetDevice(&dev));
-  if (rc != 0) return rc;
-  if (dev != cached_device) {
-    rc = allow_shared(kernel, bytes);
-    if (rc != 0) return rc;
-    rc = static_cast<int>(cudaDeviceGetAttribute(&cached_sms, cudaDevAttrMultiProcessorCount, dev));
-    if (rc != 0) return rc;
-    rc = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &cached_blocks, kernel, threads, bytes));
-    if (rc != 0) return rc;
-    if (cached_blocks < 1) return -5;
-    cached_device = dev;
-  }
-  *blocks_per_sm = cached_blocks;
-  *sms = cached_sms;
-  return 0;
-}
-
-// A launch of `slices` columns of persistent blocks (the inverse pair): as many blocks as fit
-// on the card at once, shared by the columns, at most one per unit of work.
-template <auto kernel>
-int launch_blocks(int threads, size_t bytes, int slices, const Group& g, long long units,
-           long long n, void* scratch, cudaStream_t stream) {
-  int bps = 0, sms = 0;
-  int rc = residency<kernel>(threads, bytes, &bps, &sms);
-  if (rc != 0) return rc;
-  long long blocks = static_cast<long long>(bps) * sms / slices;
-  if (blocks < 1) blocks = 1;
-  if (blocks > units) blocks = units;
-  kernel<<<dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(slices)), threads, bytes,
-           stream>>>(g, n, scratch);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <class S, typename T>
 int run_direct(const Group& g, long long rows, cudaStream_t s) {
   using P = Plan<S, T>;
@@ -1264,22 +1072,9 @@ int run_direct(const Group& g, long long rows, cudaStream_t s) {
 }
 
 template <class S, typename T>
-int run_inverse_cluster(const Group& g, long long rows, cudaStream_t s) {
+int run_inverse(const Group& g, long long rows, cudaStream_t s) {
   using P = Plan<S, T>;
-  return launch<hires_inverse_cluster_kernel<S, T>>(P::C, P::INV_THREADS, P::INV_SMEM, g, rows, s);
-}
-
-template <class S, typename T>
-int run_inverse_pair(const Group& g, long long rows, void* scratch, cudaStream_t s) {
-  if (scratch == nullptr || reinterpret_cast<unsigned long long>(scratch) % 16 != 0) return -8;
-  constexpr int t2 = dft_inv_threads<S>();
-  int rc = launch_blocks<hires_leg_inv_kernel<S, T, kLegInvThreads>>(
-      kLegInvThreads, leg_inv_shared_bytes<S, T>(), kLegInvSlices, g, (rows + 1) / 2, rows,
-      scratch, s);
-  if (rc != 0) return rc;
-  const long long items = rows * (S::IY / kPB);
-  return launch_blocks<hires_dft_inv_kernel<S, T, t2>>(t2, dft_inv_shared_bytes<S, T>(), 1, g,
-                                                       items, items, scratch, s);
+  return launch<hires_inverse_ws_kernel<S, T>>(P::C, P::INV_THREADS, P::INV_SMEM, g, rows, s);
 }
 
 bool aligned16(long long address, long long stride, int esize) {
@@ -1323,15 +1118,12 @@ long long read_group(Group& g, int nseg, const long long* desc, const void* cons
 }
 
 template <class S, typename T>
-int run(int kind, int count, const void* const* tables, const long long* desc, void* scratch,
-        cudaStream_t s) {
+int run(int kind, int count, const void* const* tables, const long long* desc, cudaStream_t s) {
   Group g;
   const long long rows = read_group(g, count, desc, tables, kind != 0,
                                     static_cast<int>(sizeof(T)), S::IX);
   if (rows < 0) return static_cast<int>(rows);
-  if (kind == 0) return run_direct<S, T>(g, rows, s);
-  return kind == 1 ? run_inverse_pair<S, T>(g, rows, scratch, s)
-                   : run_inverse_cluster<S, T>(g, rows, s);
+  return kind == 0 ? run_direct<S, T>(g, rows, s) : run_inverse<S, T>(g, rows, s);
 }
 
 template <auto kernel>
@@ -1353,42 +1145,14 @@ int occupancy(int cluster, int threads, size_t bytes, int* out) {
 
 // The inverse pair's stages: resident blocks per SM, threads, shared memory,
 // registers, local bytes, slices of the grid.
-template <auto kernel>
-int block_occupancy(int threads, size_t bytes, int slices, int* out) {
-  int rc = allow_shared(kernel, bytes);
-  if (rc != 0) return rc;
-  cudaFuncAttributes attr;
-  rc = static_cast<int>(cudaFuncGetAttributes(&attr, kernel));
-  if (rc != 0) return rc;
-  int blocks = 0;
-  rc = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
-                                                                      bytes));
-  if (rc != 0) return rc;
-  out[0] = blocks;
-  out[1] = threads;
-  out[2] = static_cast<int>(bytes);
-  out[3] = attr.numRegs;
-  out[4] = static_cast<int>(attr.localSizeBytes);
-  out[5] = slices;
-  return 0;
-}
-
 template <class S, typename T>
 int occupancy_of(int kind, int* out) {
   using P = Plan<S, T>;
-  constexpr int t2 = dft_inv_threads<S>();
   switch (kind) {
     case 0:
       return occupancy<hires_direct_cluster_kernel<S, T>>(P::C, P::DIR_THREADS, P::DIR_SMEM, out);
     case 1:
-      return occupancy<hires_inverse_cluster_kernel<S, T>>(P::C, P::INV_THREADS, P::INV_SMEM,
-                                                           out);
-    case 2:
-      return block_occupancy<hires_leg_inv_kernel<S, T, kLegInvThreads>>(
-          kLegInvThreads, leg_inv_shared_bytes<S, T>(), kLegInvSlices, out);
-    case 3:
-      return block_occupancy<hires_dft_inv_kernel<S, T, t2>>(t2, dft_inv_shared_bytes<S, T>(), 1,
-                                                             out);
+      return occupancy<hires_inverse_ws_kernel<S, T>>(P::C, P::INV_THREADS, P::INV_SMEM, out);
     default:
       return -4;
   }
@@ -1399,8 +1163,8 @@ template <class S, typename T>
 void plan_of(int* out) {
   using P = Plan<S, T>;
   const int v[] = {P::C, P::K, P::NP, P::R, P::NPAD, P::KS, P::DIR_THREADS,
-                   static_cast<int>(P::DIR_SMEM), P::INV_THREADS,
-                   static_cast<int>(P::INV_SMEM), P::GBUF, P::INVERSE, scratch_row<S>()};
+                   static_cast<int>(P::DIR_SMEM), P::GBUF, P::INV_THREADS, P::INV_SVW,
+                   P::INV_R, static_cast<int>(P::INV_SMEM)};
   for (int q = 0; q < 13; ++q) out[q] = v[q];
 }
 
@@ -1415,11 +1179,10 @@ int shape_of(int il, int ix, int mx, int nx) {
 
 // out, the Plan at truncation 47 or 63 in mode 0 (float) or 1 (double), 13
 // ints: blocks a cluster, m pairs of a block, latitude pairs of a band, rows
-// a cluster step, MMA columns of a step, MMA depth; the direct cluster
-// kernel's threads and shared memory (bytes); the inverse cluster kernel's;
-// the direct block's grid buffers; the inverse design a call runs (the kind
-// of pyspeedy_fused_transform_hires: 1 the pair, 2 the cluster kernel); the
-// pair's scratch a row (values). Needs no device.
+// a direct cluster step, MMA columns of a direct step, MMA depth; the direct
+// kernel's threads and shared memory (bytes), its grid buffers; the inverse
+// kernel's threads, latitude pairs a Legendre item, rows a step and shared
+// memory (bytes). Needs no device.
 extern "C" int pyspeedy_fused_transform_hires_plan(int trunc, int mode, int* out) {
   if (trunc == 47 && mode == 0) plan_of<T47, float>(out);
   else if (trunc == 47 && mode == 1) plan_of<T47, double>(out);
@@ -1430,12 +1193,9 @@ extern "C" int pyspeedy_fused_transform_hires_plan(int trunc, int mode, int* out
 }
 
 // out, from the CUDA runtime, at truncation 47 or 63 in mode 0 (float) or 1
-// (double): kind 0 the direct cluster kernel, kind 1 the inverse cluster
-// kernel: clusters the current device holds at once, threads a block, shared
-// memory a block (bytes), registers, local memory (bytes), blocks a cluster;
-// kinds 2 and 3 the inverse pair's hires_leg_inv_kernel and
-// hires_dft_inv_kernel: resident blocks per SM, threads, shared memory,
-// registers, local memory, slices of the grid.
+// (double), kind 0 the direct kernel, kind 1 the inverse: clusters the
+// current device holds at once, threads a block, shared memory a block
+// (bytes), registers, local memory (bytes), blocks a cluster.
 extern "C" int pyspeedy_fused_transform_hires_occupancy(int kind, int trunc, int mode, int* out) {
   if (trunc == 47 && mode == 0) return occupancy_of<T47, float>(kind, out);
   if (trunc == 47 && mode == 1) return occupancy_of<T47, double>(kind, out);
@@ -1444,9 +1204,7 @@ extern "C" int pyspeedy_fused_transform_hires_occupancy(int kind, int trunc, int
   return -1;
 }
 
-// kind: 0 direct transform of a group; inverse transform of a group, 1 by
-//   the pair of kernels, 2 by the cluster kernel (the wrapper passes the
-//   Plan's INVERSE for the shape and type).
+// kind: 0 direct transform of a group, 1 inverse transform of a group.
 // mode: 0 float, 1 double.
 // count: the group's segments.
 // tables: 0: the direct folded tables (ops/spectral.py::_fold_tables);
@@ -1454,23 +1212,19 @@ extern "C" int pyspeedy_fused_transform_hires_occupancy(int kind, int trunc, int
 // desc: 11 int64 words per segment: input and output address, rows, rows
 //   per member, input member, pair and row strides, output member, pair and
 //   row strides (elements), flag (inverse: 1 = scale by 1/cos(lat)).
-// scratch: kind 1's Fourier intermediate, mx * 4 * (il/2) values of the
-//   mode's type for every row of the group, 16-byte aligned; else unused (may
-//   be null).
 extern "C" int pyspeedy_fused_transform_hires(int kind, int mode, int count, int il, int ix,
                                               int mx, int nx, const void* const* tables,
-                                              const long long* desc, void* scratch,
-                                              void* stream) {
+                                              const long long* desc, void* stream) {
   if (count <= 0) return 0;
-  if (mode < 0 || mode > 1 || kind < 0 || kind > 2) return -1;
+  if (mode < 0 || mode > 1 || kind < 0 || kind > 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (shape_of(il, ix, mx, nx)) {
     case 47:
-      return mode == 0 ? run<T47, float>(kind, count, tables, desc, scratch, s)
-                       : run<T47, double>(kind, count, tables, desc, scratch, s);
+      return mode == 0 ? run<T47, float>(kind, count, tables, desc, s)
+                       : run<T47, double>(kind, count, tables, desc, s);
     case 63:
-      return mode == 0 ? run<T63, float>(kind, count, tables, desc, scratch, s)
-                       : run<T63, double>(kind, count, tables, desc, scratch, s);
+      return mode == 0 ? run<T63, float>(kind, count, tables, desc, s)
+                       : run<T63, double>(kind, count, tables, desc, s);
     default:
       return -2;
   }

@@ -48,13 +48,26 @@
 //
 // Design: member tiles, as the TPU kernel had them.
 // * A block owns one m row, both pair parts and all n of it (2*nx points,
-//   padded to a whole number of warps: 64 threads at T30), for G member
-//   lanes side by side (G = 4 at T30: 256 threads), and walks a tile of
-//   Shape<T>::tile = 16 members, G at a time. A lane is at most one block
-//   of 256 threads, so nx is at most 128 (T126 and below; the wrapper
-//   refuses more, ops/glue_kernels.py::MAX_NX).
-//   Grid: (mx, member tiles). Each lane synchronises on a named barrier of
-//   its own, so the lanes of a block do not wait for each other.
+//   padded to a whole number of warps: 64 threads at T30, 128 at T47, 160
+//   at T63), for G member lanes side by side (as many as fit 256 threads
+//   and the shared memory: 4 at T30, 2 at T47, 1 at T63), and walks a tile
+//   of members, G at a time. A lane is at most one block of 256 threads,
+//   so nx is at most 128 (T126 and below; the wrapper refuses more,
+//   ops/glue_kernels.py::MAX_NX). Grid: (mx, member tiles). Each lane
+//   synchronises on a named barrier of its own, so the lanes of a block do
+//   not wait for each other.
+// * The tile is chosen from B and mx so that the grid fills whole waves of
+//   the blocks the card holds at once (plan(), reported by
+//   pyspeedy_spectral_update_plan, modelled by
+//   ops/glue_kernels.py::update_launch_plan): a tile of kTile = 16 members,
+//   the fixed tile of the kernel's first member-tiled design, would give W
+//   waves, rounded up; each m row gets floor(W x SMs x blocks an SM / mx)
+//   blocks, which share its ceil(B / G) member groups equally. At T30 and
+//   B = 128 that is the fixed tile again (248 blocks, one wave); at T47 12
+//   members (528 blocks, two waves) and at T63 11 (768 blocks), where the
+//   fixed tile made 1.45 and 1.29 waves. (One wave of
+//   larger tiles, 26 and 22 members, measured 5 % slower at T47 and the
+//   same at T63; at T30 a tile of 8, two waves, 1.7 % slower: PERF.md.)
 // * The row's tables (the eleven (mx, nx) tables, gradx and the implicit
 //   inverses xj of the row: kx*kx*nx values, 8 KB in float) are laid out by
 //   m row on the host (ops/glue_kernels.py::build_update_tables), so a
@@ -97,11 +110,16 @@
 // (0.188), 49 % of the byte bound; double 0.201 ms (0.234), 65 %; T30L5
 // double 0.128 ms (0.146), 64 %; at B = 1 0.014 / 0.022 ms. 128 registers,
 // 16 warps per SM, no spill, in every instantiation. A float member tile of
-// 8 or 16 takes the same time, 32 or more leave SMs idle (chip_smoke.py
-// with Shape<T>::tile set to each). Whole members staged in float take 26 %
-// less time than a member streamed four levels at a time (0.178 ms); in
-// double the two-level ring takes 29 % less than whole members, one
-// 256-thread block per SM (0.284 ms).
+// 8 or 16 took the same time at T30, 32 or more left SMs idle (the fixed
+// tile set to each). Whole members staged in float take 26 % less time
+// than a member streamed four levels at a time (0.178 ms); in double the
+// two-level ring takes 29 % less than whole members, one 256-thread block
+// per SM (0.284 ms). At T47 / T63 (kernel_time in turns with the fixed
+// tile of 16, float, B = 128): the plan's two waves 0.370-0.376 /
+// 0.673-0.715 ms against 0.464 / 0.877-0.878, 38-42 % of the byte bound;
+// one wave of 26 / 22 members 0.40 / 0.67-0.68. Into the state it reads
+// ("in place") it takes 19-31 % longer at T47 / T63 (0.485-0.487 /
+// 0.831-0.893 ms), so the graphs keep their two pair sets.
 //
 // Interface: plain C, loaded with ctypes. The launch goes to the stream it is
 // given, allocates nothing and does not synchronise; the function returns
@@ -119,6 +137,9 @@ constexpr int kNumState = 14;
 constexpr int kMaxInputs = kMaxSpecs + kNumState;
 constexpr int kNumRowTables = 11;
 constexpr int kMaxSmem = 232448;   // bytes of shared memory a block may use
+constexpr int kSmemPerSm = 233472; // bytes of shared memory of an SM
+constexpr int kRegsPerSm = 65536;  // registers of an SM
+constexpr int kTile = 16;          // the first design's member tile, the plan's target
 
 // The state inputs, after the 6 + 3*ntr flux spectra.
 enum StateInput {
@@ -155,6 +176,7 @@ struct Args {
   T xd[kMaxLevels][kMaxLevels], xc[kMaxLevels][kMaxLevels];
   T dt, w1, w2, sdrag, rgas;  // w1 = wil*eps, w2 = (1-wil)*eps
   long long nmem;
+  long long tile;  // members a block
   int j1, truncate, ntr, mx, nx;
   int pslots;    // threads of one member lane: 2*nx rounded up to a warp
   int row_len;   // values of one row of `rows`
@@ -209,20 +231,17 @@ __device__ __forceinline__ const T* row_base(const Field& f, long long b, int m)
 
 // Launch shape per scalar type (measured on an H100, see the note above):
 // at most `threads` threads a block (G member lanes of a row's points),
-// `min_blocks` blocks resident per SM (so at most 128 registers), `tile`
-// members a block (the row's tables are copied once per tile); a lane's
+// `min_blocks` blocks resident per SM (so at most 128 registers); a lane's
 // staged spectra pass through a ring of `ring` slots of `chunk` levels each,
 // ring - 1 chunks in flight ahead of the one computed. Float stages a whole
 // member (chunk >= kx) and double-buffers it; double, whose whole member
 // would take 216 KB for four lanes, stages two levels at a time in a ring
 // of three.
 template <typename T> struct Shape {
-  static constexpr int chunk = 8, ring = 2, threads = 256, min_blocks = 2,
-                       tile = 16;
+  static constexpr int chunk = 8, ring = 2, threads = 256, min_blocks = 2;
 };
 template <> struct Shape<double> {
-  static constexpr int chunk = 2, ring = 3, threads = 256, min_blocks = 2,
-                       tile = 16;
+  static constexpr int chunk = 2, ring = 3, threads = 256, min_blocks = 2;
 };
 // Levels of a chunk at KX levels: Shape<T>::chunk, at most KX.
 template <typename T, int KX>
@@ -262,7 +281,6 @@ template <typename T, int KX>
 __global__ void __launch_bounds__(Shape<T>::threads, Shape<T>::min_blocks)
 spectral_update_kernel(const __grid_constant__ Args<T> a) {
   constexpr int kRing = Shape<T>::ring;
-  constexpr int kTile = Shape<T>::tile;
   constexpr int kAhead = kRing - 1;
   constexpr int LC = Chunk<T, KX>::levels;       // levels of a chunk
   constexpr int NCH = (KX + LC - 1) / LC;         // chunks of a member
@@ -283,8 +301,8 @@ spectral_update_kernel(const __grid_constant__ Args<T> a) {
 
   T* const rows = reinterpret_cast<T*>(dyn_smem());
   T* const ring = rows + a.row_len;   // [slot][lane][spectrum][part][n]
-  const long long first = static_cast<long long>(blockIdx.y) * kTile;
-  const long long last = min(first + kTile, a.nmem);
+  const long long first = static_cast<long long>(blockIdx.y) * a.tile;
+  const long long last = min(first + a.tile, a.nmem);
   const int iters = static_cast<int>((last - first + G - 1) / G);
   const int items = iters * NCH;            // (member, chunk) items of a lane
 
@@ -546,21 +564,45 @@ long long smem_bytes(int G, int row_len, int slot_len) {
          static_cast<long long>(sizeof(T));
 }
 
-// The launch shape for ntr tracers at nx: threads a block (G lanes of
-// pslots threads), its dynamic shared memory, and the row's table length.
+// A launch plan: G member lanes of `pslots` threads a block, its dynamic
+// shared memory, blocks an SM (by 16 warps of 128 registers and by the
+// shared memory), the tile (members a block) and the grid (mx, tiles).
+struct LaunchPlan {
+  int lanes, pslots, threads, blocks_per_sm, row_len;
+  long long smem, tile, tiles;
+};
+
+// The plan for nmem members (at least 1) of ntr tracers at (mx, nx) on a
+// card of `sms` SMs (modelled by ops/glue_kernels.py::update_launch_plan).
 // Returns 0, or -5 if even one lane does not fit.
 template <typename T, int KX>
-int plan(int ntr, int nx, int* threads, int* pslots, long long* smem, int* row_len) {
-  *pslots = (2 * nx + 31) / 32 * 32;
-  if (*pslots > Shape<T>::threads) return -5;
-  *row_len = kNumRowTables * nx + 1 + KX * KX * nx;
+int plan(int ntr, int nx, int mx, long long nmem, int sms, LaunchPlan* p) {
+  p->pslots = (2 * nx + 31) / 32 * 32;
+  if (p->pslots > Shape<T>::threads) return -5;
+  p->row_len = kNumRowTables * nx + 1 + KX * KX * nx;
   const int slot_len = (4 + 2 * ntr) * Chunk<T, KX>::levels * 2 * nx;
   // As many member lanes as fit the block's threads and the shared memory.
-  int G = Shape<T>::threads / *pslots;
-  while (G > 1 && smem_bytes<T>(G, *row_len, slot_len) > kMaxSmem) --G;
-  *smem = smem_bytes<T>(G, *row_len, slot_len);
-  *threads = G * *pslots;
-  return *smem > kMaxSmem ? -5 : 0;
+  int G = Shape<T>::threads / p->pslots;
+  while (G > 1 && smem_bytes<T>(G, p->row_len, slot_len) > kMaxSmem) --G;
+  p->smem = smem_bytes<T>(G, p->row_len, slot_len);
+  if (p->smem > kMaxSmem) return -5;
+  p->lanes = G;
+  p->threads = G * p->pslots;
+  int bps = (kRegsPerSm / 128 / 32) / (p->threads / 32);
+  const long long by_smem = kSmemPerSm / (p->smem + 1024);
+  if (by_smem < bps) bps = static_cast<int>(by_smem);
+  p->blocks_per_sm = bps;
+  // A tile of kTile members would make `waves` waves of the blocks the
+  // card holds at once, rounded up; each m row's share of that many waves
+  // of blocks splits its member groups equally.
+  const long long slots = static_cast<long long>(sms) * bps;
+  const long long waves = (mx * ((nmem + kTile - 1) / kTile) + slots - 1) / slots;
+  long long per_row = waves * slots / mx;
+  if (per_row < 1) per_row = 1;
+  const long long groups = (nmem + G - 1) / G;
+  p->tile = (groups + per_row - 1) / per_row * G;
+  p->tiles = (nmem + p->tile - 1) / p->tile;
+  return 0;
 }
 
 // Allow the dynamic shared memory (the largest asked for so far) and ask
@@ -579,39 +621,59 @@ int prepare(long long smem) {
   return rc;
 }
 
+// SMs of the current device, asked once per device.
+int device_sms(int* sms) {
+  static int cached_device = -1, cached = 0;
+  int dev = 0;
+  int rc = static_cast<int>(cudaGetDevice(&dev));
+  if (rc != 0) return rc;
+  if (dev != cached_device) {
+    rc = static_cast<int>(cudaDeviceGetAttribute(&cached, cudaDevAttrMultiProcessorCount, dev));
+    if (rc != 0) return rc;
+    cached_device = dev;
+  }
+  *sms = cached;
+  return 0;
+}
+
 template <typename T, int KX>
 int launch(Args<T> a, cudaStream_t stream) {
-  int threads = 0;
-  long long smem = 0;
-  int rc = plan<T, KX>(a.ntr, a.nx, &threads, &a.pslots, &smem, &a.row_len);
-  if (rc != 0) return rc;
   if (a.nmem <= 0) return 0;
-  const long long tiles = (a.nmem + Shape<T>::tile - 1) / Shape<T>::tile;
-  if (tiles > 65535) return -4;
-  rc = prepare<T, KX>(smem);
+  int sms = 0;
+  int rc = device_sms(&sms);
   if (rc != 0) return rc;
-  dim3 grid(static_cast<unsigned>(a.mx), static_cast<unsigned>(tiles));
-  spectral_update_kernel<T, KX><<<grid, threads, static_cast<size_t>(smem), stream>>>(a);
+  LaunchPlan p;
+  rc = plan<T, KX>(a.ntr, a.nx, a.mx, a.nmem, sms, &p);
+  if (rc != 0) return rc;
+  if (p.tiles > 65535) return -4;
+  a.pslots = p.pslots;
+  a.row_len = p.row_len;
+  a.tile = p.tile;
+  rc = prepare<T, KX>(p.smem);
+  if (rc != 0) return rc;
+  dim3 grid(static_cast<unsigned>(a.mx), static_cast<unsigned>(p.tiles));
+  spectral_update_kernel<T, KX><<<grid, p.threads, static_cast<size_t>(p.smem), stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // out: resident blocks per SM, threads a block, dynamic shared memory a
-// block, registers a thread, local memory a thread, as the runtime gives them.
+// block, registers a thread, local memory a thread, as the runtime gives them,
+// then the plan's member lanes and blocks an SM.
 template <typename T, int KX>
 int occupancy_of(int ntr, int nx, int* out) {
-  int threads = 0, pslots = 0, row_len = 0;
-  long long smem = 0;
-  int rc = plan<T, KX>(ntr, nx, &threads, &pslots, &smem, &row_len);
-  if (rc == 0) rc = prepare<T, KX>(smem);
+  LaunchPlan p;
+  int rc = plan<T, KX>(ntr, nx, 1, 1, 1, &p);
+  if (rc == 0) rc = prepare<T, KX>(p.smem);
   cudaFuncAttributes attr = {};
   if (rc == 0)
     rc = static_cast<int>(cudaFuncGetAttributes(&attr, spectral_update_kernel<T, KX>));
   int blocks = 0;
   if (rc == 0)
     rc = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, spectral_update_kernel<T, KX>, threads, static_cast<size_t>(smem)));
-  out[0] = blocks; out[1] = threads; out[2] = static_cast<int>(smem);
+        &blocks, spectral_update_kernel<T, KX>, p.threads, static_cast<size_t>(p.smem)));
+  out[0] = blocks; out[1] = p.threads; out[2] = static_cast<int>(p.smem);
   out[3] = attr.numRegs; out[4] = static_cast<int>(attr.localSizeBytes);
+  out[5] = p.lanes; out[6] = p.blocks_per_sm;
   return rc;
 }
 
@@ -697,7 +759,7 @@ extern "C" int pyspeedy_spectral_update(
   return -1;
 }
 
-// The occupancy of one instantiation (see occupancy_of): out holds 5 ints.
+// The occupancy of one instantiation (see occupancy_of): out holds 7 ints.
 extern "C" int pyspeedy_spectral_update_occupancy(int elem_size, int kx, int ntr, int nx,
                                                    int* out) {
   auto by_kx = [&](auto zero) -> int {
@@ -712,4 +774,29 @@ extern "C" int pyspeedy_spectral_update_occupancy(int elem_size, int kx, int ntr
   if (elem_size == 4) return by_kx(0.0f);
   if (elem_size == 8) return by_kx(0.0);
   return -1;
+}
+
+// The launch plan for nmem members (at least 1) of ntr tracers at (mx, nx)
+// on a card of `sms` SMs (see plan): out holds 7 values, member lanes a
+// block, threads a block, dynamic shared memory a block (bytes), blocks an
+// SM, members a block (the tile), member tiles, blocks. Needs no device.
+extern "C" int pyspeedy_spectral_update_plan(int elem_size, int kx, int ntr, int nx, int mx,
+                                             long long nmem, int sms, long long* out) {
+  if (nmem < 1 || sms < 1 || mx < 1 || nx < 1) return -1;
+  LaunchPlan p;
+  auto by_kx = [&](auto zero) -> int {
+    using T = decltype(zero);
+    switch (kx) {
+      case 5: return plan<T, 5>(ntr, nx, mx, nmem, sms, &p);
+      case 7: return plan<T, 7>(ntr, nx, mx, nmem, sms, &p);
+      case 8: return plan<T, 8>(ntr, nx, mx, nmem, sms, &p);
+      default: return -2;
+    }
+  };
+  const int rc = elem_size == 4 ? by_kx(0.0f) : elem_size == 8 ? by_kx(0.0) : -1;
+  if (rc != 0) return rc;
+  const long long v[] = {p.lanes, p.threads, p.smem, p.blocks_per_sm, p.tile, p.tiles,
+                         p.tiles * mx};
+  for (int q = 0; q < 7; ++q) out[q] = v[q];
+  return 0;
 }

@@ -2,15 +2,20 @@
 diagnostic rests on, on one CUDA card, through their public wrappers only.
 
     python3 -m pyspeedy_tpu_torch.kernel_time [probes] [dft_chain] [hires]
-        [--source FILE.cu]
+        [spectral_update] [--source FILE.cu]
 
-With no argument it times all three: the transform probes at 256 and 9,344
-rows (float32 and float64), the DFT chain at 256 members, and rows 3-4 at
+With no argument it times all four: the transform probes at 256 and 9,344
+rows (float32 and float64), the DFT chain at 256 members, rows 3-4 at
 T47 and T63 (``fused_grid2spec_many_cuda`` / ``fused_spec2grid_many_cuda``
 on the step's three transform groups at B=128: the direct group of 10
 fields, the dynamics' 7 inverse fields and the physics' 5, float32 and
-float64). The times come from the profiler's device records: a probe or a
-DFT-chain launch through ``utils.profiling.kernel_device_ms``, a T47/T63
+float64; in a tree whose library keeps several inverse designs, each of
+them, the plan's marked), and row 6 at T30, T47 and T63 (``spectral_update_cuda`` at B=128
+on seeded inputs of the step's magnitudes, float32 and float64, into new
+tensors, and in float32 also in place, into the state it reads, as the
+graphs would run it without their two pair sets). The times come from the
+profiler's device records: a probe, DFT-chain or spectral-update launch
+through ``utils.profiling.kernel_device_ms``, a T47/T63
 group as the sum over the device kernels one call launches
 (``hires_kernel_plan``'s, or the earlier design's two a direction in a
 tree without it) of each one's mean record, from windows that hold no
@@ -21,10 +26,12 @@ and a JSON line with every time. Only the wrappers, their tables and
 another tree of this package: copy it into that tree's package and run
 both trees on one card in turns (parent, change, change, parent) to compare two designs.
 ``--source`` builds another version of ``csrc/fused_transform_hires.cu``
-(an edit of this tree's design: the same kernels a call) with the same
-flags and times the T47/T63 groups under it and under the tree's own
-build in turns in one process (tree, other, other, tree), the wrapper's
-library swapped between them; each pair of calls is checked bitwise equal.
+(with ``hires``) or of ``csrc/spectral_update.cu`` (with
+``spectral_update``), an edit of this tree's design with the same kernels
+a call, with the same flags, and times the T47/T63 groups or row 6 under
+it and under the tree's own build in turns in one process (tree, other,
+other, tree), the wrapper's library swapped between them; each pair of
+calls is checked bitwise equal.
 Without a CUDA device it exits non-zero.
 """
 
@@ -41,7 +48,8 @@ import torch
 PROBE_ROWS = (256, 9344)   # the JAX tool's rows; the step's group at B=128
 DFT_MEMBERS = 256          # the JAX tool's members
 HIRES_MEMBERS = 128        # the step's transform groups at B=128
-SECTIONS = ("probes", "dft_chain", "hires")
+UPDATE_MEMBERS = 128       # the spectral update of a step at B=128
+SECTIONS = ("probes", "dft_chain", "hires", "spectral_update")
 
 
 # The device kernels of a T47/T63 call in a tree whose wrappers do not
@@ -115,14 +123,15 @@ def hires_groups(sp, params, rng) -> dict:
     }
 
 
-def other_build(source: str):
-    """The C entry of `source`, a version of csrc/fused_transform_hires.cu,
-    built into the kernels' build directory with the tree's flags."""
+def other_build(name: str, source: str):
+    """The C entry of `source`, a version of kernel `name`'s source
+    (csrc/fused_transform_hires.cu or csrc/spectral_update.cu), built into
+    the kernels' build directory with the tree's flags."""
     import ctypes
     import pathlib
     import subprocess
     from .ops import column_kernels as ck
-    spec = ck.KERNELS["fused_transform_hires"]
+    spec = ck.KERNELS[name]
     out = ck._BUILD_DIR / f"other_{pathlib.Path(source).stem}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([ck.find_nvcc(), *ck.NVCC_FLAGS, *spec.extra_flags, "-o",
@@ -144,7 +153,7 @@ def time_hires(card, rng, source=None) -> dict:
     if source:
         ck._load("fused_transform_hires")
         builds = {" [tree]": ck._fns["fused_transform_hires"],
-                  " [other]": other_build(source)}
+                  " [other]": other_build("fused_transform_hires", source)}
     order = list(builds) + list(builds)[::-1] if source else [""]
     for base in (T47L8, T63L8):
         for prec in ("f32", "f64"):
@@ -156,30 +165,115 @@ def time_hires(card, rng, source=None) -> dict:
                 tk, "hires_kernel_plan") else None)
             for name, (kind, fields, kcos) in hires_groups(
                     sp, params, rng).items():
-                call = lambda f=fields: tk.fused_grid2spec_many_cuda(sp, f, 1)
-                if kind == "inverse":
-                    call = lambda f=fields, k=kcos: \
-                        tk.fused_spec2grid_many_cuda(sp, f, k, 1)
-                kernels = (plan[f"{kind}_kernels"] if plan
-                           else PAIR_KERNELS[kind])
+                # The direct kernel; every inverse design the tree keeps
+                # (the plan's marked), or the plan's alone in a tree that
+                # cannot name them.
+                designs = [(None, plan[f"{kind}_kernels"] if plan
+                            else PAIR_KERNELS[kind])]
+                if kind == "inverse" and hasattr(tk, "_HIRES_INVERSE"):
+                    designs = [(d, kernels) for d, (_, kernels)
+                               in tk._HIRES_INVERSE.items()]
+                for design, kernels in designs:
+                    call = lambda f=fields: tk.fused_grid2spec_many_cuda(
+                        sp, f, 1)
+                    if design is not None:
+                        call = lambda f=fields, k=kcos, d=design: \
+                            tk._spec2grid_many_design(sp, f, k, 1, d)
+                    elif kind == "inverse":
+                        call = lambda f=fields, k=kcos: \
+                            tk.fused_spec2grid_many_cuda(sp, f, k, 1)
+                    label = name if design is None else (
+                        f"{name} [{design}"
+                        f"{', the plan' if design == plan['inverse'] else ''}]")
+                    first = None
+                    for tag in order:
+                        if builds[tag] is not None:
+                            ck._fns["fused_transform_hires"] = builds[tag]
+                            got = call()
+                            first = first or got
+                            if not all(torch.equal(a, b)
+                                       for a, b in zip(got, first)):
+                                raise RuntimeError(f"{tag} differs at T"
+                                                   f"{params.trunc} {label}")
+                        ms = device_ms_all(call, kernels)
+                        key = f"T{params.trunc} {prec} {label}{tag}"
+                        out.setdefault(key, []).append(ms)
+                        print(f"rows 3-4 {key} (B={HIRES_MEMBERS}, "
+                              f"{len(fields)} fields, {' + '.join(kernels)}):"
+                              f" {ms:.4f} ms [{card}]", flush=True)
+    if source:
+        ck._fns["fused_transform_hires"] = builds[" [tree]"]
+    return {k: v[0] if len(v) == 1 else v for k, v in out.items()}
+
+
+def update_inputs(params, rng):
+    """Seeded arguments of the spectral update at B=UPDATE_MEMBERS, dense,
+    of the step's magnitudes: the 6 + 3 ntr flux spectra, then psdt and the
+    state (vor, div, t at both time levels, log ps, the tracers, phi,
+    tcorh, qcorh)."""
+    b, kx, mx, nx, ntr = (UPDATE_MEMBERS, params.kx, params.mx, params.nx,
+                          params.ntr)
+
+    def mk(shape, scale):
+        return torch.from_numpy(scale * rng.standard_normal(
+            (b,) + shape)).to("cuda", params.dtype)
+
+    lev, plane, trac = (2, kx, mx, nx), (2, mx, nx), (2, ntr * kx, mx, nx)
+    specs = [mk(lev, 1e-5) for _ in range(6 + 3 * ntr)]
+    state = (mk(plane, 1e-5), mk(lev, 1e-5), mk(lev, 1e-5), mk(lev, 1e-6),
+             mk(lev, 1e-6), mk(lev, 10.0), mk(lev, 10.0), mk(plane, 1e-2),
+             mk(plane, 1e-2), mk(trac, 1e-3), mk(trac, 1e-3), mk(lev, 1e3),
+             mk(plane, 1.0), mk(plane, 1e-3))
+    return specs, state
+
+
+def time_spectral_update(card, rng, kernel_device_ms, source=None) -> dict:
+    from .models import model as M
+    from .ops import column_kernels as ck
+    from .ops import glue_kernels as GK
+    from .params import T30L8, T47L8, T63L8
+    out = {}
+    builds = {"": None}
+    if source:
+        ck._load("spectral_update")
+        builds = {" [tree]": ck._fns["spectral_update"],
+                  " [other]": other_build("spectral_update", source)}
+    order = list(builds) + list(builds)[::-1] if source else [""]
+    for base in (T30L8, T47L8, T63L8):
+        for prec in ("f32", "f64"):
+            params = dataclasses.replace(base, precision=prec,
+                                         fft_mode="matmul")
+            consts, _ = M.build_consts(params, device="cuda",
+                                       physics_on=False)
+            specs, state = update_inputs(params, rng)
+            args = (consts, 2, 2 * params.delt, params.rob, specs)
+            modes = {"": lambda: GK.spectral_update_cuda(*args, *state)}
+            if prec == "f32":
+                # into the state it reads: ps, vor, div, t, trf at both
+                # time levels (the state's positions 7, 8, 1-6, 9, 10)
+                own = tuple(state[i] for i in (7, 8, 1, 2, 3, 4, 5, 6, 9,
+                                               10))
+                modes[" in place"] = lambda: GK.spectral_update_cuda(
+                    *args, *state, out=own)
+            for mode, call in modes.items():
                 first = None
                 for tag in order:
                     if builds[tag] is not None:
-                        ck._fns["fused_transform_hires"] = builds[tag]
-                        got = call()
-                        first = first or got
-                        if not all(torch.equal(a, b)
-                                   for a, b in zip(got, first)):
-                            raise RuntimeError(f"{tag} differs at T"
-                                               f"{params.trunc} {name}")
-                    ms = device_ms_all(call, kernels)
-                    key = f"T{params.trunc} {prec} {name}{tag}"
+                        ck._fns["spectral_update"] = builds[tag]
+                        if not mode:
+                            got = call()
+                            first = first or got
+                            if not all(torch.equal(a, b)
+                                       for a, b in zip(got, first)):
+                                raise RuntimeError(f"{tag} differs at T"
+                                                   f"{params.trunc} {prec}")
+                    ms = kernel_device_ms(call, "spectral_update_kernel")
+                    key = f"T{params.trunc} {prec}{mode}{tag}"
                     out.setdefault(key, []).append(ms)
-                    print(f"rows 3-4 {key} (B={HIRES_MEMBERS}, "
-                          f"{len(fields)} fields, {' + '.join(kernels)}): "
-                          f"{ms:.4f} ms [{card}]", flush=True)
+                    print(f"row 6 {key} (B={UPDATE_MEMBERS}): {ms:.4f} ms "
+                          f"[{card}]", flush=True)
     if source:
-        ck._fns["fused_transform_hires"] = builds[" [tree]"]
+        ck._fns["spectral_update"] = builds[" [tree]"]
     return {k: v[0] if len(v) == 1 else v for k, v in out.items()}
 
 
@@ -196,6 +290,10 @@ def main(argv=()) -> int:
     if any(s not in SECTIONS for s in sections):
         print(f"kernel_time: sections are {SECTIONS}", file=sys.stderr)
         return 2
+    if source and len({"hires", "spectral_update"} & set(sections)) != 1:
+        print("kernel_time: --source goes with one of the sections hires "
+              "and spectral_update", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("kernel_time needs a CUDA device", file=sys.stderr)
         return 2
@@ -208,7 +306,8 @@ def main(argv=()) -> int:
     card = nvidia_smi_line()
     print(f"card: {card}")
     rng = np.random.default_rng(0)
-    result = {"card": card, "probes": {}, "dft_chain": {}, "hires": {}}
+    result = {"card": card, "probes": {}, "dft_chain": {}, "hires": {},
+              "spectral_update": {}}
     # Each wrapper launches one kernel, named *_kernel in either design.
     for prec in ("f32", "f64") if "probes" in sections else ():
         params = dataclasses.replace(T30L8, precision=prec, fft_mode="matmul")
@@ -235,6 +334,9 @@ def main(argv=()) -> int:
         print(f"dft_chain {name} B={DFT_MEMBERS}: {ms:.4f} ms [{card}]")
     if "hires" in sections:
         result["hires"] = time_hires(card, rng, source)
+    if "spectral_update" in sections:
+        result["spectral_update"] = time_spectral_update(
+            card, rng, kernel_device_ms, source)
     print(json.dumps(result))
     return 0
 

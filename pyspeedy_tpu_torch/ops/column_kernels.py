@@ -94,15 +94,12 @@ KERNELS = {
         argtypes=(_I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
         counters=("fused_grid2spec", "fused_grid2spec_bf16",
                   "fused_spec2grid", "fused_probe")),
-    # The same transforms at T47 and T63, launched by one call a group: kind
-    # 0 direct (one kernel on thread-block clusters), 1 inverse (a cluster
-    # kernel, or two kernels with the wrapper's scratch where that is
-    # faster; the source's Plan says which, and
-    # pyspeedy_fused_transform_hires_plan reports it).
+    # The same transforms at T47 and T63, launched by one call a group (one
+    # kernel on thread-block clusters a direction): kind 0 direct, 1 inverse.
     "fused_transform_hires": KernelSpec(
         source=_CSRC / "fused_transform_hires.cu",
         symbol="pyspeedy_fused_transform_hires",
-        argtypes=(_I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P),
+        argtypes=(_I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
         counters=("fused_grid2spec_hires", "fused_spec2grid_hires")),
     # -fmad=false as for the physics: the plain version's separate passes
     # cannot contract a*b+c, and the leapfrog filter is a small difference of

@@ -34,13 +34,24 @@ from .column_kernels import (_SUPPORTED_KX, _destinations, _load, copy_into,
 
 __all__ = ["spectral_update", "spectral_update_cuda", "kernel_levels",
            "UpdateTables", "build_update_tables", "field_strides",
-           "plain_calls", "reset_plain_calls", "MAX_TRACERS", "MAX_NX"]
+           "plain_calls", "reset_plain_calls", "MAX_TRACERS", "MAX_NX",
+           "update_launch_plan", "library_launch_plan", "H100_SMS"]
 
 # kMaxTracers of the source: its argument struct holds 6 + 3*ntr spectra.
 MAX_TRACERS = 4
 # A member lane of the kernel is one block's 2*nx points, at most 256
-# threads (Shape<T>::threads of the source).
+# threads (kLaneThreads of the source).
 MAX_NX = 128
+# The source's launch limits (threads an SM at 128 registers, threads a
+# block: Shape<T>::threads, kMaxSmem, kSmemPerSm) and its staging
+# (Shape<T>: levels a staged chunk, slots of the ring).
+MAX_THREADS = 512
+LANE_THREADS = 256
+MAX_SMEM = 232448
+SMEM_PER_SM = 233472
+STAGING = {4: (8, 2), 8: (2, 3)}
+# SMs of an NVIDIA H100 SXM.
+H100_SMS = 132
 # The (mx, nx) tables of a row in the source's order (its enum Table).
 ROW_TABLES = ("el2", "trfilt", "dmp", "dmpd", "dmps", "dmp1", "dmp1d",
               "dmp1s", "elz", "vddym", "vddyp")
@@ -69,6 +80,73 @@ def field_strides(name: str, x: torch.Tensor, shape: tuple) -> list:
         raise ValueError(f"{name}: strides {tuple(x.stride())}: the offsets "
                          f"inside a row exceed 32 bits")
     return s
+
+
+def update_launch_plan(nx: int, mx: int, kx: int, ntr: int, itemsize: int,
+                       nmem: int, sms: int = H100_SMS) -> dict:
+    """The kernel's launch plan (``plan`` in csrc/spectral_update.cu) for
+    `nmem` members of `ntr` tracers at (mx, nx, kx) in the scalar type of
+    `itemsize` bytes on a card of `sms` SMs:
+
+    * ``pslots``: the threads of a member lane, one m row of one member
+      (2 nx points: both pair parts, all n) rounded up to a warp; a lane
+      synchronises on a named barrier of its own;
+    * ``lanes``: G, as many lanes as fit 256 threads and the shared memory
+      (``smem``: the row's tables and each lane's ring of staged chunks of
+      its member's flux spectra, bytes); ``threads`` = G pslots;
+    * ``blocks_per_sm``: by 16 warps of 128 registers and by the shared
+      memory (1 KiB of each block is the system's);
+    * the grid is (mx, ``tiles``): block (m, t) takes m row m of members t
+      tile .. (t + 1) tile - 1, G at a time; a tile of 16 members (the
+      kernel's first member-tiled design's fixed tile) would make W waves of sms blocks_per_sm blocks, rounded up;
+      each m row gets floor(W sms blocks_per_sm / mx) blocks (at least
+      one), which share its ceil(nmem / G) member groups equally: ``tile``
+      = G ceil(groups / that); ``blocks`` = mx tiles, at most W waves."""
+    chunk, ring = STAGING[itemsize]
+    pslots = -(-2 * nx // 32) * 32
+    if pslots > LANE_THREADS:
+        raise ValueError(f"a lane of the spectral update at nx={nx} does "
+                         f"not fit a block")
+    row_len = 11 * nx + 1 + kx * kx * nx
+    slot_len = (4 + 2 * ntr) * min(chunk, kx) * 2 * nx
+    g = LANE_THREADS // pslots
+    smem = lambda g: (row_len + ring * g * slot_len) * itemsize
+    while g > 1 and smem(g) > MAX_SMEM:
+        g -= 1
+    if smem(g) > MAX_SMEM:
+        raise ValueError(f"no lane of the spectral update fits a block at "
+                         f"nx={nx}, kx={kx}, ntr={ntr}")
+    threads = g * pslots
+    bps = min((MAX_THREADS // 32) // (threads // 32),
+              SMEM_PER_SM // (smem(g) + 1024))
+    slots = sms * bps
+    waves = -(-mx * -(-nmem // 16) // slots)
+    per_row = max(1, waves * slots // mx)
+    tile = -(-(-(-nmem // g)) // per_row) * g
+    tiles = -(-nmem // tile)
+    return {"lanes": g, "pslots": pslots, "threads": threads,
+            "smem": smem(g), "blocks_per_sm": bps, "tile": tile,
+            "tiles": tiles, "blocks": mx * tiles}
+
+
+_PLAN_KEYS = ("lanes", "threads", "smem", "blocks_per_sm", "tile", "tiles",
+              "blocks")
+
+
+def library_launch_plan(itemsize: int, kx: int, ntr: int, nx: int, mx: int,
+                        nmem: int, sms: int = H100_SMS) -> dict:
+    """The launch plan as the built library reports it
+    (``pyspeedy_spectral_update_plan``; builds it at first use, needs no
+    device): the keys of :func:`update_launch_plan` but ``pslots``."""
+    from .column_kernels import build_kernels
+    lib = ctypes.CDLL(str(build_kernels(["spectral_update"])[
+        "spectral_update"]))
+    out = (ctypes.c_longlong * len(_PLAN_KEYS))()
+    rc = lib.pyspeedy_spectral_update_plan(
+        itemsize, kx, ntr, nx, mx, ctypes.c_longlong(nmem), sms, out)
+    if rc != 0:
+        raise RuntimeError(f"the spectral_update plan query failed with {rc}")
+    return dict(zip(_PLAN_KEYS, out))
 
 
 def kernel_levels(consts) -> np.ndarray:

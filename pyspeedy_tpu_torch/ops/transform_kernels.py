@@ -15,15 +15,13 @@ block, the direct transform of a group is one kernel launched on
 thread-block clusters: each block of a cluster owns a band of latitude pairs
 for the DFT (on the tensor cores) and a slice of the wavenumbers for the
 Legendre sums, and the Fourier intermediate goes from block to block through
-the cluster's shared memory. The inverse runs the mirror image on clusters
-at T63 in float64; elsewhere, where that kernel measured slower, two kernels
-with the Fourier intermediate in a scratch the wrapper allocates (the
-designs are in that source's note; the library's plan, which
-:func:`hires_kernel_plan` reads, says which inverse runs, and
-:func:`hires_cluster_plan` gives the decomposition for the CPU model of
-it). ``KERNEL_SHAPES`` are the (il, ix,
-mx, nx) the kernels serve; the probes and the 2-byte operand mode stay at
-``T30_SHAPE``.
+the cluster's shared memory. The inverse is the mirror image on clusters,
+its Legendre sums and its DFT on different warps of a block and on
+successive steps (the designs are in that source's note; the library's
+plan, which :func:`hires_kernel_plan` reads, and :func:`hires_cluster_plan`,
+the decomposition for the CPU model of it). ``KERNEL_SHAPES`` are the (il,
+ix, mx, nx) the kernels serve; the probes and the 2-byte operand mode stay
+at ``T30_SHAPE``.
 
 Dispatch rule (:func:`fused_grid2spec`, :func:`fused_spec2grid`, the grouped
 :func:`fused_grid2spec_many`, :func:`fused_spec2grid_many`, and
@@ -93,12 +91,9 @@ HIRES_SHAPES = (T47_SHAPE, T63_SHAPE)
 KERNEL_SHAPES = (T30_SHAPE,) + HIRES_SHAPES
 
 _KIND_DIRECT, _KIND_INVERSE, _KIND_PROBE0 = 0, 1, 2
-# The T47/T63 inverse designs: their kind in csrc/fused_transform_hires.cu
-# and their device kernels.
-_HIRES_INVERSE = {
-    "pair": (1, ("hires_leg_inv_kernel", "hires_dft_inv_kernel")),
-    "cluster": (2, ("hires_inverse_cluster_kernel",))}
 _MODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+# The inverse's Legendre warps (INV_LEG_WARPS of the source).
+INVERSE_LEGENDRE_WARPS = 4
 
 plain_chain_calls = {"grid2spec": 0, "spec2grid": 0}
 
@@ -144,7 +139,12 @@ def hires_cluster_plan(shape, dtype) -> dict:
       exchanges; ``band_columns``: the MMA columns of a step, (row, pair,
       hemisphere) in that order, padded to a multiple of 8 with zeros;
     * ``mma_k``: the depth of one tensor-core product (8 for 3xTF32, 4 for
-      DMMA), the order in which the DFT's k loop adds its terms.
+      DMMA), the order in which the DFT's k loop adds its terms;
+    * the inverse's: ``inverse_threads``, a warp of the DFT a (parity, 16
+      longitudes) tile and ``INVERSE_LEGENDRE_WARPS`` warps of the Legendre
+      stage; ``inverse_pairs_per_item``, the latitude pairs of one Legendre
+      item (m pair, pairs, n parity), one item a thread of those warps;
+      ``inverse_rows_per_step`` (4 at T47 in float32, else 2).
     """
     il, ix, mx, nx = shape = tuple(shape)
     if shape not in HIRES_SHAPES or dtype not in (torch.float32,
@@ -153,8 +153,14 @@ def hires_cluster_plan(shape, dtype) -> dict:
                          f"in float32 and float64, got {shape} {dtype}")
     f64 = dtype == torch.float64
     c = 8 if f64 and il == 96 else 4
-    k, rows, pairs = mx // (2 * c), 2, il // 2 // c
+    k, rows, pairs, iy = mx // (2 * c), 2, il // 2 // c, il // 2
+    svw = next(d for d in range(1, iy + 1) if iy % d == 0
+               and k * (iy // d) * 2 <= 32 * INVERSE_LEGENDRE_WARPS)
     return {
+        "inverse_pairs_per_item": svw,
+        "inverse_threads": 32 * (2 * -(-ix // 2 // 16)
+                                 + INVERSE_LEGENDRE_WARPS),
+        "inverse_rows_per_step": 4 if (il == 72 and not f64) else 2,
         "cluster": c, "pairs_per_band": pairs, "rows_per_step": rows,
         "band_columns": -(-rows * 2 * pairs // 8) * 8,
         "bands": tuple((r * pairs, (r + 1) * pairs) for r in range(c)),
@@ -167,8 +173,8 @@ def hires_cluster_plan(shape, dtype) -> dict:
 
 _PLAN_FIELDS = ("cluster", "m_pairs", "pairs_per_band", "rows_per_step",
                 "band_columns", "mma_k", "direct_threads", "direct_smem",
-                "inverse_threads", "inverse_smem", "grid_buffers",
-                "inverse_kind", "pair_scratch_per_row")
+                "grid_buffers", "inverse_threads", "inverse_pairs_per_item",
+                "inverse_rows_per_step", "inverse_smem")
 _kernel_plans: dict = {}
 
 
@@ -176,11 +182,10 @@ def hires_kernel_plan(sp) -> dict:
     """The plan of the T47/T63 kernels at sp's shape and type as the
     library reports it (``pyspeedy_fused_transform_hires_plan``; builds and
     loads the library at first use): the decomposition (blocks a cluster,
-    m pairs of a block, latitude pairs of a band, rows a step, MMA columns
-    and depth), threads and shared memory (bytes) of the direct and inverse
-    cluster blocks, the direct block's grid buffers, the pair's scratch a
-    row (values), and ``inverse``, the design a call runs ("cluster" at T63
-    in float64, "pair" elsewhere), with ``direct_kernels`` /
+    m pairs of a block, latitude pairs of a band, rows a direct step, MMA
+    columns and depth), threads and shared memory (bytes) of the direct
+    block, its grid buffers, the inverse block's threads, latitude pairs a
+    Legendre item, rows a step and shared memory, with ``direct_kernels`` /
     ``inverse_kernels``, the device kernels a call launches."""
     key = (sp.il, sp.ix, sp.mx, sp.nx, sp.rdtype)
     if key not in _kernel_plans:
@@ -196,10 +201,8 @@ def hires_kernel_plan(sp) -> dict:
         if rc != 0:
             raise RuntimeError(f"the plan query failed with {rc}")
         plan = dict(zip(_PLAN_FIELDS, out))
-        plan["inverse"] = {kind: d for d, (kind, _) in
-                           _HIRES_INVERSE.items()}[plan["inverse_kind"]]
         plan["direct_kernels"] = ("hires_direct_cluster_kernel",)
-        plan["inverse_kernels"] = _HIRES_INVERSE[plan["inverse"]][1]
+        plan["inverse_kernels"] = ("hires_inverse_ws_kernel",)
         _kernel_plans[key] = plan
     return _kernel_plans[key]
 
@@ -416,11 +419,9 @@ def _call(kernel, kind, mode, count, sp, tables, desc, device, what,
             f"il={sp.il}, ix={sp.ix}, mx={sp.mx}, nx={sp.nx}, mode={mode})")
 
 
-def _launch_groups(kind, sp, plans, tables_of, device, what, design=None):
+def _launch_groups(kind, sp, plans, tables_of, device, what):
     """One launch per element type among `plans` [(mode, counter, words)],
-    in the order the types first appear; empty fields take no segment. At
-    T47/T63 the inverse runs the library plan's design for the type, or
-    `design` ("cluster" or "pair", for :func:`_spec2grid_many_design`)."""
+    in the order the types first appear; empty fields take no segment."""
     by_mode = {}
     for mode, counter, words in plans:
         if words is not None:
@@ -431,19 +432,8 @@ def _launch_groups(kind, sp, plans, tables_of, device, what, design=None):
         ptrs = [t.data_ptr() for t in tables]
         desc = [w for seg in segs for w in seg]
         if counter.endswith("_hires"):
-            hkind, scratch = kind, None
-            if kind == _KIND_INVERSE:
-                plan = hires_kernel_plan(sp)
-                hkind = _HIRES_INVERSE[design or plan["inverse"]][0]
-                if hkind == _HIRES_INVERSE["pair"][0]:
-                    # the pair's Fourier intermediate
-                    rows = sum(seg[2] for seg in segs)
-                    scratch = torch.empty(
-                        rows * plan["pair_scratch_per_row"], dtype=sp.rdtype,
-                        device=device)
-            _call("fused_transform_hires", hkind, mode, len(segs), sp, ptrs,
-                  desc, device, what, ctypes.c_void_p(
-                      None if scratch is None else scratch.data_ptr()))
+            _call("fused_transform_hires", kind, mode, len(segs), sp, ptrs,
+                  desc, device, what)
         else:
             _call("fused_transform", kind, mode, len(segs), sp, ptrs, desc,
                   device, what)
@@ -541,25 +531,13 @@ def fused_spec2grid_many_cuda(sp, pairs, kcos=1, pdim: int = 0) -> list:
     read in place through its member, pair and row strides -> a new dense
     grid (..., il, ix) each; `kcos` is one value or one per field: the field
     is scaled by 1/cos(lat) at the store unless its kcos == 1. At T47/T63
-    the design is the library plan's for the shape and type
-    (:func:`hires_kernel_plan`). Raises on anything the kernel does not
-    take, before anything is built or launched; does not synchronise."""
-    return _spec2grid_many_design(sp, pairs, kcos, pdim, None)
-
-
-def _spec2grid_many_design(sp, pairs, kcos, pdim, design) -> list:
-    """fused_spec2grid_many_cuda with the T47/T63 inverse's design named:
-    None (the plan's), "cluster" or "pair". The design the plan does not
-    pick is here to be measured and checked against (``chip_smoke.py``),
-    not for the model."""
+    one kernel on thread-block clusters. Raises on anything the kernel does
+    not take, before anything is built or launched; does not synchronise."""
     pairs = list(pairs)
     what = "fused_spec2grid_many_cuda"
     kcos = kcos_list(kcos, len(pairs))
     _check_count(pairs, what)
     hires = _is_hires(sp)
-    if design not in (None,) + (tuple(_HIRES_INVERSE) if hires else ()):
-        raise ValueError(f"inverse design {design!r}: at T47/T63 one of "
-                         f"{tuple(_HIRES_INVERSE)}, elsewhere None")
     plans = [_inverse_plan(sp, p, k, pdim, hires)
              for p, k in zip(pairs, kcos)]
     if not pairs:
@@ -567,7 +545,7 @@ def _spec2grid_many_design(sp, pairs, kcos, pdim, design) -> list:
     device = _check_device(pairs, what)
     _launch_groups(_KIND_INVERSE, sp, [plan for _, plan in plans],
                    lambda mode: (sp.fold_inv, sp.cosgr),
-                   device, "fused_spec2grid", design)
+                   device, "fused_spec2grid")
     return [out for out, _ in plans]
 
 

@@ -54,12 +54,14 @@ __all__ = ["broadcast_state", "make_run_steps_batched", "pick_member_chunk",
 # against 82.3k (512), 78.9k (256), 68.6k (128) and 54.7k (64); the card is
 # busy 96-98 % from 512 on, and the wider chunk makes fewer host calls.
 MEMBER_CHUNK = 1024
-# Grids larger than T30's, 512 members, rows 3-4 on their T47/T63 kernels:
-# T47 31.6k member-steps/s in chunks of 256 against 31.1k (512), 29.6k
-# (128), 26.2k (64); T63 17.3k at 512 against 17.0k (256), 16.1k (128),
-# 15.4k (64). One width serves both: 256, within 1.4 % of either grid's
-# fastest (512 is 1.8 % under T47's) and with less memory a member.
-MEMBER_CHUNK_HIRES = 256
+# Grids larger than T30's, 512 members, rows 3-4 on their T47/T63 kernels
+# (the inverse warp-specialised, the spectral update's tile by waves): T47
+# 35.1k member-steps/s in chunks of 512 against 34.0k (256), 32.8k (128),
+# 28.8k (64); T63 19.4k at 512 against 19.1k (256), 18.4k (128), 18.1k
+# (64). One width serves both: 512, the fastest at each (256, within 1.4 %
+# of both with the earlier kernels, is now 3.4 % under T47's), for 19.0 /
+# 33.6 MB a member against 15.4 / 27.4 at 256.
+MEMBER_CHUNK_HIRES = 512
 _T30_GRID_POINTS = 96 * 48
 
 

@@ -31,7 +31,7 @@ from pyspeedy_tpu_torch.models import model as TM
 from pyspeedy_tpu_torch.models import spectral_glue as TG
 from pyspeedy_tpu_torch.ops import column_kernels as ck
 from pyspeedy_tpu_torch.ops import glue_kernels as GK
-from pyspeedy_tpu_torch.params import T30L5, T30L8
+from pyspeedy_tpu_torch.params import T30L5, T30L8, T47L8, T63L8
 from pyspeedy_tpu_torch.physics import convection as conv
 from pyspeedy_tpu_torch.physics import driver as TD
 from pyspeedy_tpu_torch.physics import large_scale_condensation as lsc
@@ -451,6 +451,65 @@ def test_spectral_update_member_is_the_same_in_any_tile_and_width(prec):
     args = (c, 2, 2 * p.delt, p.rob)
     ref = GK.spectral_update_cuda(*args, specs, *state)
     for off in (1, 3, 5, 17):
+        got = GK.spectral_update_cuda(*args, [x[off:] for x in specs],
+                                      *(x[off:] for x in state))
+        assert all(torch.equal(x, y[off:]) for x, y in zip(got, ref)), off
+    alone = GK.spectral_update_cuda(*args, [x[:1] for x in specs],
+                                    *(x[:1] for x in state))
+    assert all(torch.equal(x, y[:1]) for x, y in zip(alone, ref))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["f64", "f32"])
+def test_spectral_update_library_plan_is_the_model(prec):
+    """Needs an NVIDIA GPU and nvcc: the launch plan the library computes
+    (pyspeedy_spectral_update_plan) is GK.update_launch_plan's at T30, T47
+    and T63 for B = 1, 17, 128 and 256 on this card's SMs, and the CUDA
+    runtime holds the plan's blocks an SM at once, without local memory."""
+    import ctypes
+    _card()
+    size = 4 if prec == "f32" else 8
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lib = ctypes.CDLL(str(ck.build_kernels(["spectral_update"])[
+        "spectral_update"]))
+    for p in (T30L8, T47L8, T63L8):
+        for nmem in (1, 17, 128, 256):
+            got = GK.library_launch_plan(size, p.kx, p.ntr, p.nx, p.mx, nmem,
+                                         sms)
+            want = GK.update_launch_plan(p.nx, p.mx, p.kx, p.ntr, size, nmem,
+                                         sms)
+            assert got == {k: want[k] for k in got}, (p.trunc, nmem)
+        out = (ctypes.c_int * 7)()
+        assert lib.pyspeedy_spectral_update_occupancy(size, p.kx, p.ntr,
+                                                      p.nx, out) == 0
+        big = GK.update_launch_plan(p.nx, p.mx, p.kx, p.ntr, size, 1 << 20)
+        assert (out[1], out[2], out[5], out[6]) == (
+            big["threads"], big["smem"], big["lanes"], big["blocks_per_sm"])
+        assert out[0] >= big["blocks_per_sm"] and out[4] == 0, tuple(out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["f64", "f32"])
+@pytest.mark.parametrize("preset", [T47L8, T63L8], ids=["T47", "T63"])
+def test_spectral_update_at_t47_and_t63(preset, prec):
+    """Needs an NVIDIA GPU and nvcc: at nx = 49 and 65 (units of 5 and 3
+    members, one block an SM) the kernel against its plain version at
+    B=128, 1e-12 (f64) / 1e-5 (f32) of each output's largest value; every
+    member the same bits with the batch cut at offsets that move it to
+    another unit, block and place in a unit, and member 0 alone (B=1)."""
+    _card()
+    limit = 1e-12 if prec == "f64" else 1e-5
+    c = _card_glue(preset, prec, 1, 2.0)
+    p = c.params
+    specs, state = _glue_inputs(p, 128, 11, p.dtype)
+    specs = [x.cuda() for x in specs]
+    state = [x.cuda() for x in state]
+    args = (c, 2, 2 * p.delt, p.rob)
+    ref = GK.spectral_update_cuda(*args, specs, *state)
+    want = TG.spectral_update_plain(*args, specs, *state)
+    for g, w in zip(ref, want):
+        assert float((g - w).abs().max() / w.abs().max()) <= limit
+    for off in (1, 2, 4, 17, 64):
         got = GK.spectral_update_cuda(*args, [x[off:] for x in specs],
                                       *(x[off:] for x in state))
         assert all(torch.equal(x, y[off:]) for x, y in zip(got, ref)), off

@@ -287,11 +287,64 @@ def test_kernel_source_and_build_command():
     assert "arch=compute_90a,code=sm_90a" in cmd and "-fmad=false" in cmd
     assert len(spec.argtypes) == 19
     assert spec.counters == ("spectral_update",)
-    # The member-tiled design: the row's tables and the staged spectra in
-    # shared memory through cp.async, one barrier per lane.
-    for word in ("cp.async.ca.shared.global", "bar.sync", "struct Shape",
-                 "row_base", "Shape<T>::tile"):
+    # The design: the row's tables and the staged spectra in shared memory
+    # through cp.async, units of members on whole warps, one block barrier
+    # a staged chunk, the launch plan that ops/glue_kernels.py models.
+    for word in ("cp.async.ca.shared.global", "__syncthreads()",
+                 "struct Shape", "row_base", "struct LaunchPlan",
+                 "pyspeedy_spectral_update_plan"):
         assert word in text, word
+
+
+# The truncations the kernel serves on the model's paths: (nx, mx).
+PLAN_SHAPES = {"T30": (32, 31), "T47": (49, 48), "T63": (65, 64)}
+
+
+@pytest.mark.parametrize("itemsize", [4, 8], ids=["f32", "f64"])
+@pytest.mark.parametrize("nmem", [1, 17, 128, 256])
+@pytest.mark.parametrize("trunc", sorted(PLAN_SHAPES))
+def test_launch_plan_covers_every_point_once(trunc, nmem, itemsize):
+    """The kernel's launch plan (ops/glue_kernels.py::update_launch_plan,
+    the model of plan() in the source; on the card the library's plan is
+    held against it): every (member, part, m, n) point of the launch is
+    taken by exactly one thread of one block; a member lane is 2 nx points
+    in whole warps, a block at most 256 threads of lanes; its shared memory
+    fits, its blocks an SM fit 16 warps of 128 registers and the SM's shared
+    memory; the grid is at most the whole waves of those (132 SMs) that a
+    fixed tile of 16 members (the kernel's first member-tiled design) would
+    start, and no larger a tile. At T30 and B=128 it is that design's
+    launch shape: 4 lanes of 64 threads a block, 2 blocks an SM, 248 blocks
+    of 16 members; at T47 and T63 two whole waves where the fixed tile made
+    1.45 and 1.29."""
+    nx, mx = PLAN_SHAPES[trunc]
+    plan = GK.update_launch_plan(nx, mx, 8, 1, itemsize, nmem)
+    g, ps, threads = plan["lanes"], plan["pslots"], plan["threads"]
+    bps, tile = plan["blocks_per_sm"], plan["tile"]
+    assert ps % 32 == 0 and 2 * nx <= ps < 2 * nx + 32
+    assert threads == g * ps <= 256
+    assert plan["smem"] <= 232448
+    assert bps * (plan["smem"] + 1024) <= 233472
+    assert bps * threads * 128 <= 65536
+    assert tile % g == 0 and plan["tiles"] == -(-nmem // tile)
+    assert plan["blocks"] == mx * plan["tiles"]
+    slots = GK.H100_SMS * bps
+    waves = -(-mx * -(-nmem // 16) // slots)
+    assert plan["blocks"] <= waves * slots and tile <= max(16, g)
+    if trunc != "T30" and nmem == 128:
+        assert waves == 2 and plan["blocks"] > 1.9 * slots
+    # Every thread of every block on every member of its tile.
+    m, t, i = np.meshgrid(np.arange(mx), np.arange(plan["tiles"]),
+                          np.arange(-(-tile // g)), indexing="ij")
+    th = np.arange(threads)
+    lane, pt = th // ps, th % ps
+    member = (t * tile + i * g)[..., None] + lane
+    live = (pt < 2 * nx) & (member < np.minimum((t + 1) * tile, nmem)[
+        ..., None])
+    flat = ((member * 2 + pt // nx) * mx + m[..., None]) * nx + pt % nx
+    hits = np.bincount(flat[live], minlength=nmem * 2 * mx * nx)
+    assert hits.shape == (nmem * 2 * mx * nx,) and (hits == 1).all()
+    if trunc == "T30" and nmem == 128:
+        assert (g, threads, bps, plan["blocks"], tile) == (4, 256, 2, 248, 16)
 
 
 @pytest.mark.gpu

@@ -16,9 +16,11 @@ the two against each other). Here, on the CPU:
   its shared memory;
 * a numpy model of the cluster decomposition (the bands, the slices, the
   Fourier values sent from band to slice and back, the DFT's k loop in the
-  tensor-core products' order, the even and odd partial sums) with the plan
-  of each element type, against the JAX package's ``grid2spec_p`` /
-  ``spec2grid_p``, float64, 1e-12 of the largest value;
+  tensor-core products' order, the inverse's Legendre items and even and
+  odd partial sums) with the plan of each element type, against the JAX
+  package's ``grid2spec_p`` / ``spec2grid_p``, float64, 1e-12 of the largest
+  value, and the inverse also in float32 with its 3xTF32 products emulated,
+  1e-5;
 * the route as a function of shape and device: the kernels at T30, T47 and
   T63 with the matmul DFT on a CUDA tensor, the einsum chain for a CPU
   tensor there (bitwise the einsum route's result), the einsum route at
@@ -55,10 +57,6 @@ torch.set_num_threads(1)
 
 PRESETS = {"T47": T_T47L8, "T63": T_T63L8}
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
-# The inverse pair's tiles (csrc/fused_transform_hires.cu, where the plan's
-# inverse is "pair"): latitude pairs of a DFT item, slices of m.
-PAIRS = 12
-LEG_INV_SLICES = 8
 _cache = {}
 
 
@@ -200,21 +198,25 @@ def test_each_block_of_the_plan_fits_in_shared_memory(preset, plan_prec):
     """Each block's working set under the plan fits in the 227 KiB a block
     may use: direct, its slice of the Legendre table, the Fourier values of
     a step's rows it receives (its m, c, sum and difference, il/2 pairs)
-    and its band's grid rows of the step; inverse, the table slice, its
-    spectral values of the step (c, its m, n) and its band's Fourier values
-    (parity, column, MMA column). The kernels' own layout (pitches, second
-    buffers) is the library's: the compiler holds it to the same limit, and
-    the card's test of the library's plan reads it."""
+    and its band's grid rows of the step; inverse (its own rows a step), the
+    table slice, its spectral values of two steps (c, its m, n) and its
+    band's Fourier values of two steps (parity, column, MMA column). The
+    kernels' own layout (pitches, staging) is the library's: the compiler
+    holds it to the same limit, and the card's test of the library's plan
+    reads it."""
     tsp = transforms(preset)
     il, ix, mx, nx = tsp.il, tsp.ix, tsp.mx, tsp.nx
     plan = plan_of(preset, plan_prec)
     w = DTYPES[plan_prec].itemsize
     iy, cols, rows = il // 2, 2 * ((mx + 1) // 2), plan["rows_per_step"]
     npad = plan["band_columns"]
+    irows = plan["inverse_rows_per_step"]
+    inpad = -(-irows * 2 * plan["pairs_per_band"] // 8) * 8
     for ms in plan["m_slices"]:
         ent = sum(nx - m for m in ms)
         direct = w * (iy * ent + rows * len(ms) * 2 * 2 * iy + npad * ix)
-        inverse = w * (ent * iy + rows * 2 * len(ms) * nx + 2 * cols * npad)
+        inverse = w * (ent * iy + 2 * irows * 2 * len(ms) * nx
+                       + 2 * 2 * cols * inpad)
         assert max(direct, inverse) <= 227 * 1024
 
 
@@ -293,103 +295,104 @@ def model_direct(tsp, grid, plan):
     return S
 
 
-def model_inverse_cluster(tsp, p, kcos, plan):
-    """The inverse cluster kernel on a (rows, 2, mx, nx) pair -> (rows, il,
-    ix). Each block's slice: for each of its m, the even and odd partial
-    sums E, O over n of L[j, m, n] p[c, m, n]; F south = E + O, north =
-    E - O (the imaginary part of m = 0 set to 0) sent to the block that
-    owns the pair's band, into its MMA column. Each block's band: the DFT
-    of the even and odd wavenumbers as k-tiled products against the folded
-    table over half the longitudes, g[i] = Pe + Po, g[i + ix/2] = Pe - Po,
-    then 1/cos(lat) unless kcos == 1."""
-    B, L = unpack(tsp, False)
-    il, ix, mx, nx = tsp.il, tsp.ix, tsp.mx, tsp.nx
-    ih, h = ix // 2, (mx + 1) // 2
-    step = plan["rows_per_step"]
-    rows = p.shape[0]
-    band_of = {q: b for b, (b0, b1) in enumerate(plan["bands"])
-               for q in range(b0, b1)}
-    # The receive buffers of every band: (rows, parity, column, slot).
-    fin = [np.full((rows, 2, 2 * h, len(slots(plan, il, band)) // step),
-                   np.nan) for band in plan["bands"]]
-    for ms in plan["m_slices"]:
-        for m in ms:
-            lm = L[:, tri_offset(m, nx):tri_offset(m, nx) + nx - m]
-            pm = p[:, :, m, :nx - m]
-            E = np.einsum("jn,rcn->rcj", lm[:, 0::2], pm[..., 0::2])
-            O = np.einsum("jn,rcn->rcj", lm[:, 1::2], pm[..., 1::2])
-            if m == 0:
-                E[:, 1], O[:, 1] = 0.0, 0.0
-            for c in range(2):
-                for q in range(il // 2):
-                    b = band_of[q]
-                    pp = q - plan["bands"][b][0]
-                    col = c * h + m // 2
-                    fin[b][:, m % 2, col, 2 * pp] = E[:, c, q] + O[:, c, q]
-                    fin[b][:, m % 2, col, 2 * pp + 1] = (E[:, c, q]
-                                                         - O[:, c, q])
-    g = np.zeros((rows, il, ix))
-    for b, band in enumerate(plan["bands"]):
-        lats = [lat for _, _, lat in slots(plan, il, band)][:fin[b].shape[-1]]
-        Pe = k_tiled(np.swapaxes(fin[b][:, 0], 1, 2), B[0], plan["mma_k"])
-        Po = k_tiled(np.swapaxes(fin[b][:, 1], 1, 2), B[1], plan["mma_k"])
-        g[:, lats] = np.concatenate([Pe + Po, Pe - Po], axis=-1)
-    if kcos != 1:
-        g = g * tsp.cosgr.numpy()[:, None]
-    return g
+def tf32_rna(x):
+    """float32 values rounded to TF32, to nearest with ties away from zero
+    (cvt.rna, and the integer form of split_tf32 in the source)."""
+    b = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return ((b + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
 
 
-def model_inverse_pair(tsp, p, kcos):
-    """The inverse pair (where the plan's inverse is "pair"):
-    hires_leg_inv_kernel then hires_dft_inv_kernel on a (rows, 2, mx, nx)
-    pair -> (rows, il, ix). Stage 1, per slice of m (the first row
-    starting at or past an equal share of the triangle's entries): the even
-    and odd partial sums E, O over n of L[j, m, n] p[c, m, n]; F south =
-    E + O, north = E - O, the imaginary part of m = 0 set to 0. Stage 2, per
-    block of PAIRS latitude pairs: the DFT of the even and odd wavenumbers
-    over half the longitudes, g[i] = Pe + Po, g[i + ix/2] = Pe - Po, then
-    1/cos(lat) unless kcos == 1."""
+def tf32_trunc(x):
+    b = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return (b & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def k_tiled_3xtf32(a, b, depth):
+    """a (..., K) @ b (K, N) in float32 as the warp-specialised inverse's
+    3xTF32 products add it: the table b split once, hi = rna(b), lo =
+    rna(b - hi); each data value a split as split_tf32 does it, hi =
+    rna(a), lo = a - hi truncated; one k tile of `depth` terms after the
+    other, three products a tile (lo.hi, hi.lo, hi.hi; the lo.lo term
+    dropped), each summed exactly and added into the float32 sum."""
+    b32 = np.asarray(b, dtype=np.float32)
+    bh = tf32_rna(b32)
+    bl = tf32_rna(b32 - bh)
+    a32 = np.asarray(a, dtype=np.float32)
+    ah = tf32_rna(a32)
+    al = tf32_trunc(a32 - ah)
+    out = np.zeros(a32.shape[:-1] + (b32.shape[-1],), dtype=np.float32)
+    f64 = lambda x: x.astype(np.float64)
+    for k0 in range(0, a32.shape[-1], depth):
+        ks = slice(k0, k0 + depth)
+        for x, y in ((ah, bl), (al, bh), (ah, bh)):
+            out = (f64(out) + f64(x[..., ks]) @ f64(y[ks])).astype(np.float32)
+    return out
+
+
+def model_inverse(tsp, p, kcos, plan):
+    """The inverse kernel (hires_inverse_ws_kernel) on a (rows, 2, mx, nx)
+    pair -> (rows, il, ix), in the tables' type. The plan's bands and
+    slices; each block's Legendre stage as its items, one a thread: (m
+    pair, inverse_pairs_per_item latitude pairs, n parity), the
+    item's thread summing its parity's partial sums over n (ascending) for
+    the pair's low m and then its mirror, both parts, every row of the step
+    (each (m, pair, parity) taken by one item); F south = E + O, north =
+    E - O (the imaginary part of m = 0 set to 0) into the band's MMA
+    columns; each band's DFT as k-tiled products (float32: 3xTF32 as the
+    kernel splits them; float64: the DMMA's k order); g[i] = Pe + Po,
+    g[i + ix/2] = Pe - Po, then 1/cos(lat) unless kcos == 1."""
     B, L = unpack(tsp, False)
+    f32 = tsp.rdtype == torch.float32
+    dt = np.float32 if f32 else np.float64
+    B, L, p = B.astype(dt), L.astype(dt), np.asarray(p, dtype=dt)
     il, ix, mx, nx = tsp.il, tsp.ix, tsp.mx, tsp.nx
     ih, iy, h = ix // 2, il // 2, (mx + 1) // 2
-    tri = triangle_pairs(mx, nx).shape[1]
     rows = p.shape[0]
-    F = np.zeros((rows, 2, il, mx))
-
-    def m0(sl):
-        e, m = sl * tri // LEG_INV_SLICES, 0
-        while m < mx and tri_offset(m, nx) < e:
-            m += 1
-        return m
-
-    for sl in range(LEG_INV_SLICES):
-        for m in range(m0(sl), m0(sl + 1)):
-            lm = L[:, tri_offset(m, nx):tri_offset(m, nx) + nx - m]
-            pm = p[:, :, m, :nx - m]
-            E = np.einsum("jn,rcn->rcj", lm[:, 0::2], pm[..., 0::2])
-            O = np.einsum("jn,rcn->rcj", lm[:, 1::2], pm[..., 1::2])
-            F[:, :, :iy, m] = E + O
-            F[:, :, ::-1][:, :, :iy, m] = E - O
-    F[:, 1, :, 0] = 0.0
-    g = np.zeros((rows, il, ix))
-    for pb in range(iy // PAIRS):
-        q = np.arange(pb * PAIRS, (pb + 1) * PAIRS)
-        lat = np.concatenate([q, il - 1 - q])
-        Pe = sum(F[:, c][:, lat][..., 0::2] @ B[0, c * h:(c + 1) * h]
-                 for c in range(2))
-        Po = sum(F[:, c][:, lat][..., 1::2] @ B[1, c * h:(c + 1) * h]
-                 for c in range(2))
-        g[:, lat] = np.concatenate([Pe + Po, Pe - Po], axis=-1)
+    svw, k = plan["inverse_pairs_per_item"], len(plan["m_slices"][0]) // 2
+    band_of = {q: b for b, (b0, b1) in enumerate(plan["bands"])
+               for q in range(b0, b1)}
+    fin = [np.full((rows, 2, 2 * h, 2 * (b1 - b0)), np.nan, dtype=dt)
+           for b0, b1 in plan["bands"]]
+    taken = np.zeros((mx, iy, 2), dtype=int)
+    for ms in plan["m_slices"]:
+        # items (jl, pg, parity): the parities of one (jl, pg) are partner
+        # lanes and swap their sums
+        for jl in range(k):
+            for pg in range(iy // svw):
+                qs = np.arange(pg * svw, (pg + 1) * svw)
+                for m in (ms[jl], ms[2 * k - 1 - jl]):
+                    EO = []
+                    for par in range(2):
+                        taken[m, qs, par] += 1
+                        ns = np.arange(par, nx - m, 2)
+                        lm = L[qs][:, tri_offset(m, nx) + ns]   # (svw, n)
+                        acc = np.zeros((rows, 2, svw), dtype=dt)
+                        for j, n in enumerate(ns):
+                            acc = (acc + p[:, :, m, n, None] * lm[:, j]
+                                   ).astype(dt)
+                        EO.append(acc)
+                    for c in range(2):
+                        for v, q in enumerate(qs):
+                            b = band_of[q]
+                            pp = q - plan["bands"][b][0]
+                            col = c * h + m // 2
+                            e, o = EO[0][:, c, v], EO[1][:, c, v]
+                            if m == 0 and c == 1:
+                                e = o = np.zeros_like(e)
+                            fin[b][:, m % 2, col, 2 * pp] = e + o
+                            fin[b][:, m % 2, col, 2 * pp + 1] = e - o
+    assert (taken == 1).all()
+    g = np.zeros((rows, il, ix), dtype=dt)
+    prod = ((lambda a, t: k_tiled_3xtf32(a, t, plan["mma_k"])) if f32 else
+            (lambda a, t: k_tiled(a, t, plan["mma_k"])))
+    for b, band in enumerate(plan["bands"]):
+        lats = [lat for _, _, lat in slots(plan, il, band)][:fin[b].shape[-1]]
+        Pe = prod(np.swapaxes(fin[b][:, 0], 1, 2), B[0])
+        Po = prod(np.swapaxes(fin[b][:, 1], 1, 2), B[1])
+        g[:, lats] = np.concatenate([Pe + Po, Pe - Po], axis=-1)
     if kcos != 1:
-        g = g * tsp.cosgr.numpy()[:, None]
+        g = g * tsp.cosgr.numpy().astype(dt)[:, None]
     return g
-
-
-def model_inverse(tsp, p, kcos, plan, design):
-    """The inverse by design "cluster" (the plan's blocks) or "pair"."""
-    if design == "cluster":
-        return model_inverse_cluster(tsp, p, kcos, plan)
-    return model_inverse_pair(tsp, p, kcos)
 
 
 @pytest.mark.parametrize("plan_prec", sorted(DTYPES))
@@ -404,29 +407,31 @@ def test_model_of_the_direct_kernels_matches_jax(preset, plan_prec):
     assert rel_err(got, np.moveaxis(want, 0, 1)) <= 1e-12
 
 
-@pytest.mark.parametrize("design, plan_prec", [("cluster", "f32"),
-                                               ("cluster", "f64"),
-                                               ("pair", "f64")])
+@pytest.mark.parametrize("plan_prec", sorted(DTYPES))
 @pytest.mark.parametrize("kcos", [1, 2])
 @pytest.mark.parametrize("preset", sorted(PRESETS))
-def test_model_of_the_inverse_kernels_matches_jax(preset, kcos, design,
-                                                  plan_prec):
-    """Both inverse designs (the wrapper runs the library plan's; the
-    other is there to be measured), the cluster one with the blocks of each
-    type."""
+def test_model_of_the_inverse_kernels_matches_jax(preset, kcos, plan_prec):
+    """The inverse kernel's decomposition with the blocks of each type: in
+    float64 1e-12 of the largest value; in float32, on the float32 tables
+    and inputs with the 3xTF32 products emulated (k_tiled_3xtf32), 1e-5 of
+    the largest value of the JAX package's float64 result. The imaginary
+    part of m = 0 is never read."""
     JS, jsp = jax_transforms(preset)
-    tsp = transforms(preset)
+    f32 = plan_prec == "f32"
+    tsp = transforms(preset, plan_prec)
     plan = plan_of(preset, plan_prec)
     rng = np.random.default_rng(1310 + tsp.il + kcos)
     spec = random_pair(rng, (3,), tsp.mx, tsp.nx)
+    if f32:
+        spec = spec.astype(np.float32).astype(np.float64)
     want = JS.spec2grid_p(jsp, np.moveaxis(spec, 1, 0), kcos)
-    assert rel_err(model_inverse(tsp, spec, kcos, plan, design), want) \
-        <= 1e-12
+    assert rel_err(model_inverse(tsp, spec, kcos, plan), want) \
+        <= (1e-5 if f32 else 1e-12)
     dirty = spec.copy()
     dirty[:, 1, 0, :] = 1e3 * rng.standard_normal((3, tsp.nx))
     spec[:, 1, 0, :] = 0.0
-    assert np.array_equal(model_inverse(tsp, dirty, kcos, plan, design),
-                          model_inverse(tsp, spec, kcos, plan, design))
+    assert np.array_equal(model_inverse(tsp, dirty, kcos, plan),
+                          model_inverse(tsp, spec, kcos, plan))
 
 
 # ---------------------------------------------------------------------------
@@ -570,9 +575,6 @@ def _refusals(preset):
                           ValueError, "dense"),
         "inverse_layout": (i, (tsp, [z(2, 2, 4, 3, mx, nx).transpose(2, 3)],
                                1, 1), ValueError, "copies nothing"),
-        "inverse_design": (TK._spec2grid_many_design,
-                           (tsp, [p], 1, 1, "fused"), ValueError,
-                           "inverse design"),
         "off_the_kernel_route": (
             d, (tsp._replace(use_fused_kernels=False), [g]), ValueError,
             "kernel route"),
@@ -633,20 +635,19 @@ def _card_fields(sp, seed):
 def test_the_library_plan_is_the_modelled_decomposition(preset, prec):
     """Needs nvcc (and a card for the tables): the plan the library reports
     has the CPU model's blocks a cluster, bands, m pairs a block, rows a
-    step, MMA columns and depth; each cluster block's shared memory fits in
-    227 KiB; the inverse runs its cluster kernel at T63 in float64 and the
-    pair, with its scratch, elsewhere."""
+    step, MMA columns and depth, the inverse's threads, latitude pairs a
+    Legendre item and rows a step; each cluster block's shared memory fits
+    in 227 KiB; a call launches one kernel a direction."""
     sp = _card_tables(preset, prec)
     plan = TK.hires_kernel_plan(sp)
     model = plan_of(preset, prec)
     for key in ("cluster", "pairs_per_band", "rows_per_step", "band_columns",
-                "mma_k"):
+                "mma_k", "inverse_threads", "inverse_pairs_per_item",
+                "inverse_rows_per_step"):
         assert plan[key] == model[key], key
     assert plan["m_pairs"] == len(model["m_slices"][0]) // 2
     assert max(plan["direct_smem"], plan["inverse_smem"]) <= 227 * 1024
-    default = "cluster" if (preset, prec) == ("T63", "f64") else "pair"
-    assert plan["inverse"] == default
-    assert plan["pair_scratch_per_row"] == sp.mx * 4 * (sp.il // 2)
+    assert plan["inverse_kernels"] == ("hires_inverse_ws_kernel",)
 
 
 @pytest.mark.gpu
