@@ -18,11 +18,15 @@ JAX tool's shapes, a member alone bitwise as in the batch), drives the
 port's paths through the public entry points (the member-batched
 dynamics-only T30L8 model at a reduced depth; the main path:
 the full-physics T30L8 model, initialization and one model day of 128
-members; the bf16_tendencies configuration at a reduced depth; the SPPT
-path: the full-physics model with stochastic physics, one day of 128
-members; the API: ``Speedy`` in float64 for a day from the bundled boundary
-conditions, held against the golden fixture, and ``SpeedyEns`` with SPPT,
-batched against member by member; the probe stages on the model's own
+members; the bf16_tendencies configuration at a reduced depth, and at
+T47 and T63 a day of 128 members (row 3 with a bfloat16 grid bitwise the
+float32 / float64 kernel on the widened grid, rows 1-2 with bfloat16
+outputs from float32 and float64, float64 with the flag against the CPU);
+the SPPT path: the full-physics model with stochastic physics, one day of
+128 members; the API: ``Speedy`` in float64 for a day from the bundled
+boundary conditions, held against the golden fixture, and ``SpeedyEns``
+with SPPT (and with bf16_tendencies), batched against member by member;
+the probe stages on the model's own
 fields; the DFT chain through its entry point; the explicit gravity-wave
 branch, alph = 0 at 144 steps a day, a day of 128 members, with no
 spectral-update launch, a member alone bitwise equal to it in a batch and
@@ -868,11 +872,13 @@ def check_transforms(params, limit: float, card: str):
     return res
 
 
-def hires_bound(sp, nrows: int, direct: bool):
+def hires_bound(sp, nrows: int, direct: bool, grid_bytes=None):
     """Least time the card could take for `nrows` field rows of rows 3-4 at
-    T47/T63: the larger of the bytes (grid rows and spectral pairs each
-    moved once, the folded tables and the 1/cos column once) over the memory
-    rate and the folded work the kernels do (il*mx*ix DFT and il*triangle
+    T47/T63: the larger of the bytes (grid rows, of `grid_bytes` an element
+    (the tables' type's by default; 2 for a bfloat16 grid), and spectral
+    pairs each moved once, the folded tables and the 1/cos column once) over
+    the memory rate and the folded work the kernels do (il*mx*ix DFT and
+    il*triangle
     Legendre multiply-adds a row, two operations each) at the peak rate of
     the type outside the tensor cores; and the same with the work at the
     tensor cores' rate (DMMA in float64, 3xTF32 in float32), where the
@@ -884,7 +890,8 @@ def hires_bound(sp, nrows: int, direct: bool):
     tri = mx * nx - mx * (mx - 1) // 2
     tables = (sp.fold_dir if direct else sp.fold_inv).numel() + (
         0 if direct else il)
-    nbytes = (nrows * (il * ix + 2 * mx * nx) + tables) * w
+    gw = w if grid_bytes is None else grid_bytes
+    nbytes = nrows * (il * ix * gw + 2 * mx * nx * w) + tables * w
     ops = 2 * nrows * (il * mx * ix + il * tri)
     bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
     ops_ms = 1e3 * ops / PEAK_FLOPS[sp.rdtype]
@@ -1095,11 +1102,156 @@ def check_transforms_hires(params, limit: float, card: str, libs) -> dict:
     return res
 
 
+def hires_bf16_occupancy(libs, sp, trunc: int) -> tuple:
+    """The CUDA runtime's six numbers of the direct kernel's bfloat16-grid
+    instantiation at sp's shape and type (as hires_occupancy), held to the
+    library's plan for a bfloat16 grid."""
+    import ctypes
+    fn = ctypes.CDLL(str(libs["fused_transform_hires"])) \
+        .pyspeedy_fused_transform_hires_occupancy
+    plan = tk.hires_kernel_plan(sp, torch.bfloat16)
+    out = (ctypes.c_int * 6)()
+    rc = fn(0, trunc, tk.c_mode(torch.bfloat16, sp.rdtype), out)
+    if rc != 0:
+        raise RuntimeError(f"occupancy query of the bfloat16-grid direct "
+                           f"kernel at T{trunc} failed with {rc}")
+    want = (plan["direct_threads"], plan["direct_smem"], plan["cluster"])
+    if (out[1], out[2], out[5]) != want or out[2] > 227 * 1024:
+        raise RuntimeError(f"the bfloat16-grid direct kernel at T{trunc}: "
+                           f"{tuple(out)} against the plan's {want}")
+    return tuple(out), plan
+
+
+def check_transforms_hires_bf16(params, limit: float, card: str, libs):
+    """Row 3 at a T47/T63 shape with a bfloat16 grid
+    (hires_direct_cluster_kernel<S, T, __nv_bfloat16>): bitwise the tables'
+    type's instantiation fed the widened grid (the JAX package widens, then
+    transforms) at 1,024, 128 and 1 rows, a level slice of a stack and the
+    step's direct group as the bf16_tendencies step builds it (which is also
+    bitwise its fields launched one by one), and within `limit` of the
+    einsum chain of the widened grid; a mixed group launches once per type;
+    an unaligned bfloat16 grid is refused before launch. Its device ms at
+    1,024 rows and as the step's group beside the tables' type's on the
+    widened grid, the einsum chain and the bound with the grid at 2 bytes
+    an element. Returns the figures."""
+    sp = S.build_spectral(params, M.build_geometry(params),
+                          use_matmul_fft=True, device="cuda")
+    kx, prec = params.kx, params.precision
+    bf = torch.bfloat16
+    g2s = plain_of(sp, "direct")
+    bitwise, worst, max_abs = True, 0.0, 0.0
+    cases = []
+    for nmem, k in ((N_MEMBERS, kx), (N_MEMBERS, 1), (1, 1)):
+        g, _ = transform_inputs(sp, nmem, k, seed=60 + k)
+        cases.append(g.to(bf))
+    stack, _ = transform_inputs(sp, 16, 3 * kx, seed=63)
+    cases.append(stack.to(bf)[:, kx:2 * kx])
+    for g in cases:
+        got = tk.fused_grid2spec_cuda(sp, g, 1)
+        wide = tk.fused_grid2spec_cuda(sp, g.to(sp.rdtype), 1)
+        want = g2s(sp, g.to(sp.rdtype), 1)
+        bitwise &= torch.equal(got, wide) and got.dtype == sp.rdtype
+        worst = max(worst, _rel(got, want))
+        max_abs = max(max_abs, float((got - want).abs().max()))
+    _, fields, _ = step_groups(sp, params, N_MEMBERS, seed=64,
+                               grid_dtype=bf)["direct"]
+    widened = [f.to(sp.rdtype) for f in fields]
+    ck.reset_launch_counts()
+    many = tk.fused_grid2spec_many_cuda(sp, fields, 1)
+    one_launch = ck.launch_counts["fused_grid2spec_hires_bf16"] == 1
+    many_w = tk.fused_grid2spec_many_cuda(sp, widened, 1)
+    alone = [tk.fused_grid2spec_cuda(sp, f, 1) for f in fields]
+    bitwise &= all(torch.equal(a, b) for a, b in zip(many, many_w))
+    bitwise &= all(torch.equal(a, b) for a, b in zip(many, alone))
+    group_err = max(_rel(a, g2s(sp, w, 1)) for a, w in zip(many, widened))
+    worst = max(worst, group_err)
+    ck.reset_launch_counts()
+    mixed = tk.fused_grid2spec_many_cuda(sp, [fields[1], widened[2]], 1)
+    mixed_ok = (dict((k, v) for k, v in ck.launch_counts.items() if v)
+                == {"fused_grid2spec_hires": 1,
+                    "fused_grid2spec_hires_bf16": 1}
+                and torch.equal(mixed[0], many[1])
+                and torch.equal(mixed[1], many[2]))
+    base = cases[0]
+    unaligned = torch.empty(base.numel() + 8, dtype=bf, device="cuda")[
+        1:1 + base.numel()].view(base.shape)
+    try:
+        tk.fused_grid2spec_cuda(sp, unaligned, 1)
+        refused = False
+    except ValueError:
+        refused = True
+    torch.cuda.synchronize()
+    occ, plan = hires_bf16_occupancy(libs, sp, params.trunc)
+    tag = f"T{params.trunc}L{kx} {prec}"
+    ok = bitwise and one_launch and mixed_ok and refused and worst <= limit
+    print(f"kernel fused_grid2spec {tag}, bfloat16 grid "
+          f"(hires_direct_cluster_kernel<S, {'float' if prec == 'f32' else 'double'}, "
+          f"__nv_bfloat16>, widened as read): bitwise the {prec} kernel on "
+          f"the widened grid at 1,024, 128, 1 rows, a level slice and the "
+          f"step's direct group ({len(fields)} fields, one launch, bitwise "
+          f"its fields one by one): {bitwise}; max rel err vs the einsum "
+          f"chain of the widened grid {worst:.3e} (the group {group_err:.3e};"
+          f" limit {limit:.0e}); a mixed group launches once per type: "
+          f"{mixed_ok}; an unaligned bfloat16 grid refused before launch: "
+          f"{refused}; from the CUDA runtime: clusters of {occ[5]} blocks, "
+          f"{occ[0]} clusters at once, {occ[1]} threads, "
+          f"{occ[2] / 1024:.1f} KB shared memory a block ({plan['grid_buffers']}"
+          f" grid buffers), {occ[3]} registers, {occ[4]} B local [{card}]")
+    if not ok:
+        raise RuntimeError(f"row 3 at {tag} with a bfloat16 grid: bitwise "
+                           f"{bitwise}, one launch {one_launch}, mixed "
+                           f"{mixed_ok}, refused {refused}, err {worst:.3e}")
+    res = {"max_rel_err": worst, "max_abs_err": max_abs,
+           "bitwise_widened": bitwise, "occupancy": occ,
+           "grid_buffers": plan["grid_buffers"]}
+    name = "hires_direct_cluster_kernel"
+    timed = {"rows_1024": (cases[0], None), "group": (fields, widened)}
+    for key, (x, wide) in timed.items():
+        if key == "group":
+            launch = lambda: tk.fused_grid2spec_many_cuda(sp, x, 1)
+            launch_t = lambda: tk.fused_grid2spec_many_cuda(sp, wide, 1)
+            plain = lambda: [g2s(sp, f.to(sp.rdtype), 1) for f in x]
+            rows = group_rows(x, True)
+        else:
+            xw = x.to(sp.rdtype)
+            launch = lambda: tk.fused_grid2spec_cuda(sp, x, 1)
+            launch_t = lambda: tk.fused_grid2spec_cuda(sp, xw, 1)
+            plain = lambda: g2s(sp, x.to(sp.rdtype), 1)
+            rows = x.numel() // (sp.il * sp.ix)
+        ms, ms_t = [], []
+        for _ in range(2):     # in turns: bfloat16, widened, widened, bf16
+            ms.append(kernel_device_ms(launch, name, reps=10))
+            ms_t.append(kernel_device_ms(launch_t, name, reps=10))
+        (bound_ms, bound_by, _, _, nbytes, ops, tc_ms, tc_by,
+         _) = hires_bound(sp, rows, True, grid_bytes=2)
+        bound_t = hires_bound(sp, rows, True)[0]
+        r = {"rows": rows, "ms": min(ms), "ms_runs": ms,
+             "ms_widened": min(ms_t), "ms_widened_runs": ms_t,
+             "call_ms": time_ms(launch, reps=10),
+             "plain_ms": time_ms(plain, reps=3, warmup=1, windows=3),
+             "bound_ms": bound_ms, "bound_by": bound_by,
+             "bytes": nbytes, "flops": ops, "tc_bound_ms": tc_ms,
+             "tc_bound_by": tc_by, "bound_ms_widened": bound_t}
+        res[key] = r
+        print(f"  {key} {tag}, bfloat16 grid, {rows} rows: kernel "
+              + ", ".join(f"{v:.4f}" for v in ms) + f" ms on the card "
+              f"(the {prec} instantiation on the widened grid "
+              + ", ".join(f"{v:.4f}" for v in ms_t) + f" ms, in turns; "
+              f"{r['call_ms']:.4f} ms per wrapper call), the einsum chain of "
+              f"the widened grid {r['plain_ms']:.4f} ms, bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB, the "
+              f"grid at 2 bytes; {bound_t:.4f} ms with the grid at "
+              f"{sp.rdtype.itemsize}) = {100 * bound_ms / min(ms):.0f}%; on "
+              f"the tensor cores {tc_ms:.4f} ms by {tc_by} [{card}]")
+    return res
+
+
 def check_bf16_operands(params, card: str):
-    """The 2-byte operand mode of the direct transform against its plain
-    chain: limit 2^-8 of the output's largest value (one bfloat16 rounding of
-    the Fourier intermediate may fall the other way), the rms error beside
-    it."""
+    """The 2-byte operand mode of the direct transform (T30) against its
+    plain chain, sums and result in the tables' type (float32, or float64:
+    grid2spec_fold_kernel<double, __nv_bfloat16, true, 256>): limit 2^-8 of
+    the output's largest value (one bfloat16 rounding of the Fourier
+    intermediate may fall the other way), the rms error beside it."""
     consts, _ = M.build_consts(params, device="cuda", physics_on=False)
     sp = consts.sp
     kx = params.kx
@@ -1113,9 +1265,10 @@ def check_bf16_operands(params, card: str):
         worst = max(worst, _rel(got, want))
         max_abs = max(max_abs, float((got - want).abs().max()))
         rms = max(rms, float((got - want).pow(2).mean().sqrt()) / scale)
-        if got.dtype != torch.float32:
-            raise RuntimeError("2-byte operand mode must return float32")
-    vs_f32 = _rel(got, tk.grid2spec_plain(sp, g.float(), 1))
+        if got.dtype != sp.rdtype:
+            raise RuntimeError(f"2-byte operand mode must return "
+                               f"{sp.rdtype}")
+    vs_f32 = _rel(got, tk.grid2spec_plain(sp, g.to(sp.rdtype), 1))
     limit = 2.0 ** -8
     # The step's direct group with bfloat16 operands, as the
     # bf16_tendencies step builds it.
@@ -1133,11 +1286,12 @@ def check_bf16_operands(params, card: str):
     bound_ms, bound_by, nbytes, ops_ms, _ = transform_bound(
         sp, N_MEMBERS * kx, True, torch.bfloat16)
     print(f"kernel fused_grid2spec, 2-byte operands (bfloat16 grid and "
-          f"tables, float32 sums and result): max rel err vs its plain chain "
-          f"{worst:.3e} (limit 2^-8 = {limit:.3e}; the step's direct group "
-          f"{group_err:.3e}, bitwise equal to its fields launched one by "
-          f"one), rms {rms:.3e}; against the float32 transform of the same "
-          f"rounded grid {vs_f32:.3e}; {N_MEMBERS * kx} rows: kernel "
+          f"tables, {params.precision} sums and result): max rel err vs its "
+          f"plain chain {worst:.3e} (limit 2^-8 = {limit:.3e}; the step's "
+          f"direct group {group_err:.3e}, bitwise equal to its fields "
+          f"launched one by one), rms {rms:.3e}; against the "
+          f"{params.precision} transform of the same rounded grid "
+          f"{vs_f32:.3e}; {N_MEMBERS * kx} rows: kernel "
           f"{ms:.4f} ms on the card ({call_ms:.4f} ms per call), plain "
           f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms by bytes "
           f"({nbytes / 1e6:.1f} MB) = {100 * bound_ms / ms:.0f}%; dense "
@@ -1148,7 +1302,7 @@ def check_bf16_operands(params, card: str):
     sp_fft = S.build_spectral(params, M.build_geometry(params),
                               use_matmul_fft=False, device="cuda")
     group = time_group(sp, sp_fft, "direct", kind, fields, None, card,
-                       f"T30L{kx} 2-byte operands")
+                       f"T30L{kx} {params.precision} 2-byte operands")
     return {"max_rel_err_bf16": worst, "max_abs_err_bf16": max_abs,
             "rms_rel_err_bf16": rms, "ms_bf16": ms, "call_ms_bf16": call_ms,
             "plain_ms_bf16": plain_ms, "bound_ms_bf16": bound_ms,
@@ -1339,10 +1493,28 @@ def bf16_summary(results) -> str:
             f"(worst output of each)")
 
 
+def double_rounded(x) -> int:
+    """Elements of a float64 tensor whose bfloat16 rounding through float32
+    (how the kernels and the JAX package's astype(bfloat16) on the CPU round
+    a float64) differs from its direct rounding to nearest even: the cases
+    a float64 kernel's bfloat16 store has to get right."""
+    if x.dtype != torch.float64:
+        return 0
+    bits = x.contiguous().view(torch.int64)
+    lsb = (bits >> 45) & 1
+    direct = (((bits + (1 << 44) - 1 + lsb) >> 45) << 45).view(torch.float64)
+    finite = torch.isfinite(x) & (x.abs() < 3e38)
+    return int(((direct != x.to(torch.bfloat16).double()) & finite).sum())
+
+
 def check_bf16_outputs(params, card: str):
     """The bfloat16-output instantiations of the grid-dynamics and physics
-    kernels against their plain versions with the flag."""
+    kernels against their plain versions with the flag, at params' shapes
+    and type (a float64 kernel rounds through float32, as the plain
+    version's cast does: the elements where that differs from a direct
+    rounding are counted)."""
     consts, _ = M.build_consts(params, device="cuda")
+    tag = f"T{params.trunc}L{params.kx} {params.precision}"
     cb = dataclasses.replace(consts, bf16_tendencies=True)
     args = kernel_inputs(params, N_MEMBERS)
     k32 = ck.grid_dynamics_cuda(consts.col, *args)
@@ -1350,17 +1522,20 @@ def check_bf16_outputs(params, card: str):
     pb = grid_dynamics_core(consts.col, *args, bf16_out=True)
     shares = [bf16_agreement(f"grid_dynamics {n}", b, p, f)
               for n, b, p, f in zip(OUT_NAMES, kb, pb, k32)]
+    twice = sum(double_rounded(f) for f in k32)
     launch = lambda: ck.grid_dynamics_cuda(consts.col, *args, bf16_out=True)
     ms = kernel_device_ms(launch, "grid_dynamics_kernel")
     nbytes = sum(x.numel() * x.element_size() for x in (*args, *kb))
     bound_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
-    print(f"kernel grid_dynamics, bfloat16 outputs (all ten), T30L8 f32 "
-          f"B={N_MEMBERS}: every store is the rounding of the float32 value; "
-          f"vs the plain version with the flag {bf16_summary(shares)}; "
-          f"kernel {ms:.4f} ms on the card, bound {bound_ms:.4f} ms "
-          f"by bytes ({nbytes / 1e6:.1f} MB) [{card}]")
+    print(f"kernel grid_dynamics, bfloat16 outputs (all ten), {tag} "
+          f"B={N_MEMBERS}: every store is the rounding of the kernel's own "
+          f"value ({twice} float64 values where rounding through float32 "
+          f"differs from a direct rounding); vs the plain version with the "
+          f"flag {bf16_summary(shares)}; kernel {ms:.4f} ms on the card, "
+          f"bound {bound_ms:.4f} ms by bytes ({nbytes / 1e6:.1f} MB) "
+          f"[{card}]")
     out = {"grid_dynamics": {
-        "ms_bf16": ms, "bound_ms_bf16": bound_ms,
+        "ms_bf16": ms, "bound_ms_bf16": bound_ms, "double_rounded": twice,
         "share_differing_bf16": max(r["differ"] for r in shares),
         "share_over_one_unit_bf16": max(r["wide"] for r in shares)}}
 
@@ -1379,6 +1554,7 @@ def check_bf16_outputs(params, card: str):
         rp = PD.grid_physics(cb, sw_flag, *a, **kwargs)
         shares = [bf16_agreement(f"{name} {n}", rb[i], rp[i], f32[i])
                   for i, n in enumerate(PHYS_NAMES[:4])]
+        twice = sum(double_rounded(x) for x in f32[:4])
         for g, f in zip(_flatten(rb)[4:], _flatten(f32)[4:]):
             if g.dtype != params.dtype or not torch.equal(g, f):
                 raise RuntimeError(f"{name}: a diagnostic or cache field "
@@ -1387,13 +1563,15 @@ def check_bf16_outputs(params, card: str):
         ms = kernel_device_ms(launch, "grid_physics_kernel")
         bound_ms = physics_bound(
             params, sw_flag, a, {k: v for k, v in kwargs.items()}, rb)[0]
-        print(f"kernel {name}, bfloat16 tendencies (after the SPPT multiply; "
-              f"14 diagnostics and 7 cache fields stay float32 and are "
-              f"bitwise unchanged), grid_phi: vs the plain version with the "
-              f"flag {bf16_summary(shares)}; kernel {ms:.4f} ms on the card, "
-              f"bound {bound_ms:.4f} ms by bytes [{card}]")
+        print(f"kernel {name}, bfloat16 tendencies, {tag} B={N_MEMBERS} "
+              f"(after the SPPT multiply; 14 diagnostics and 7 cache fields "
+              f"stay {params.precision} and are bitwise unchanged), "
+              f"grid_phi ({twice} float64 values where rounding through "
+              f"float32 differs from a direct rounding): vs the plain version "
+              f"with the flag {bf16_summary(shares)}; kernel {ms:.4f} ms on "
+              f"the card, bound {bound_ms:.4f} ms by bytes [{card}]")
         out[name] = {
-            "ms_bf16": ms, "bound_ms_bf16": bound_ms,
+            "ms_bf16": ms, "bound_ms_bf16": bound_ms, "double_rounded": twice,
             "share_differing_bf16": max(r["differ"] for r in shares),
             "share_over_one_unit_bf16": max(r["wide"] for r in shares)}
     return out
@@ -1909,6 +2087,7 @@ KERNEL_OF_COUNTER = {
     "fused_grid2spec_bf16": "grid2spec_fold_kernel",
     "fused_spec2grid": "spec2grid_fold_kernel",
     "fused_grid2spec_hires": "direct",
+    "fused_grid2spec_hires_bf16": "direct",
     "fused_spec2grid_hires": "inverse",
     "spectral_update": "spectral_update_kernel"}
 
@@ -1918,7 +2097,7 @@ def _kernel_names(counter, sp) -> tuple:
     spectral tables are sp (none of rows 3-4 at T47/T63 off their
     shapes)."""
     name = KERNEL_OF_COUNTER[counter]
-    if counter.endswith("_hires"):
+    if "_hires" in counter:
         hires = (sp.il, sp.ix, sp.mx, sp.nx) in tk.HIRES_SHAPES
         return hires_kernels(sp, name) if hires else ()
     return (name,)
@@ -2356,15 +2535,19 @@ def graphs_phase(name: str, consts, run, state0, cal, n_steps: int,
             "state": state, "cal": c, "first": first}
 
 
-def card_vs_cpu(params, n_members: int, n_steps: int, what: str):
+def card_vs_cpu(params, n_members: int, n_steps: int, what: str,
+                bf16_tendencies: bool = False):
     """float64 from the same initial state (the card's initialization,
     copied to the host) through the card's kernels and through the CPU's
-    plain versions, grid_phi on in both: the largest difference over the
-    prognostics and six physics fields, relative to each field's largest
-    value, and the card's kernel launches. Raises past 1e-9."""
-    consts_g, state_g, cal = make_demo_model(params, device="cuda",
-                                             grid_phi=True)
-    consts_c, _ = M.build_consts(params, device="cpu", grid_phi=True)
+    plain versions, grid_phi on in both (and bf16_tendencies as given):
+    the largest difference over the prognostics and six physics fields,
+    relative to each field's largest value, and the card's kernel
+    launches. Raises past 1e-9."""
+    consts_g, state_g, cal = make_demo_model(
+        params, device="cuda", grid_phi=True,
+        bf16_tendencies=bf16_tendencies)
+    consts_c, _ = M.build_consts(params, device="cpu", grid_phi=True,
+                                 bf16_tendencies=bf16_tendencies)
     state_c = {k: (tuple(a.cpu() for a in v) if isinstance(v, tuple)
                    else v.cpu()) for k, v in state_g.items()}
     ctx, _ = M.build_step_ctx(dataclasses.replace(cal), 2, n_steps)
@@ -2582,6 +2765,7 @@ def preset_path(name: str, base, libs, card: str, phases) -> dict:
     same, diffs = bitwise_states({n: first(state[n]) for n in names},
                                  {n: alone[n] for n in names})
     res["member0_b128_vs_b1_bitwise"] = same
+    res["f32_model"] = (run, state1, cal)
     del alone
     if not same:
         raise RuntimeError(f"{name} path: member 0 of B={N_MEMBERS} differs "
@@ -2629,6 +2813,128 @@ def preset_path(name: str, base, libs, card: str, phases) -> dict:
     res["f64_max_rel_err"] = worst
     print(f"{name} f64 B=1 {N_STEPS_F64_PRESET} steps card vs CPU: max rel "
           f"err {worst:.3e} in {worst_name} (limit 1e-9)")
+    return res
+
+
+def bf16_preset_path(name: str, base, libs, card: str, phases,
+                     f32_model) -> dict:
+    """The bf16_tendencies configuration at a preset beyond T30 (T47L8,
+    T63L8), as the JAX package runs it there (the bfloat16 grid widened
+    before the ordinary transform): row 3 with a bfloat16 grid in float32
+    and float64 (check_transforms_hires_bf16), rows 1 and 2 with bfloat16
+    outputs in float32 and from float64 (check_bf16_outputs); then one
+    model day of N_MEMBERS members with the flag through the CUDA graphs,
+    its launch counts (the bfloat16 instantiations on the steps, the
+    einsum chain and every plain version never called), the graph day
+    bitwise the eager day, member 0 bitwise the same member run alone;
+    N_STEPS_BF16 steps from the same state against preset_path's float32
+    model (`f32_model`: its runner, state and calendar), the prognostics
+    within the JAX package's bounds of its own short bfloat16 runs and
+    moved by more than 1e-8; and a float64 day with the flag at B=1, the
+    card against the CPU."""
+    p32 = dataclasses.replace(base, precision="f32", fft_mode="matmul")
+    p64 = dataclasses.replace(base, fft_mode="matmul")
+    phases.start(f"{name} bf16_tendencies kernels")
+    res = {"transform": check_transforms_hires_bf16(p32, 1e-5, card, libs),
+           "transform_f64": check_transforms_hires_bf16(p64, 1e-12, card,
+                                                        libs),
+           "outputs": check_bf16_outputs(p32, card),
+           "outputs_f64": check_bf16_outputs(p64, card)}
+    n_steps = p32.nsteps
+    phases.start(f"{name} bf16_tendencies path, a day")
+    reset_counts()
+    consts, state1, cal = make_demo_model(p32, device="cuda",
+                                          bf16_tendencies=True)
+    run = make_run_steps_batched(consts, device="cuda")
+    state0 = broadcast_state(state1, N_MEMBERS)
+    captured = dict(run.graphs.stats)
+    state, cal_day, secs = run_window(run, state0, cal, 2, n_steps)
+    res["launches"] = read_path_counts(f"{name} bf16_tendencies path",
+                                       consts, 2, n_steps,
+                                       graph_evals(2, n_steps))
+    fields = dict(tk.field_counts)
+    check_state(state, N_MEMBERS, f"{name} bf16_tendencies path")
+    reset_counts()
+    alone, _, _ = run_window(run, broadcast_state(state1, 1), cal, 2, n_steps)
+    if (ck.launch_counts["fused_grid2spec_hires_bf16"] == 0
+            or any(plain_calls().values())):
+        raise RuntimeError(f"{name} bf16_tendencies path, B=1: launches "
+                           f"{ck.launch_counts}, plain calls {plain_calls()}")
+    names = PROGNOSTICS + ("phi", "precnv", "precls", "hfluxn")
+    first = lambda x: (tuple(a[:1] for a in x) if isinstance(x, tuple)
+                       else x[:1])
+    same, diffs = bitwise_states({n: first(state[n]) for n in names},
+                                 {n: alone[n] for n in names})
+    res["member0_b128_vs_b1_bitwise"] = same
+    del alone
+    if not same:
+        raise RuntimeError(f"{name} bf16_tendencies path: member 0 of "
+                           f"B={N_MEMBERS} differs from it alone: {diffs}")
+    print(f"{name} bf16_tendencies path: f32, full physics, {N_MEMBERS} "
+          f"members x {n_steps} steps (a model day) + initialization through "
+          f"the CUDA graphs: finite, error_flag false; launches "
+          f"{res['launches']} (the bfloat16 instantiations on each step "
+          f"kind's warm-up and capture, the float32 ones on the two "
+          f"bootstrap steps and the forcing), transform fields {fields}, no "
+          f"plain version and no einsum chain called; first graph day "
+          f"{1e3 * secs / n_steps:.3f} ms/step; member 0 of B={N_MEMBERS} "
+          f"bitwise equal to it alone after the day ({', '.join(names)}) "
+          f"[{card}]")
+    gph = graphs_phase(f"{name} bf16_tendencies path", consts, run, state0,
+                       cal, n_steps, state, cal_day, captured, card)
+    gph.pop("state")
+    del state0, state
+    # The flag against float32 from the same state, N_STEPS_BF16 steps of
+    # each runner's eager loop (the graph day is bitwise its eager day).
+    run32, state32, cal32 = f32_model
+    out_f, _, _ = run_window(run32, broadcast_state(state32, N_MEMBERS),
+                             cal32, 2, N_STEPS_BF16, eager=True)
+    out_b, _, _ = run_window(run, broadcast_state(state1, N_MEMBERS), cal, 2,
+                             N_STEPS_BF16, eager=True)
+    moved, rels = 0.0, {}
+    for field, bound in (("t", 1e-3), ("ps", 1e-3), ("vor", 5e-2),
+                         ("div", 5e-2)):
+        a, b = out_f[field][0], out_b[field][0]
+        if b.dtype != torch.float32:
+            raise RuntimeError(f"{field} left float32 with bf16_tendencies")
+        rels[field] = _rel(b, a)
+        moved = max(moved, rels[field])
+        if not rels[field] < bound:
+            raise RuntimeError(f"{name} bf16_tendencies: {field} differs "
+                               f"from the float32 run by {rels[field]:.3e} "
+                               f"after {N_STEPS_BF16} steps (bound {bound:g})")
+    if not moved > 1e-8:
+        raise RuntimeError(f"{name} bf16_tendencies had no effect")
+    del out_f, out_b
+    print(f"{name} bf16_tendencies path: prognostics vs the float32 run after "
+          f"{N_STEPS_BF16} steps from the same state, B={N_MEMBERS}, rel. to "
+          f"each field's largest value: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+          + " (bounds t, ps 1e-3; vor, div 5e-2; and more than 1e-8)")
+    g = gph["profile"]["graph"]
+    res.update(busy_ms=g["busy_ms"], launches_per_step=g["launches"],
+               ms_per_step=min(gph["ms_per_step"]["graph"]), graphs=gph,
+               rel_vs_f32=rels, fields=fields)
+    print(f"{name} bf16_tendencies path ({N_STEPS_PROFILED}-step graph "
+          f"window): busy ms/step {g['busy_ms']:.3f}; by group, ms/step: "
+          + "; ".join(f"{k} {v:.3f}" for k, v in g["groups"].items())
+          + "; by kernel, ms/step (launches/step): "
+          + "; ".join(f"{k} {ms:.3f} ({n:.2f})"
+                      for k, ms, n in gph["top"]["graph"]) + f" [{card}]")
+    phases.start(f"{name} bf16_tendencies path, f64 card vs CPU")
+    worst, worst_name, launches64 = card_vs_cpu(
+        p64, 1, N_STEPS_F64_PRESET, f"{name} f64 bf16_tendencies",
+        bf16_tendencies=True)
+    if not all(launches64[k] > 0 for k in (
+            "fused_grid2spec_hires_bf16", "grid_dynamics_bf16",
+            "fused_spec2grid_hires")):
+        raise RuntimeError(f"{name} f64 bf16_tendencies card run: launches "
+                           f"{launches64}")
+    res["f64_max_rel_err"] = worst
+    res["launches_f64"] = launches64
+    print(f"{name} f64 bf16_tendencies B=1 {N_STEPS_F64_PRESET} steps card "
+          f"vs CPU: max rel err {worst:.3e} in {worst_name} (limit 1e-9); "
+          f"launches {launches64}")
     return res
 
 
@@ -3144,6 +3450,7 @@ def main() -> None:
     tr32 = check_transforms(f32, 1e-5, card)
     tr64 = check_transforms(f64, 1e-12, card)
     tr_bf16 = check_bf16_operands(f32, card)
+    tr_bf16_64 = check_bf16_operands(f64, card)
     probes32 = check_probes(
         f32, 1e-5, card, libs,
         tr32["fused_grid2spec"]["groups"]["direct"]["ms"])
@@ -3151,6 +3458,7 @@ def main() -> None:
         f64, 1e-12, card, libs,
         tr64["fused_grid2spec"]["groups"]["direct"]["ms"])
     bf16_out = check_bf16_outputs(f32, card)
+    bf16_out64 = check_bf16_outputs(f64, card)
 
     # 4c. the spectral-update kernel vs plain (the three time steps of the
     # start-up sequence, dense and stride-0 member axes; float32, float64,
@@ -3676,7 +3984,47 @@ def main() -> None:
           f"{launches_ens}; members 0 and 1 against the same members stepped "
           f"one by one: bitwise equal (vor, div, t, ps, tr); members differ "
           f"in t by {ens_spread:.3e} (more than 1e-6) [{card}]")
-    del ens, seq, t_e
+    # The same with bf16_tendencies (the dense route's 2-byte operands):
+    # 4 members for a day, batched, against members 0 and 1 stepped one by
+    # one (bitwise), and against the float32 ensemble above.
+    reset_counts()
+    ens_b = SpeedyEns(4, start_date=datetime(1982, 1, 1),
+                      end_date=datetime(1982, 1, 2), params=p_ens,
+                      bf16_tendencies=True)
+    for member in ens_b:
+        member.set_bc()
+    ens_b.run()
+    torch.cuda.synchronize()
+    launches_ens_b = dict(ck.launch_counts)
+    plain_ens_b = plain_calls()
+    seq_b = SpeedyEns(2, start_date=datetime(1982, 1, 1),
+                      end_date=datetime(1982, 1, 2), params=p_ens,
+                      bf16_tendencies=True)
+    for member in seq_b:
+        member.set_bc()
+    seq_b.run(batched=False)
+    ens_b_bitwise = all(
+        torch.equal(a._state[n][0], b._state[n][0])
+        for a, b in zip(ens_b.members[:2], seq_b.members)
+        for n in ("vor", "div", "t", "ps", "tr"))
+    moved_b = _rel(ens_b.members[0]._state["t"][0],
+                   ens.members[0]._state["t"][0])
+    if (not ens_b_bitwise or not 1e-8 < moved_b < 1e-3
+            or not ens_b.members[0]._consts.bf16_tendencies
+            or any(plain_ens_b.values())
+            or not all(launches_ens_b[k] > 0 for k in (
+                "grid_dynamics_bf16", "grid_physics_sw_bf16",
+                "fused_grid2spec_bf16"))):
+        raise RuntimeError(f"SpeedyEns with bf16_tendencies: batched vs one "
+                           f"by one bitwise {ens_b_bitwise}, t vs the float32"
+                           f" ensemble {moved_b:.3e}, launches "
+                           f"{launches_ens_b}, plain calls {plain_ens_b}")
+    print(f"SpeedyEns phase, bf16_tendencies: 4 members, T30L8 f32 with SPPT "
+          f"for a day on the card, launches {launches_ens_b}, no plain call; "
+          f"members 0 and 1 bitwise the same members stepped one by one; "
+          f"member 0's t {moved_b:.3e} (rel.) from the float32 ensemble's "
+          f"(between 1e-8 and 1e-3) [{card}]")
+    del ens, seq, t_e, ens_b, seq_b
 
     # 6h. the explicit gravity-wave branch at full width (T30, alph = 0,
     # 144 steps a day): rows 1-4 and no spectral update.
@@ -3686,9 +4034,13 @@ def main() -> None:
     # 6i. the T47L8 and T63L8 presets at full width: rows 1, 2, 6 and the
     # T47/T63 transform kernels at their shapes and a model day through
     # them.
-    presets = {}
+    presets, bf16_presets = {}, {}
     for name, base in (("T47", T47L8), ("T63", T63L8)):
         presets[name] = preset_path(name, base, libs, card, phases)
+        # 6i'. the same presets with bf16_tendencies: row 3 with a bfloat16
+        # grid, rows 1-2 with bfloat16 outputs, a model day through them.
+        bf16_presets[name] = bf16_preset_path(
+            name, base, libs, card, phases, presets[name].pop("f32_model"))
 
     # 6j. the climatology check through the port's script (T30 f32, Speedy).
     phases.start("climatology phase")
@@ -3847,6 +4199,12 @@ def main() -> None:
     for il in ("il24", "il12"):
         kernels[0]["band_" + il] = md["bands"][il]["grid_dynamics"]
     kernels[0].update(bf16_out["grid_dynamics"])
+    kernels[0]["bf16_from_f64"] = bf16_out64["grid_dynamics"]
+    kernels[0]["bf16_presets"] = {
+        p: {"f32": r["outputs"]["grid_dynamics"],
+            "f64": r["outputs_f64"]["grid_dynamics"],
+            "launches": r["launches"]["grid_dynamics_bf16"]}
+        for p, r in bf16_presets.items()}
     for name in ("grid_physics_sw", "grid_physics_nosw"):
         kernels.append(entry(name, phys_src, phys_repl, launches[name],
                              phys32[name], shape + " grid_phi"))
@@ -3874,6 +4232,11 @@ def main() -> None:
             "flipped_columns"]
         kernels[-1]["launches_bf16_path"] = launches_b[name + "_bf16"]
         kernels[-1].update(bf16_out[name])
+        kernels[-1]["bf16_from_f64"] = bf16_out64[name]
+        kernels[-1]["bf16_presets"] = {
+            p: {"f32": r["outputs"][name], "f64": r["outputs_f64"][name],
+                "launches": r["launches"][name + "_bf16"]}
+            for p, r in bf16_presets.items()}
         kernels[-1]["launches_explicit_path"] = explicit["launches"][name]
         kernels[-1]["presets"] = preset_entries(name, "phys", name)
         kernels[-1]["launches_multidevice_2x2_per_rank"] = md_2x2[name]
@@ -3904,6 +4267,7 @@ def main() -> None:
     kernels[-2]["launches_bf16_path"] = launches_b["fused_grid2spec_bf16"]
     kernels[-2]["fields_bf16_path"] = fields_b["fused_grid2spec_bf16"]
     kernels[-2].update(tr_bf16)
+    kernels[-2].update({k + "_f64": v for k, v in tr_bf16_64.items()})
     # Rows 3-4 at T47/T63 (csrc/fused_transform_hires.cu, one device kernel
     # a launch, on thread-block clusters): launches on the T47 and T63 paths (the wrapper calls of
     # their graph days: the initialization and each step kind's warm-up and
@@ -3939,6 +4303,40 @@ def main() -> None:
                             "member_alone_bitwise_after_a_day":
                                 r["member0_b128_vs_b1_bitwise"]}
                         for p, r in presets.items()}})
+    # Row 3 at T47/T63 with a bfloat16 grid (bf16_tendencies there):
+    # launches on the two bf16_tendencies preset paths (the wrapper calls of
+    # their graph days); times and bound at T63 f32, 1,024 rows, the grid
+    # at 2 bytes; beside them the float32 instantiation on the widened grid.
+    t63b = bf16_presets["T63"]["transform"]["rows_1024"]
+    kernels.append({
+        "name": "fused_grid2spec_hires_bf16", "route": "cuda",
+        "source": "pyspeedy_tpu_torch/csrc/fused_transform_hires.cu",
+        "replaces": "tools/exp_fused_transform.py:65",
+        "kernels": ["hires_direct_cluster_kernel<S, T, __nv_bfloat16>"],
+        "launches": sum(r["launches"]["fused_grid2spec_hires_bf16"]
+                        for r in bf16_presets.values()),
+        "launches_on": "the T47 and T63 bf16_tendencies paths",
+        "launches_by_path": {
+            p: r["launches"]["fused_grid2spec_hires_bf16"]
+            for p, r in bf16_presets.items()},
+        "launches_f64_day": {
+            p: r["launches_f64"]["fused_grid2spec_hires_bf16"]
+            for p, r in bf16_presets.items()},
+        "max_abs_err": max(r["transform"]["max_abs_err"]
+                           for r in bf16_presets.values()),
+        "max_rel_err": max(r["transform"]["max_rel_err"]
+                           for r in bf16_presets.values()),
+        "ms": t63b["ms"], "call_ms": t63b["call_ms"],
+        "plain_ms": t63b["plain_ms"], "bound_ms": t63b["bound_ms"],
+        "bound_by": t63b["bound_by"], "library_ms": t63b["plain_ms"],
+        "ms_widened_f32_kernel": t63b["ms_widened"],
+        "shape": f"T63 f32, {N_MEMBERS * T63L8.kx} rows (B={N_MEMBERS} x "
+                 f"kx), bfloat16 grid",
+        "presets": {p: {"f32": r["transform"], "f64": r["transform_f64"],
+                        "member_alone_bitwise_after_a_day":
+                            r["member0_b128_vs_b1_bitwise"],
+                        "f64_day_card_vs_cpu": r["f64_max_rel_err"]}
+                    for p, r in bf16_presets.items()}})
     # The probes are not on the model's path: their launches are those of
     # the probe path above; the entry's times and bound are those of p2, the
     # whole chain for one part, at the tool's 256 rows, and every stage
@@ -4024,7 +4422,9 @@ def main() -> None:
     paths = {"T30 B=128": main_graphs, "T30 B=1": b1_graphs,
              "SPPT": sppt_graphs, "explicit": explicit["graphs"],
              "bf16_tendencies": bf16_graphs,
-             **{name: r["graphs"] for name, r in presets.items()}}
+             **{name: r["graphs"] for name, r in presets.items()},
+             **{name + " bf16_tendencies": r["graphs"]
+                for name, r in bf16_presets.items()}}
     print(json.dumps({"graphs": {name: {
         k: g[k] for k in ("bitwise", "diffs", "captures", "ms_per_step",
                           "profile")} for name, g in paths.items()}}))

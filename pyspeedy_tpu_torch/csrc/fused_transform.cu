@@ -15,10 +15,12 @@
 //   inverse  F[c, j, m] = sum_n leg_inv[j, m, n] * p[c, m, n]
 //            g[j, i]    = (sum_c sum_m F[c, j, m] * dft_inv[c, m, i]) * scale[j]
 // c indexes the (real, imaginary) parts. The inverse never reads the
-// imaginary part of m = 0 (the reference's "discard" rule). Three element
-// types: float, double, and the 2-byte operand mode of the direct transform
-// (grid, DFT table and Legendre table in bfloat16, float sums, the Fourier
-// intermediate rounded to bfloat16, float result).
+// imaginary part of m = 0 (the reference's "discard" rule). Element types:
+// float, double, and the 2-byte operand mode of the direct transform (grid,
+// DFT table and Legendre table in bfloat16, the Fourier intermediate rounded
+// to bfloat16) with float or double sums and result: the JAX package's
+// bfloat16 dense chain (ops/spectral.py::grid2spec_p) at precision f32 or
+// f64, whose Legendre product accumulates in the tables' type.
 //
 // What bounds the transform on an H100 (3.35 TB/s): the bytes. A T30 row
 // (il=48, ix=96, mx=31, nx=32) moves 18,432 B of grid and 7,936 B of spectral
@@ -148,7 +150,10 @@ __device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162floa
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
-__device__ __forceinline__ double round_bf16(double x) { return x; }  // never used
+// A double through float, as the JAX package rounds a float64 to bfloat16.
+__device__ __forceinline__ double round_bf16(double x) {
+  return __bfloat162float(__float2bfloat16_rn(static_cast<float>(x)));
+}
 
 // One field of a group: its rows are numbered member-major, per_member rows
 // to a member; strides in elements.
@@ -730,11 +735,13 @@ extern "C" int pyspeedy_fused_probe_occupancy(int kind, int mode, int* out) {
 
 // kind: 0 direct transform of a group, 1 inverse transform of a group,
 //       2..5 the probes p0..p3.
-// mode: 0 float, 1 double, 2 bfloat16 operands (direct transform only).
+// mode: 0 float, 1 double, 2 bfloat16 operands with float sums, 3 bfloat16
+//       operands with double sums (2 and 3: the direct transform only).
 // count: the group's segments (kinds 0, 1), or the rows (probes).
 // tables, by kind:
 //   0:       the direct kernel's folded tables (ops/spectral.py::_fold_tables;
-//            in the 2-byte mode their bfloat16 roundings, as float)
+//            in the 2-byte modes their bfloat16 roundings, as float or
+//            double)
 //   1:       the inverse kernel's folded tables, 1/cos(lat) (il,)
 //   2, 3, 4: grid, the direct kernel's folded tables, out
 //   5:       grid, out
@@ -747,13 +754,13 @@ extern "C" int pyspeedy_fused_transform(
     int kind, int mode, int count, int il, int ix, int mx, int nx,
     const void* const* tables, const long long* desc, void* stream) {
   if (count <= 0) return 0;
-  if (mode < 0 || mode > 2) return -1;
+  if (mode < 0 || mode > 3) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 
   if (kind == 0 || kind == 1) {
     if (il != kIL || ix != kIX || mx != kMX || nx != kNX) return -2;
     const bool inverse = kind == 1;
-    if (inverse && mode == 2) return -1;
+    if (inverse && mode >= 2) return -1;
     const int esize = mode == 0 ? 4 : mode == 1 ? 8 : 2;
     Group g;
     const long long total = read_group(g, count, desc, tables, inverse, esize);
@@ -771,12 +778,15 @@ extern "C" int pyspeedy_fused_transform(
     if (mode == 1)
       return launch_persistent<grid2spec_fold_kernel<double, double, false, 256>>(256,
                                direct_shared_bytes<double, double>(), g, total, s);
-    return launch_persistent<grid2spec_fold_kernel<float, __nv_bfloat16, true, 128>>(128,
-                             direct_shared_bytes<float, __nv_bfloat16>(), g, total, s);
+    if (mode == 2)
+      return launch_persistent<grid2spec_fold_kernel<float, __nv_bfloat16, true, 128>>(128,
+                               direct_shared_bytes<float, __nv_bfloat16>(), g, total, s);
+    return launch_persistent<grid2spec_fold_kernel<double, __nv_bfloat16, true, 256>>(256,
+                             direct_shared_bytes<double, __nv_bfloat16>(), g, total, s);
   }
 
   if (kind < 2 || kind > 5) return -4;
-  if (mode == 2) return -1;   // the probes have no 2-byte mode
+  if (mode >= 2) return -1;   // the probes have no 2-byte mode
   if (il != kIL || ix != kIX || mx != kMX || nx != kNX) return -2;
   if (mode == 0) return launch_probe_kind<float>(kind - 2, count, tables, s);
   return launch_probe_kind<double>(kind - 2, count, tables, s);

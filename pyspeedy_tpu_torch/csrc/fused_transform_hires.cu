@@ -29,7 +29,15 @@
 // against odd m), the Legendre sums over the northern latitudes and the
 // (m, n) triangle m + n <= nx - 1 only, using the tables' hemispheric parity.
 // The inverse never reads the imaginary part of m = 0 (the reference's
-// "discard" rule). float and double.
+// "discard" rule). float and double; the direct kernel also reads a bfloat16
+// grid (the bf16_tendencies configuration) against float or double tables:
+// it widens each value to the tables' type where its products read it, so
+// that instantiation is, bit for bit, the one of the tables' type fed the
+// widened grid, which is the JAX package's transform of a bfloat16 grid
+// off its dense route (ops/spectral.py::grid2spec_p widens, then the
+// ordinary transform). Its grid rows come in by 16-byte cp.async only (the
+// wrapper refuses a bfloat16 grid it cannot address so), half the bytes of
+// float, into a staging area of their own element type and pitch.
 //
 // The cluster design. The folded Legendre table is 172 / 344 KB (T47, float
 // / double) and 402 / 804 KB (T63), above the 227 KB a block can hold, and
@@ -105,7 +113,13 @@
 // one cluster barrier and the slowest block; the inverse's (clock64 spans
 // of scratch builds, PERF.md) on its DFT warps' products and stores, its
 // Legendre warps' sums and their remote stores, and the barrier between the
-// two.
+// two. A bfloat16 grid halves the grid's bytes, which moves the bound little
+// where the folded work binds (outside the tensor cores: T63, and T47 in
+// double) and leaves the kernel where it was: on an H100 the step's direct
+// group at 128 members took about the float kernel's time on the widened
+// grid in float (T47 0.74 against 0.72 ms, T63 1.56 against 1.52) and 10 %
+// less in double at T47, where the smaller grid rows let two grid buffers
+// fit (PERF.md).
 //
 // Interface: plain C, loaded with ctypes. The launches go to the stream they
 // are given, allocate nothing and do not synchronise; the function returns
@@ -113,6 +127,7 @@
 // kernels were not built for.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -181,9 +196,9 @@ __host__ __device__ constexpr int local_of(int m, int k, int mx) {
                         : k + m - (mx - (owner_of(m, k, mx) + 1) * k);
 }
 
-// The cluster plan of a shape and type (pyspeedy_fused_transform_hires_plan
-// reports it).
-template <class S, typename T>
+// The cluster plan of a shape, the tables' type T and the direct kernel's
+// grid type G (pyspeedy_fused_transform_hires_plan reports it).
+template <class S, typename T, typename G = T>
 struct Plan {
   static constexpr bool F64 = sizeof(T) == 8;
   static constexpr int C = (F64 && S::IL == 96) ? 8 : 4;   // blocks a cluster
@@ -197,26 +212,29 @@ struct Plan {
   static constexpr int NT = NPAD / 8;                      // n tiles
   static constexpr int KS = F64 ? 4 : 8;                   // MMA depth
   static constexpr int VW = 16 / static_cast<int>(sizeof(T));   // a 16-byte vector
-  // The pitch, in elements, of a grid row that puts the B fragments' loads
-  // on distinct banks: 4 mod 32 words (float) / 4 mod 16 doubles.
-  static constexpr int GP = S::IX + pad_to(S::IX, 4, F64 ? 16 : 32);
+  static constexpr int GS = static_cast<int>(sizeof(G));
+  // The pitch, in elements of G, of a grid row that puts the B fragments'
+  // loads on distinct banks: 4 mod 32 words (float) / 4 mod 16 doubles; for
+  // bfloat16, 8 mod 64 elements (4 mod 32 words, a lane's 4 k values in 2),
+  // which also keeps each row's 16-byte chunks aligned.
+  static constexpr int GP = GS == 2 ? S::IX + pad_to(S::IX, 8, 64)
+                                    : S::IX + pad_to(S::IX, 4, F64 ? 16 : 32);
   static constexpr int MT_DIR = S::COLS / 16;              // column tiles of a parity
   static constexpr int MT_INV = (S::IH + 15) / 16;         // longitude tiles
   static constexpr int DIR_THREADS = 2 * 32 * MT_DIR;      // a warp a (parity, tile)
   static constexpr int KS_DIR = S::IH / KS, KS_INV = S::COLS / KS;
   // Direct: the block's Legendre table (il/2 / VW, ENT, VW), the Fourier
   // values it receives (2 buffers, R rows, MS, c, sum / difference, il/2),
-  // the band's grid rows (GBUF buffers, NPAD, GP): two where they fit and the
-  // block is alone on its SM anyway, so the next rows are copied in while
-  // these are transformed.
+  // the band's grid rows (GBUF buffers, NPAD, GP, in G): two where they fit
+  // and the block is alone on its SM anyway, so the next rows are copied in
+  // while these are transformed.
   static constexpr int XROW = MS * 4 * S::IY;
   static constexpr int D_SL = S::IY * ENT, D_XIN = 2 * R * XROW, D_ROWS = NPAD * GP;
-  static constexpr int D_ONE = static_cast<int>(sizeof(T)) * (D_SL + D_XIN + D_ROWS);
+  static constexpr int D_TAB = static_cast<int>(sizeof(T)) * (D_SL + D_XIN);   // bytes
+  static constexpr int D_ONE = D_TAB + GS * D_ROWS;
   static constexpr int GBUF =
-      2 * (D_ONE + 1024) > 233472 && D_ONE + static_cast<int>(sizeof(T)) * D_ROWS <= kSmemLimit
-          ? 2 : 1;
-  static constexpr int D_GRID = GBUF * D_ROWS;
-  static constexpr size_t DIR_SMEM = sizeof(T) * (D_SL + D_XIN + D_GRID);
+      2 * (D_ONE + 1024) > 233472 && D_ONE + GS * D_ROWS <= kSmemLimit ? 2 : 1;
+  static constexpr size_t DIR_SMEM = static_cast<size_t>(D_TAB) + GS * GBUF * D_ROWS;
   // Blocks an SM holds by their shared memory (1 KB of each is the system's),
   // the registers' budget of __launch_bounds__.
   static constexpr int DIR_MINB = 2 * (DIR_SMEM + 1024) <= 233472 ? 2 : 1;
@@ -254,6 +272,7 @@ struct Plan {
   static_assert(S::IH % KS == 0 && S::COLS % KS == 0, "MMA depth");
   static_assert(DIR_SMEM <= kSmemLimit && INV_SMEM <= kSmemLimit, "shared memory of a block");
   static_assert(S::IH % VW == 0, "vectors of a row");
+  static_assert(D_TAB % 16 == 0 && (GP * GS) % 16 == 0, "16-byte chunks of the grid rows");
   static_assert(INV_ITEMS <= 32 * INV_LEG_WARPS && S::IY % INV_SVW == 0, "Legendre items");
   static_assert((I_SL + I_P) % VW == 0 && INV_FP % VW == 0 && (2 * INV_R) % VW == 0,
                 "16-byte vectors of a pair's Fourier values");
@@ -474,10 +493,30 @@ __device__ __forceinline__ void mma_step(double (&acc)[NT][4], const AFrags<doub
 // ---------------------------------------------------------------------------
 // Direct transform: grid rows -> spectral pairs
 // ---------------------------------------------------------------------------
-template <class S, typename T>
-__global__ void __launch_bounds__(Plan<S, T>::DIR_THREADS, Plan<S, T>::DIR_MINB)
+
+// A grid value of type G in the tables' type T: bfloat16 widened (exactly),
+// any other type as it is.
+template <typename T, typename G>
+__device__ __forceinline__ T widen(G x) {
+  if constexpr (sizeof(G) == 2)
+    return static_cast<T>(__bfloat162float(x));
+  else
+    return x;
+}
+template <typename G>
+__device__ __forceinline__ G zero_of() {
+  if constexpr (sizeof(G) == 2)
+    return __ushort_as_bfloat16(static_cast<unsigned short>(0));
+  else
+    return G(0);
+}
+
+// T: the tables' type, in which everything is computed and stored; G: the
+// grid's (T, or bfloat16).
+template <class S, typename T, typename G>
+__global__ void __launch_bounds__(Plan<S, T, G>::DIR_THREADS, Plan<S, T, G>::DIR_MINB)
 hires_direct_cluster_kernel(const __grid_constant__ Group g, long long rows) {
-  using P = Plan<S, T>;
+  using P = Plan<S, T, G>;
   constexpr int C = P::C, K = P::K, MS = P::MS, NP = P::NP, NB = P::NB, R = P::R;
   constexpr int NPAD = P::NPAD, NT = P::NT, KS = P::KS, VW = P::VW, GP = P::GP;
   constexpr int ENT = P::ENT, XROW = P::XROW, THREADS = P::DIR_THREADS, KSTEPS = P::KS_DIR;
@@ -490,7 +529,8 @@ hires_direct_cluster_kernel(const __grid_constant__ Group g, long long rows) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sL = reinterpret_cast<T*>(smem_raw);   // (il/2 / VW, ENT, VW)
   T* xin = sL + P::D_SL;                    // (2, R, MS, c, sd, il/2)
-  T* sG = xin + P::D_XIN;                   // (GBUF, NPAD, GP): slot NB rr + 2 pp + hemisphere
+  // (GBUF, NPAD, GP): slot NB rr + 2 pp + hemisphere
+  G* sG = reinterpret_cast<G*>(smem_raw + P::D_TAB);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, tq = lane & 3;
   const int p0 = rank * NP;
@@ -544,7 +584,7 @@ hires_direct_cluster_kernel(const __grid_constant__ Group g, long long rows) {
   }
   for (int bf = 0; bf < P::GBUF; ++bf)
     for (int idx = tid; idx < (NPAD - R * NB) * GP; idx += THREADS)
-      sG[bf * P::D_ROWS + R * NB * GP + idx] = T(0);
+      sG[bf * P::D_ROWS + R * NB * GP + idx] = zero_of<G>();
 
   // The band's grid rows of a unit's rows into buffer `buf`: slot NB rr + 2 pp
   // (south, latitude p0 + pp) and NB rr + 2 pp + 1 (north, il - 1 - p0 - pp).
@@ -554,17 +594,17 @@ hires_direct_cluster_kernel(const __grid_constant__ Group g, long long rows) {
       const long long row = unit * R + rr;
       if (row >= rows) break;
       const Segment& s = g.seg[find_segment(g, row)];
-      const T* src = row_in<T>(s, row - s.first);
-      T* dst = sG + buf * P::D_ROWS + rr * NB * GP;
-      if (s.aligned) {
-        constexpr int CH = S::IX * static_cast<int>(sizeof(T)) / 16;
+      const G* src = row_in<G>(s, row - s.first);
+      G* dst = sG + buf * P::D_ROWS + rr * NB * GP;
+      if (sizeof(G) == 2 || s.aligned) {   // bfloat16: always (run checks)
+        constexpr int CH = S::IX * static_cast<int>(sizeof(G)) / 16;
         for (int q = tid; q < NB * CH; q += THREADS) {
           const int n = q / CH, ch = q - n * CH;
           const int lat = (n & 1) ? S::IL - 1 - (p0 + (n >> 1)) : p0 + (n >> 1);
           cp_async16(reinterpret_cast<unsigned char*>(dst + n * GP) + 16 * ch,
                      reinterpret_cast<const unsigned char*>(src + lat * S::IX) + 16 * ch);
         }
-      } else {
+      } else if constexpr (sizeof(G) != 2) {
         for (int q = tid; q < NB * S::IX; q += THREADS) {
           const int n = q / S::IX, i = q - n * S::IX;
           const int lat = (n & 1) ? S::IL - 1 - (p0 + (n >> 1)) : p0 + (n >> 1);
@@ -581,7 +621,7 @@ hires_direct_cluster_kernel(const __grid_constant__ Group g, long long rows) {
   for (int s = 0; unit < units; unit += ncl, s ^= 1) {
     cp_async_wait_all();
     __syncthreads();
-    const T* gb = sG + (P::GBUF == 2 ? s : 0) * P::D_ROWS;
+    const G* gb = sG + (P::GBUF == 2 ? s : 0) * P::D_ROWS;
     if (P::GBUF == 2 && unit + ncl < units) issue(unit + ncl, s ^ 1);
     cp_async_commit();
 
@@ -597,12 +637,12 @@ hires_direct_cluster_kernel(const __grid_constant__ Group g, long long rows) {
       T b0[NT], b1[NT];
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
-        const T* r = gb + (nt * 8 + gq) * GP + ks * KS + tq;
-        const T u0 = r[0], v0 = r[S::IH];
+        const G* r = gb + (nt * 8 + gq) * GP + ks * KS + tq;
+        const T u0 = widen<T>(r[0]), v0 = widen<T>(r[S::IH]);
         b0[nt] = par ? u0 - v0 : u0 + v0;
         b1[nt] = T(0);
         if constexpr (sizeof(T) == 4) {
-          const T u1 = r[4], v1 = r[S::IH + 4];
+          const T u1 = widen<T>(r[4]), v1 = widen<T>(r[S::IH + 4]);
           b1[nt] = par ? u1 - v1 : u1 + v1;
         }
       }
@@ -1065,10 +1105,11 @@ int launch(int cluster, int threads, size_t bytes, const Group& g, long long row
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class S, typename T>
+template <class S, typename T, typename G>
 int run_direct(const Group& g, long long rows, cudaStream_t s) {
-  using P = Plan<S, T>;
-  return launch<hires_direct_cluster_kernel<S, T>>(P::C, P::DIR_THREADS, P::DIR_SMEM, g, rows, s);
+  using P = Plan<S, T, G>;
+  return launch<hires_direct_cluster_kernel<S, T, G>>(P::C, P::DIR_THREADS, P::DIR_SMEM, g, rows,
+                                                      s);
 }
 
 template <class S, typename T>
@@ -1117,13 +1158,18 @@ long long read_group(Group& g, int nseg, const long long* desc, const void* cons
   return total;
 }
 
-template <class S, typename T>
+// G: the direct kernel's grid type (the inverse reads T).
+template <class S, typename T, typename G = T>
 int run(int kind, int count, const void* const* tables, const long long* desc, cudaStream_t s) {
   Group g;
   const long long rows = read_group(g, count, desc, tables, kind != 0,
-                                    static_cast<int>(sizeof(T)), S::IX);
+                                    static_cast<int>(sizeof(G)), S::IX);
   if (rows < 0) return static_cast<int>(rows);
-  return kind == 0 ? run_direct<S, T>(g, rows, s) : run_inverse<S, T>(g, rows, s);
+  if (kind != 0) return run_inverse<S, T>(g, rows, s);
+  if (sizeof(G) == 2)   // a bfloat16 grid is copied in 16-byte chunks only
+    for (int q = 0; q < g.nseg; ++q)
+      if (!g.seg[q].aligned) return -8;
+  return run_direct<S, T, G>(g, rows, s);
 }
 
 template <auto kernel>
@@ -1143,14 +1189,16 @@ int occupancy(int cluster, int threads, size_t bytes, int* out) {
   return 0;
 }
 
-// The inverse pair's stages: resident blocks per SM, threads, shared memory,
-// registers, local bytes, slices of the grid.
-template <class S, typename T>
+// A kernel's clusters at once, threads, shared memory, registers, local
+// bytes, blocks a cluster (kind 0 the direct kernel with grid type G, 1 the
+// inverse).
+template <class S, typename T, typename G = T>
 int occupancy_of(int kind, int* out) {
-  using P = Plan<S, T>;
+  using P = Plan<S, T, G>;
   switch (kind) {
     case 0:
-      return occupancy<hires_direct_cluster_kernel<S, T>>(P::C, P::DIR_THREADS, P::DIR_SMEM, out);
+      return occupancy<hires_direct_cluster_kernel<S, T, G>>(P::C, P::DIR_THREADS, P::DIR_SMEM,
+                                                             out);
     case 1:
       return occupancy<hires_inverse_ws_kernel<S, T>>(P::C, P::INV_THREADS, P::INV_SMEM, out);
     default:
@@ -1158,10 +1206,10 @@ int occupancy_of(int kind, int* out) {
   }
 }
 
-// The plan of a shape and type, as ints (see pyspeedy_fused_transform_hires_plan).
-template <class S, typename T>
+// The plan of a shape and types, as ints (see pyspeedy_fused_transform_hires_plan).
+template <class S, typename T, typename G = T>
 void plan_of(int* out) {
-  using P = Plan<S, T>;
+  using P = Plan<S, T, G>;
   const int v[] = {P::C, P::K, P::NP, P::R, P::NPAD, P::KS, P::DIR_THREADS,
                    static_cast<int>(P::DIR_SMEM), P::GBUF, P::INV_THREADS, P::INV_SVW,
                    P::INV_R, static_cast<int>(P::INV_SMEM)};
@@ -1177,35 +1225,49 @@ int shape_of(int il, int ix, int mx, int nx) {
 
 }  // namespace
 
-// out, the Plan at truncation 47 or 63 in mode 0 (float) or 1 (double), 13
-// ints: blocks a cluster, m pairs of a block, latitude pairs of a band, rows
-// a direct cluster step, MMA columns of a direct step, MMA depth; the direct
-// kernel's threads and shared memory (bytes), its grid buffers; the inverse
-// kernel's threads, latitude pairs a Legendre item, rows a step and shared
-// memory (bytes). Needs no device.
+// out, the Plan at truncation 47 or 63 in a mode (see
+// pyspeedy_fused_transform_hires), 13 ints: blocks a cluster, m pairs of a
+// block, latitude pairs of a band, rows a direct cluster step, MMA columns of
+// a direct step, MMA depth; the direct kernel's threads and shared memory
+// (bytes), its grid buffers; the inverse kernel's threads, latitude pairs a
+// Legendre item, rows a step and shared memory (bytes). Needs no device.
 extern "C" int pyspeedy_fused_transform_hires_plan(int trunc, int mode, int* out) {
+  using B = __nv_bfloat16;
   if (trunc == 47 && mode == 0) plan_of<T47, float>(out);
   else if (trunc == 47 && mode == 1) plan_of<T47, double>(out);
+  else if (trunc == 47 && mode == 2) plan_of<T47, float, B>(out);
+  else if (trunc == 47 && mode == 3) plan_of<T47, double, B>(out);
   else if (trunc == 63 && mode == 0) plan_of<T63, float>(out);
   else if (trunc == 63 && mode == 1) plan_of<T63, double>(out);
+  else if (trunc == 63 && mode == 2) plan_of<T63, float, B>(out);
+  else if (trunc == 63 && mode == 3) plan_of<T63, double, B>(out);
   else return -1;
   return 0;
 }
 
-// out, from the CUDA runtime, at truncation 47 or 63 in mode 0 (float) or 1
-// (double), kind 0 the direct kernel, kind 1 the inverse: clusters the
-// current device holds at once, threads a block, shared memory a block
-// (bytes), registers, local memory (bytes), blocks a cluster.
+// out, from the CUDA runtime, at truncation 47 or 63 in a mode (see
+// pyspeedy_fused_transform_hires; 2 and 3 for kind 0 only), kind 0 the
+// direct kernel, kind 1 the inverse: clusters the current device holds at
+// once, threads a block, shared memory a block (bytes), registers, local
+// memory (bytes), blocks a cluster.
 extern "C" int pyspeedy_fused_transform_hires_occupancy(int kind, int trunc, int mode, int* out) {
+  using B = __nv_bfloat16;
+  if (mode >= 2 && kind != 0) return -1;
   if (trunc == 47 && mode == 0) return occupancy_of<T47, float>(kind, out);
   if (trunc == 47 && mode == 1) return occupancy_of<T47, double>(kind, out);
+  if (trunc == 47 && mode == 2) return occupancy_of<T47, float, B>(kind, out);
+  if (trunc == 47 && mode == 3) return occupancy_of<T47, double, B>(kind, out);
   if (trunc == 63 && mode == 0) return occupancy_of<T63, float>(kind, out);
   if (trunc == 63 && mode == 1) return occupancy_of<T63, double>(kind, out);
+  if (trunc == 63 && mode == 2) return occupancy_of<T63, float, B>(kind, out);
+  if (trunc == 63 && mode == 3) return occupancy_of<T63, double, B>(kind, out);
   return -1;
 }
 
 // kind: 0 direct transform of a group, 1 inverse transform of a group.
-// mode: 0 float, 1 double.
+// mode: 0 float, 1 double; 2 and 3 (kind 0 only) a bfloat16 grid against
+//   float (2) or double (3) tables, its rows and strides 16-byte aligned
+//   (else -8).
 // count: the group's segments.
 // tables: 0: the direct folded tables (ops/spectral.py::_fold_tables);
 //         1: the inverse folded tables, 1/cos(lat) (il,).
@@ -1215,17 +1277,19 @@ extern "C" int pyspeedy_fused_transform_hires_occupancy(int kind, int trunc, int
 extern "C" int pyspeedy_fused_transform_hires(int kind, int mode, int count, int il, int ix,
                                               int mx, int nx, const void* const* tables,
                                               const long long* desc, void* stream) {
+  using B = __nv_bfloat16;
   if (count <= 0) return 0;
-  if (mode < 0 || mode > 1 || kind < 0 || kind > 1) return -1;
+  if (mode < 0 || mode > 3 || kind < 0 || kind > 1 || (mode >= 2 && kind != 0)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (shape_of(il, ix, mx, nx)) {
-    case 47:
-      return mode == 0 ? run<T47, float>(kind, count, tables, desc, s)
-                       : run<T47, double>(kind, count, tables, desc, s);
-    case 63:
-      return mode == 0 ? run<T63, float>(kind, count, tables, desc, s)
-                       : run<T63, double>(kind, count, tables, desc, s);
-    default:
-      return -2;
+  switch (shape_of(il, ix, mx, nx) * 4 + mode) {
+    case 47 * 4 + 0: return run<T47, float>(kind, count, tables, desc, s);
+    case 47 * 4 + 1: return run<T47, double>(kind, count, tables, desc, s);
+    case 47 * 4 + 2: return run<T47, float, B>(kind, count, tables, desc, s);
+    case 47 * 4 + 3: return run<T47, double, B>(kind, count, tables, desc, s);
+    case 63 * 4 + 0: return run<T63, float>(kind, count, tables, desc, s);
+    case 63 * 4 + 1: return run<T63, double>(kind, count, tables, desc, s);
+    case 63 * 4 + 2: return run<T63, float, B>(kind, count, tables, desc, s);
+    case 63 * 4 + 3: return run<T63, double, B>(kind, count, tables, desc, s);
+    default: return -2;
   }
 }

@@ -31,10 +31,13 @@
 // on an H100 at 128 members and was no faster in float or double, so the
 // scalar form stays.
 //
-// Output types: the model's scalar type, or (float only, `out_bf16`) all ten
-// outputs rounded to bfloat16, to nearest even, from the float value at the
-// store: the 2-byte operands of the bf16_tendencies configuration, whose
-// direct transforms read them as they are.
+// Output types: the model's scalar type, or (`out_bf16`) all ten outputs
+// rounded to bfloat16, to nearest even, from the float value at the store:
+// the 2-byte operands of the bf16_tendencies configuration, whose direct
+// transforms read them. A double value is rounded to float first, as the JAX
+// package's astype(bfloat16) of a float64 array rounds it on the CPU (twice:
+// a value just past a bfloat16 tie may land on the tie in float and round to
+// even).
 //
 // Interface: plain C, loaded with ctypes. The launch goes to the stream it is
 // given, allocates nothing and does not synchronise; the function returns
@@ -61,7 +64,7 @@ struct ColumnTables {
   double akap;
 };
 
-// Store one output value: as it is, or rounded to bfloat16 (float only).
+// Store one output value: as it is, or rounded to bfloat16 through float.
 template <bool BF16, typename T>
 __device__ __forceinline__ void put(void* __restrict__ p, long long o, T v) {
   if constexpr (BF16)
@@ -234,7 +237,7 @@ int launch_kx(int kx, long long nmem, int ntr, int il, int ix,
 //      flux_qu, flux_qv, ke                                       (10 pointers)
 // levels: 5*kx doubles on the host: dhs, dhsr, fsgr, tref, tref3.
 // elem_size: 4 (float) or 8 (double), the type of the inputs. out_bf16: the
-// ten outputs are bfloat16 buffers (float inputs only).
+// ten outputs are bfloat16 buffers.
 extern "C" int pyspeedy_grid_dynamics(
     int elem_size, int out_bf16, int kx, int ntr, long long nmem, int il, int ix,
     const void* const* in, void* const* out, const double* levels,
@@ -255,7 +258,9 @@ extern "C" int pyspeedy_grid_dynamics(
     return launch_kx<float, true>(kx, nmem, ntr, il, ix, in, out, tab, s);
   if (elem_size == 4)
     return launch_kx<float, false>(kx, nmem, ntr, il, ix, in, out, tab, s);
-  if (elem_size == 8 && !out_bf16)
+  if (elem_size == 8 && out_bf16)
+    return launch_kx<double, true>(kx, nmem, ntr, il, ix, in, out, tab, s);
+  if (elem_size == 8)
     return launch_kx<double, false>(kx, nmem, ntr, il, ix, in, out, tab, s);
   return -1;
 }

@@ -324,7 +324,8 @@ __device__ __forceinline__ void emission(P t, const PhysTables<T>& tab,
   }
 }
 
-// Store one tendency value: as it is, or rounded to bfloat16 (float only).
+// Store one tendency value: as it is, or rounded to bfloat16 through float
+// (a double as the JAX package's astype(bfloat16) rounds it on the CPU).
 template <bool BF16, typename T>
 __device__ __forceinline__ void put_tend(void* p, long long o, T v) {
   if constexpr (BF16)
@@ -334,7 +335,8 @@ __device__ __forceinline__ void put_tend(void* p, long long o, T v) {
 }
 
 // BF16: the four tendencies leave as bfloat16, rounded to nearest even from
-// the float value after the SPPT multiply (the bf16_tendencies configuration);
+// the float value after the SPPT multiply (the bf16_tendencies configuration,
+// in either scalar type);
 // the diagnostics and the radiation cache keep the scalar type.
 template <typename T, int KX, bool SW, bool BF16>
 __global__ void __launch_bounds__(Block<T>::threads, Block<T>::min_blocks)
@@ -1150,7 +1152,7 @@ int launch_kx(int kx, bool sw, long long nmem, int il, int ix, const PhysArgs& a
 // levels: in the scalar type (elem_size bytes each), 17 rows of kx values
 //   (the arrays of PhysTables in order) followed by its 8 scalars.
 // elem_size: 4 (float) or 8 (double). tend_bf16: utend, vtend, ttend and qtend
-// are bfloat16 buffers (float only).
+// are bfloat16 buffers.
 extern "C" int pyspeedy_grid_physics(
     int elem_size, int tend_bf16, int kx, int sw_flag, int sea_coupled, long long nmem, int il,
     int ix, const void* const* ptrs, const long long* strides,
@@ -1183,8 +1185,9 @@ extern "C" int pyspeedy_grid_physics(
   if (elem_size == 4 && tend_bf16)
     return launch_kx<float, true>(kx, sw, nmem, il, ix, a, levels, s);
   if (elem_size == 4) return launch_kx<float, false>(kx, sw, nmem, il, ix, a, levels, s);
-  if (elem_size == 8 && !tend_bf16)
-    return launch_kx<double, false>(kx, sw, nmem, il, ix, a, levels, s);
+  if (elem_size == 8 && tend_bf16)
+    return launch_kx<double, true>(kx, sw, nmem, il, ix, a, levels, s);
+  if (elem_size == 8) return launch_kx<double, false>(kx, sw, nmem, il, ix, a, levels, s);
   return -1;
 }
 
@@ -1194,6 +1197,7 @@ extern "C" int pyspeedy_grid_physics_occupancy(int elem_size, int tend_bf16, int
   const bool sw = sw_flag != 0;
   if (elem_size == 4 && tend_bf16) return occupancy_kx<float, true>(kx, sw, out);
   if (elem_size == 4) return occupancy_kx<float, false>(kx, sw, out);
-  if (elem_size == 8 && !tend_bf16) return occupancy_kx<double, false>(kx, sw, out);
+  if (elem_size == 8 && tend_bf16) return occupancy_kx<double, true>(kx, sw, out);
+  if (elem_size == 8) return occupancy_kx<double, false>(kx, sw, out);
   return -1;
 }

@@ -87,14 +87,16 @@ class Consts:
     grid_phi: bool = False
     # Emit the TENDENCY-class grid outputs (dynamics tendencies, flux-form
     # products, kinetic energy, physics tendencies) in bfloat16 from inside
-    # the two column kernels, so that the direct transforms read 2-byte
-    # operands (bfloat16 tables, float32 accumulation; spectral results stay
-    # float32). Rounds each per-step increment at about 2^-9 relative; the
-    # prognostic state and the synthesis stay full precision. float32 on the
-    # dense transform route only. Off by default on every device: its effect
-    # on the climate has not been measured with this package. Kept by the
-    # batched runner, stripped by the initialization (both bootstrap steps
-    # run at full precision), as in the JAX package.
+    # the two column kernels. On the dense transform route (T30) the direct
+    # transforms read them as 2-byte operands (bfloat16 tables, sums and
+    # spectral results in the model's type); on every other route they are
+    # widened to the model's type first (at T47/T63 by the direct kernel as
+    # it reads them), as in the JAX package. Rounds each per-step increment
+    # at about 2^-9 relative; the prognostic state and the synthesis stay
+    # full precision. Either precision, every route. Off by default on every
+    # device (no speed gain measured). Kept by the batched runner, stripped
+    # by the initialization (both bootstrap steps run at full precision), as
+    # in the JAX package.
     bf16_tendencies: bool = False
 
     def with_implicit(self, im) -> "Consts":
@@ -120,9 +122,11 @@ def build_consts(params: ModelParams, device="cuda", physics_on: bool = True,
 
     physics_on defaults to True, as in the JAX package. grid_phi (see Consts)
     defaults to on for a CUDA device and off on the CPU. bf16_tendencies
-    (see Consts) is taken for precision="f32" on the dense transform route
-    and refused by name otherwise: the JAX package silently widens the
-    bfloat16 operands there, which rounds for nothing. params.sppt_on=True
+    (see Consts) is taken on every route and precision, as by the JAX
+    package: the tendency-class outputs are bfloat16; the dense route
+    (T30) transforms them with 2-byte operands, every other route widens
+    them to the tables' type first. It defaults to off on every device.
+    params.sppt_on=True
     builds the SPPT tables (Consts.sppt); with the physics on, the pattern
     then multiplies the physics tendencies of every step. The zonal
     transform path follows params.fft_mode; "auto" takes the dense matmul
@@ -145,19 +149,6 @@ def build_consts(params: ModelParams, device="cuda", physics_on: bool = True,
     geom_np = build_geometry(params)
     sp = S.build_spectral(params, geom_np, use_matmul_fft=use_matmul,
                           device=device)
-    if bf16_tendencies and params.precision != "f32":
-        raise ValueError(
-            f"bf16_tendencies=True needs precision='f32', got "
-            f"{params.precision!r}: the bfloat16 outputs and the 2-byte "
-            f"transform operands exist for float32 only")
-    if bf16_tendencies and not sp.use_dense_legendre:
-        raise ValueError(
-            f"bf16_tendencies=True needs the dense transform route "
-            f"(fft_mode 'matmul', or 'auto' on a CUDA device, at T30, the "
-            f"truncation the 2-byte operand mode is built for); "
-            f"fft_mode={params.fft_mode!r} at T{params.trunc} on "
-            f"{device.type} takes another route, which has no bfloat16 "
-            f"operand branch")
     hd = build_hordif(params, geom_np, device)
     gp = build_geopot(params, geom_np, device)
     im = build_implicit(params, geom_np, hd, 2.0 * params.delt, device)

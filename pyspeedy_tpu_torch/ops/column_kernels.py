@@ -95,12 +95,14 @@ KERNELS = {
         counters=("fused_grid2spec", "fused_grid2spec_bf16",
                   "fused_spec2grid", "fused_probe")),
     # The same transforms at T47 and T63, launched by one call a group (one
-    # kernel on thread-block clusters a direction): kind 0 direct, 1 inverse.
+    # kernel on thread-block clusters a direction): kind 0 direct, 1 inverse;
+    # a bfloat16 grid's launches counted apart.
     "fused_transform_hires": KernelSpec(
         source=_CSRC / "fused_transform_hires.cu",
         symbol="pyspeedy_fused_transform_hires",
         argtypes=(_I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
-        counters=("fused_grid2spec_hires", "fused_spec2grid_hires")),
+        counters=("fused_grid2spec_hires", "fused_grid2spec_hires_bf16",
+                  "fused_spec2grid_hires")),
     # -fmad=false as for the physics: the plain version's separate passes
     # cannot contract a*b+c, and the leapfrog filter is a small difference of
     # large values. Wrapper: ops/glue_kernels.py.
@@ -296,17 +298,15 @@ def grid_dynamics_cuda(tab: ColumnTables, vorg, divg, tg, trg_flat, ug, vg,
                        pxy, bf16_out: bool = False):
     """Launch the CUDA grid-dynamics kernel on PyTorch's current stream.
     Returns the ten outputs in the order of ``grid_dynamics_core``; with
-    `bf16_out` (float32 inputs only) all ten are bfloat16, rounded at the
-    store. Raises if the inputs are not what the kernel takes, if the build
-    fails or if the launch is refused; does not synchronise."""
+    `bf16_out` all ten are bfloat16, rounded at the store (through float32
+    from float64 inputs). Raises if the inputs are not what the kernel
+    takes, if the build fails or if the launch is refused; does not
+    synchronise."""
     fields = (vorg, divg, tg, trg_flat, ug, vg, pxy)
     nmem, kx, ntr, il, ix = _check_inputs(tab, fields)
     if vorg.device.type != "cuda":
         raise ValueError(f"grid_dynamics_cuda needs CUDA tensors, got "
                          f"{vorg.device}")
-    if bf16_out and vorg.dtype != torch.float32:
-        raise TypeError(f"bfloat16 outputs need float32 inputs, got "
-                        f"{vorg.dtype}")
     fn = _load("grid_dynamics")
 
     out_dtype = torch.bfloat16 if bf16_out else vorg.dtype
@@ -556,8 +556,8 @@ def grid_physics_cuda(consts, sw_flag, ug, vg, tg, qg, phig, pslg, bc, cache,
     arguments and results as ``physics.driver.grid_physics``: (utend, vtend,
     ttend, qtend, diag, new_cache). On a step without shortwave the cache
     tensors are read in place and come back as new_cache. With
-    consts.bf16_tendencies (float32 only) the four tendencies come back in
-    bfloat16, rounded at the store. `out`, when given, is (diag, cache):
+    consts.bf16_tendencies the four tendencies come back in bfloat16,
+    rounded at the store (through float32 in float64). `out`, when given, is (diag, cache):
     dense tensors of the diagnostics' and the cache's shapes that the
     kernel stores into and that come back as diag and new_cache. The
     shortwave variant reads none of the cache: it stores the new one, so
@@ -568,9 +568,6 @@ def grid_physics_cuda(consts, sw_flag, ug, vg, tg, qg, phig, pslg, bc, cache,
     sw_flag = bool(sw_flag)
     phys = consts.phys
     bf16 = bool(consts.bf16_tendencies)
-    if bf16 and tg.dtype != torch.float32:
-        raise TypeError(f"bfloat16 tendencies need float32 inputs, got "
-                        f"{tg.dtype}")
     nmem, kx, il, ix, strides = _check_physics_inputs(
         phys, sw_flag, ug, vg, tg, qg, phig, pslg, bc, cache, ablco2, phisg,
         m0corr, sppt_pattern)

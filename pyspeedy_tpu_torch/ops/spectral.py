@@ -59,8 +59,9 @@ The fft and einsum routes are routes of their own, not plain versions of the
 kernels; their products go to ``torch.fft`` / ``torch.einsum`` as the JAX
 package left them to XLA. A bfloat16 grid (the ``bf16_tendencies``
 configuration) takes the 2-byte operand mode on the dense route and is
-widened to the tables' type on the others (on the CPU), as in the JAX
-package; the T47/T63 kernels refuse it.
+widened to the tables' type on the others, as in the JAX package: by the
+T47/T63 direct kernel as it reads the grid on the card, before the products
+on the fft, einsum and band routes and in the T47/T63 plain chain.
 """
 
 from __future__ import annotations
@@ -206,7 +207,8 @@ class SpectralTransform(NamedTuple):
     # What the fused kernels read, in the order of their shared memory (see
     # _fold_tables): the folded DFT and Legendre tables of the direct
     # transform (fold_dir; fold_dir_bf16 holds the bfloat16 roundings of the
-    # same values, as float32) and of the inverse one (fold_inv). (1,)
+    # same values in the tables' type, the T30 2-byte operand mode's) and
+    # of the inverse one (fold_inv). (1,)
     # placeholders off the kernel route.
     fold_dir: torch.Tensor
     fold_dir_bf16: torch.Tensor
@@ -392,7 +394,8 @@ def build_spectral(params: ModelParams, geom: Geometry,
     a = lambda x: torch.from_numpy(
         np.ascontiguousarray(np.asarray(x, dtype=params.np_dtype))).to(device)
     # Rounded to bfloat16 from the float32 value, as a cast of the float32
-    # table would.
+    # table would and as the JAX package's astype(bfloat16) rounds a float64
+    # table on the CPU (through float32).
     bf = lambda x: torch.from_numpy(np.ascontiguousarray(
         np.asarray(x, dtype=np.float32))).to(device).to(torch.bfloat16)
     return SpectralTransform(
@@ -409,7 +412,7 @@ def build_spectral(params: ModelParams, geom: Geometry,
         dft_inv_ri=a(np.stack([dft_inv_re, dft_inv_im])),
         leg_dir_dense=a(leg_dir_dense), leg_inv_dense=a(leg_inv_dense),
         dft_fwd_ri_bf16=bf(np.stack([dft_fwd_re, dft_fwd_im])),
-        fold_dir=a(fold_dir), fold_dir_bf16=bf(fold_dir).float(),
+        fold_dir=a(fold_dir), fold_dir_bf16=bf(fold_dir).to(params.dtype),
         fold_inv=a(fold_inv),
         use_matmul_fft=use_matmul_fft,
         use_dense_legendre=use_dense,

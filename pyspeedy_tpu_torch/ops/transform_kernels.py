@@ -49,10 +49,15 @@ can show that it took neither on the card. ``launch_counts`` (in
 ``ops.column_kernels``) counts launches (one a group and element type),
 ``field_counts`` here the fields those launches transformed.
 
-A bfloat16 grid (the ``bf16_tendencies`` configuration, float32 tables only)
-takes the 2-byte operand mode of the direct transform: DFT and Legendre
-tables rounded to bfloat16, float32 accumulation, the Fourier intermediate
-rounded to bfloat16, float32 result.
+A bfloat16 grid (the ``bf16_tendencies`` configuration) takes, at T30, the
+2-byte operand mode of the direct transform: DFT and Legendre tables rounded
+to bfloat16, the Fourier intermediate rounded to bfloat16, the sums and the
+result in the tables' type (float32 or float64), as the JAX package's dense
+route computes it. At T47 and T63 the JAX package widens a bfloat16 grid to
+the tables' type and takes the ordinary transform; so does the T47/T63
+direct kernel, which reads the bfloat16 rows (16-byte aligned: the wrapper
+refuses others) and widens each value where its products read it, and so
+does the einsum chain, its plain version.
 """
 
 from __future__ import annotations
@@ -68,7 +73,7 @@ __all__ = ["fused_grid2spec", "fused_spec2grid", "fused_probe",
            "fused_grid2spec_many", "fused_spec2grid_many",
            "fused_grid2spec_cuda", "fused_spec2grid_cuda", "fused_probe_cuda",
            "fused_grid2spec_many_cuda", "fused_spec2grid_many_cuda",
-           "grid2spec_plain", "spec2grid_plain", "probe_plain",
+           "grid2spec_plain", "spec2grid_plain", "probe_plain", "c_mode",
            "plain_chain_calls", "reset_plain_chain_calls", "field_counts",
            "reset_field_counts", "kcos_list", "PROBE_STAGES", "MAX_SEGMENTS",
            "T30_SHAPE", "T47_SHAPE", "T63_SHAPE", "HIRES_SHAPES",
@@ -91,7 +96,16 @@ HIRES_SHAPES = (T47_SHAPE, T63_SHAPE)
 KERNEL_SHAPES = (T30_SHAPE,) + HIRES_SHAPES
 
 _KIND_DIRECT, _KIND_INVERSE, _KIND_PROBE0 = 0, 1, 2
-_MODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+_MODES = {torch.float32: 0, torch.float64: 1}
+
+
+def c_mode(dtype, table_dtype) -> int:
+    """The C entries' `mode` of a field of `dtype` against tables of
+    `table_dtype`: 0 float, 1 double, 2 / 3 a bfloat16 grid against float /
+    double tables (the direct transform only)."""
+    return _MODES[table_dtype] + (2 if dtype == torch.bfloat16 else 0)
+
+
 # The inverse's Legendre warps (INV_LEG_WARPS of the source).
 INVERSE_LEGENDRE_WARPS = 4
 
@@ -115,7 +129,7 @@ def reset_einsum_chain_calls() -> None:
 # Fields (segments) transformed by the launches of each counter.
 field_counts = {"fused_grid2spec": 0, "fused_grid2spec_bf16": 0,
                 "fused_spec2grid": 0, "fused_grid2spec_hires": 0,
-                "fused_spec2grid_hires": 0}
+                "fused_grid2spec_hires_bf16": 0, "fused_spec2grid_hires": 0}
 
 
 def reset_field_counts() -> None:
@@ -178,16 +192,19 @@ _PLAN_FIELDS = ("cluster", "m_pairs", "pairs_per_band", "rows_per_step",
 _kernel_plans: dict = {}
 
 
-def hires_kernel_plan(sp) -> dict:
-    """The plan of the T47/T63 kernels at sp's shape and type as the
-    library reports it (``pyspeedy_fused_transform_hires_plan``; builds and
-    loads the library at first use): the decomposition (blocks a cluster,
-    m pairs of a block, latitude pairs of a band, rows a direct step, MMA
-    columns and depth), threads and shared memory (bytes) of the direct
-    block, its grid buffers, the inverse block's threads, latitude pairs a
-    Legendre item, rows a step and shared memory, with ``direct_kernels`` /
+def hires_kernel_plan(sp, grid_dtype=None) -> dict:
+    """The plan of the T47/T63 kernels at sp's shape and type, the direct
+    kernel's for a grid of `grid_dtype` (the tables' type by default, or
+    bfloat16), as the library reports it
+    (``pyspeedy_fused_transform_hires_plan``; builds and loads the library
+    at first use): the decomposition (blocks a cluster, m pairs of a block,
+    latitude pairs of a band, rows a direct step, MMA columns and depth),
+    threads and shared memory (bytes) of the direct block, its grid
+    buffers, the inverse block's threads, latitude pairs a Legendre item,
+    rows a step and shared memory, with ``direct_kernels`` /
     ``inverse_kernels``, the device kernels a call launches."""
-    key = (sp.il, sp.ix, sp.mx, sp.nx, sp.rdtype)
+    grid_dtype = sp.rdtype if grid_dtype is None else grid_dtype
+    key = (sp.il, sp.ix, sp.mx, sp.nx, sp.rdtype, grid_dtype)
     if key not in _kernel_plans:
         if key[:4] not in HIRES_SHAPES:
             raise ValueError(f"the T47/T63 kernels are built for "
@@ -197,7 +214,8 @@ def hires_kernel_plan(sp) -> dict:
             "fused_transform_hires"]))
         out = (ctypes.c_int * len(_PLAN_FIELDS))()
         rc = lib.pyspeedy_fused_transform_hires_plan(
-            47 if sp.il == T47_SHAPE[0] else 63, _MODES[sp.rdtype], out)
+            47 if sp.il == T47_SHAPE[0] else 63,
+            c_mode(grid_dtype, sp.rdtype), out)
         if rc != 0:
             raise RuntimeError(f"the plan query failed with {rc}")
         plan = dict(zip(_PLAN_FIELDS, out))
@@ -225,33 +243,28 @@ def _leg_inv_dense(sp, S: torch.Tensor) -> torch.Tensor:
     return (x @ sp.leg_inv_dense).reshape(*S.shape[:-2], sp.il, sp.mx)
 
 
-def _check_bf16(sp):
-    if sp.rdtype != torch.float32:
-        raise TypeError(
-            f"a bfloat16 grid needs float32 transform tables (the 2-byte "
-            f"operand mode accumulates and returns float32), got {sp.rdtype}")
-
-
 def grid2spec_plain(sp, grid: torch.Tensor, pdim: int = 0) -> torch.Tensor:
     """Plain version of the direct transform: grid (..., il, ix) -> spectral
     pair with the pair axis at `pdim`, by four matrix products.
 
     A bfloat16 grid takes the 2-byte operand chain as the JAX package writes
-    it: bfloat16 x bfloat16 products accumulated in float32 (the widened
-    operands multiply exactly in float32), the Fourier intermediate rounded
-    to bfloat16, the Legendre table rounded to bfloat16, float32 result."""
+    it: the DFT a bfloat16 x bfloat16 product accumulated in float32 (the
+    widened operands multiply exactly) and rounded to bfloat16, then the
+    Legendre product against the table rounded to bfloat16, accumulated in
+    the tables' type, which is the result's (JAX's preferred_element_type).
+    The tables round to bfloat16 through float32 in either precision, as
+    JAX's astype(bfloat16) of a float64 array does on the CPU."""
     plain_chain_calls["grid2spec"] += 1
     if grid.dtype != torch.bfloat16:
         return torch.stack([_leg_dir_dense(sp, grid @ sp.dft_fwd_re),
                             _leg_dir_dense(sp, grid @ sp.dft_fwd_im)],
                            dim=pdim)
-    _check_bf16(sp)
     g = grid.float()
-    leg = sp.leg_dir_dense.to(torch.bfloat16).float()
+    leg = sp.leg_dir_dense.to(torch.bfloat16).to(sp.rdtype)
     parts = []
     for c in range(2):
-        f = (g @ sp.dft_fwd_ri_bf16[c].float()).to(torch.bfloat16).float()
-        parts.append(_leg_dir_dense(sp, f, leg))
+        f = (g @ sp.dft_fwd_ri_bf16[c].float()).to(torch.bfloat16)
+        parts.append(_leg_dir_dense(sp, f.to(sp.rdtype), leg))
     return torch.stack(parts, dim=pdim)
 
 
@@ -421,17 +434,18 @@ def _call(kernel, kind, mode, count, sp, tables, desc, device, what,
 
 def _launch_groups(kind, sp, plans, tables_of, device, what):
     """One launch per element type among `plans` [(mode, counter, words)],
-    in the order the types first appear; empty fields take no segment."""
+    in the order the types first appear, with the tables `tables_of(counter)`;
+    empty fields take no segment."""
     by_mode = {}
     for mode, counter, words in plans:
         if words is not None:
             by_mode.setdefault((mode, counter), []).append(words)
     for (mode, counter), segs in by_mode.items():
-        tables = tables_of(mode)
+        tables = tables_of(counter)
         _check_tables(device, *tables)
         ptrs = [t.data_ptr() for t in tables]
         desc = [w for seg in segs for w in seg]
-        if counter.endswith("_hires"):
+        if "_hires" in counter:
             _call("fused_transform_hires", kind, mode, len(segs), sp, ptrs,
                   desc, device, what)
         else:
@@ -445,16 +459,10 @@ def _direct_plan(sp, grid: torch.Tensor, pdim: int, hires: bool):
     """(output, (mode, counter, segment words or None when empty)) of one
     field of a direct group. Raises on what the kernel does not take."""
     il, ix, mx, nx = sp.il, sp.ix, sp.mx, sp.nx
-    if grid.dtype == torch.bfloat16 and hires:
-        raise TypeError("a bfloat16 grid: the 2-byte operand mode is built "
-                        "for T30 alone, the T47/T63 kernels take float32 "
-                        "and float64")
-    if grid.dtype == torch.bfloat16:
-        _check_bf16(sp)
-        counter = "fused_grid2spec_bf16"
-    elif grid.dtype == sp.rdtype and grid.dtype in _MODES:
-        counter = "fused_grid2spec_hires" if hires else "fused_grid2spec"
-    else:
+    counter = "fused_grid2spec_hires" if hires else "fused_grid2spec"
+    if grid.dtype == torch.bfloat16 and sp.rdtype in _MODES:
+        counter += "_bf16"
+    elif grid.dtype != sp.rdtype or grid.dtype not in _MODES:
         raise TypeError(f"grid is {grid.dtype}, the tables {sp.rdtype}")
     if grid.dim() < 2 or tuple(grid.shape[-2:]) != (il, ix):
         raise ValueError(f"grid must be (..., {il}, {ix}), got "
@@ -466,12 +474,21 @@ def _direct_plan(sp, grid: torch.Tensor, pdim: int, hires: bool):
     g4 = _rows(grid, (nmem, per, il, ix), "grid") if nmem * per else None
     out = torch.empty(lead[:pdim] + (2,) + lead[pdim:] + (mx, nx),
                       dtype=sp.rdtype, device=grid.device)
+    mode = c_mode(grid.dtype, sp.rdtype)
     if g4 is None:
-        return out, (_MODES[grid.dtype], counter, None)
+        return out, (mode, counter, None)
+    if hires and grid.dtype == torch.bfloat16 and (
+            g4.data_ptr() % 16 or g4.stride(0) * 2 % 16
+            or g4.stride(1) * 2 % 16):
+        raise ValueError(
+            f"a bfloat16 grid at T47/T63 is copied in 16-byte chunks: its "
+            f"address {g4.data_ptr()} and member and row strides "
+            f"{g4.stride(0)}, {g4.stride(1)} (elements) must be 16-byte "
+            f"aligned, and the kernel wrapper copies nothing")
     plane = mx * nx
     words = (g4.data_ptr(), out.data_ptr(), nmem * per, per, g4.stride(0), 0,
              g4.stride(1), 2 * per * plane, per * plane, plane, 0)
-    return out, (_MODES[grid.dtype], counter, words)
+    return out, (mode, counter, words)
 
 
 def _inverse_plan(sp, p: torch.Tensor, kcos: int, pdim: int, hires: bool):
@@ -502,14 +519,14 @@ def _inverse_plan(sp, p: torch.Tensor, kcos: int, pdim: int, hires: bool):
 def fused_grid2spec_many_cuda(sp, grids, pdim: int = 0) -> list:
     """Launch the direct-transform kernel on PyTorch's current stream for a
     group of up to MAX_SEGMENTS fields: each grid (..., il, ix) in the
-    tables' type, or bfloat16 against float32 tables at T30, -> its
-    spectral pair in the tables' type, the pair axis at `pdim`. One launch
-    per element type in the list (at T47/T63 one kernel on thread-block
-    clusters); the
-    leading axes of each grid may be strided (a slice of a level stack, an
-    expanded member axis) as long as they collapse to a member and a row
-    stride. Raises on anything else, before anything is built or launched;
-    does not synchronise."""
+    tables' type or in bfloat16 (at T30 the 2-byte operand mode, at T47/T63
+    widened in the kernel) -> its spectral pair in the tables' type, the
+    pair axis at `pdim`. One launch per element type in the list (at T47/T63
+    one kernel on thread-block clusters); the leading axes of each grid may
+    be strided (a slice of a level stack, an expanded member axis) as long
+    as they collapse to a member and a row stride, 16-byte aligned for a
+    bfloat16 grid at T47/T63. Raises on anything else, before anything is
+    built or launched; does not synchronise."""
     grids = list(grids)
     what = "fused_grid2spec_many_cuda"
     _check_count(grids, what)
@@ -520,7 +537,9 @@ def fused_grid2spec_many_cuda(sp, grids, pdim: int = 0) -> list:
     device = _check_device(grids, what)
     _launch_groups(
         _KIND_DIRECT, sp, [plan for _, plan in plans],
-        lambda mode: (sp.fold_dir_bf16,) if mode == 2 else (sp.fold_dir,),
+        lambda counter: ((sp.fold_dir_bf16,)
+                         if counter == "fused_grid2spec_bf16"
+                         else (sp.fold_dir,)),
         device, "fused_grid2spec")
     return [out for out, _ in plans]
 
@@ -544,7 +563,7 @@ def fused_spec2grid_many_cuda(sp, pairs, kcos=1, pdim: int = 0) -> list:
         return []
     device = _check_device(pairs, what)
     _launch_groups(_KIND_INVERSE, sp, [plan for _, plan in plans],
-                   lambda mode: (sp.fold_inv, sp.cosgr),
+                   lambda counter: (sp.fold_inv, sp.cosgr),
                    device, "fused_spec2grid")
     return [out for out, _ in plans]
 

@@ -2,7 +2,8 @@
 
 The JAX package's ``Speedy`` / ``SpeedyEns`` (and through them the
 reference's ``pyspeedy.speedy``) on this package: the same constructor
-signatures plus a ``device`` argument, dict-style state access with registry
+signatures plus a ``device`` argument (and ``bf16_tendencies``, off by
+default), dict-style state access with registry
 names and Fortran-order shapes, the set_bc contract, run(callbacks),
 grid/spectral conversions, CF-metadata export, checkpoints in the JAX
 package's format, and the error-code to exception mapping.
@@ -59,14 +60,16 @@ _CHECKPOINT_LOADABLE = (3, 4)
 _CONSTS_CACHE: dict = {}
 
 
-def _consts_for(params: ModelParams, device: torch.device):
+def _consts_for(params: ModelParams, device: torch.device,
+                bf16_tendencies: bool = False):
     """(consts, numpy geometry, batched runner) of a configuration on a
     device, built at first use; on the card the runner keeps the CUDA
     graphs of its last StepGraphs.MAX_PLANS state layouts for every
     instance of the configuration."""
-    key = (params, str(device))
+    key = (params, str(device), bool(bf16_tendencies))
     if key not in _CONSTS_CACHE:
-        consts, geom_np = M.build_consts(params, device=device)
+        consts, geom_np = M.build_consts(params, device=device,
+                                         bf16_tendencies=bf16_tendencies)
         _CONSTS_CACHE[key] = (consts, geom_np,
                               make_run_steps_batched(consts, device=device))
     return _CONSTS_CACHE[key]
@@ -78,12 +81,19 @@ def _add_months(date: datetime, months: int) -> datetime:
 
 
 class Speedy:
-    """Speedy model instance (reference: pyspeedy/speedy.py:40-483)."""
+    """Speedy model instance (reference: pyspeedy/speedy.py:40-483).
+
+    bf16_tendencies=True steps with bfloat16 tendencies
+    (models.model.Consts.bf16_tendencies; the JAX package turns it on by
+    default for float32 on its TPU, the port leaves it off); the
+    initialization runs at full precision either way."""
 
     def __init__(self, start_date=datetime(1982, 1, 1),
                  end_date=datetime(1982, 1, 2), member=None,
-                 params: ModelParams = T30L8, device="cuda"):
+                 params: ModelParams = T30L8, device="cuda",
+                 bf16_tendencies: bool = False):
         self.device = resolve_device(device)
+        self.bf16_tendencies = bool(bf16_tendencies)
         self.member_id = member
         self.is_ensemble_member = member is not None
         self.params = params
@@ -212,7 +222,8 @@ class Speedy:
             "sst_anom": self._sst_anom_data,
         }
 
-        consts, geom_np, self._run = _consts_for(self.params, self.device)
+        consts, geom_np, self._run = _consts_for(self.params, self.device,
+                                                 self.bf16_tendencies)
         host_bc["_geom_np"] = geom_np
         self._consts = consts
         state = M.allocate_state(
@@ -480,11 +491,12 @@ class SpeedyEns:
 
     def __init__(self, num_of_members, start_date=datetime(1982, 1, 1),
                  end_date=datetime(1982, 1, 2), params: ModelParams = T30L8,
-                 device="cuda"):
+                 device="cuda", bf16_tendencies: bool = False):
         self.n_members = num_of_members
         self.members = [
             Speedy(start_date=start_date, end_date=end_date, member=m,
-                   params=params, device=device)
+                   params=params, device=device,
+                   bf16_tendencies=bf16_tendencies)
             for m in range(num_of_members)
         ]
         self.current_date = self.members[0].current_date

@@ -4,9 +4,12 @@ through the batched runner's CUDA graphs and through its eager loop.
 Run from the root of a checkout, on a machine with a CUDA device:
 
     python3 -m pyspeedy_tpu_torch.step_time [--preset T30|T47|T63]
+        [--bf16-tendencies]
 
 It builds the kernels, initializes the demo model of the preset (T30L8 by
-default; synthetic boundary conditions) and, at B=128 members and at B=1:
+default; synthetic boundary conditions; with ``--bf16-tendencies`` the
+steps after the initialization take bfloat16 tendencies) and, at B=128
+members and at B=1:
 one warm-up day in each mode from the same state (the first graph call
 captures the step's graphs), with a digest of each day's state
 (state_digest: two trees' eager days compare by it), then, from the graph
@@ -118,6 +121,7 @@ def state_digest(state: dict) -> str:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--preset", choices=("T30", "T47", "T63"), default="T30")
+    ap.add_argument("--bf16-tendencies", action="store_true")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("step_time needs a CUDA device")
@@ -133,7 +137,8 @@ def main(argv=None) -> None:
     ck.build_kernels()
     consts, state1, cal = make_demo_model(getattr(P, f"{a.preset}L8"),
                                           device="cuda", precision="f32",
-                                          fft_mode="matmul")
+                                          fft_mode="matmul",
+                                          bf16_tendencies=a.bf16_tendencies)
     run = make_run_steps_batched(consts, device="cuda")
     graphs = run.graphs
     call = lambda state, ctx, mode: run(state, ctx, eager=mode == "eager")
@@ -144,6 +149,7 @@ def main(argv=None) -> None:
         return state, cal, 1e3 * secs / N_STEPS
 
     result = {"card": card, "preset": a.preset,
+              "bf16_tendencies": a.bf16_tendencies,
               "package": str(Path(__file__).resolve().parent)}
     # Every timed window first: a profiler session may leave the host
     # slower for the rest of a process, so the profiled windows come

@@ -133,7 +133,10 @@ def window_profile(fn, n_steps: int) -> dict:
 
 def kernel_device_ms(fn, kernel_name: str, reps: int = 20) -> float:
     """Time the card spends in one launch of the named kernel, from the
-    profiler's device-side records (CUPTI). Raises if it recorded none."""
+    profiler's device-side records (CUPTI); `fn` launches it once. Where the
+    profiler records none of it in five windows, the time of a call of `fn`
+    from CUDA events around `reps` calls back to back (the wrappers this
+    times launch that one kernel a call), with a line saying so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -141,8 +144,9 @@ def kernel_device_ms(fn, kernel_name: str, reps: int = 20) -> float:
     # The tracer may drop a record now and then: the mean is over the
     # launches it did record. On an H100 it has also returned windows without
     # any record, several in a row, and recorded every launch again a second
-    # later: such a window is profiled again a second later, five windows at
-    # most. More records than launches is wrong.
+    # later, and once none for half a minute: such a window is profiled
+    # again a second later, five windows at most, then the call is timed by
+    # events. More records than launches is wrong.
     for attempt in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -156,7 +160,20 @@ def kernel_device_ms(fn, kernel_name: str, reps: int = 20) -> float:
         print(f"  (profiler window {attempt + 1} held no record of "
               f"{kernel_name}; profiling again in a second)")
         time.sleep(1.0)
-    if not 0 < count <= reps:
+    else:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / reps
+        print(f"  (no profiler record of {kernel_name} in five windows: "
+              f"timed by CUDA events over {reps} calls back to back, "
+              f"{ms:.4f} ms a call)")
+        return ms
+    if not count <= reps:
         raise RuntimeError(
             f"profiler recorded {count} launches of {kernel_name}, "
             f"expected {reps}")

@@ -15,8 +15,10 @@ API. T47L8 and T63L8 run from the synthetic boundary conditions
 runner at B=1: the bundled boundary file is on the 96x48 grid only. Without
 ``--f32`` the run is float64 on either device. ``--device`` defaults to
 "cuda" and raises without a card. ``--bf16-tendencies`` runs the steps
-after the initialization with bfloat16 tendencies (float32 on the dense
-transform route only, see ``models.model.build_consts``). On the card the
+after the initialization with bfloat16 tendencies (``Speedy(...,
+bf16_tendencies=True)`` at T30, ``make_demo_model(..., bf16_tendencies=True)``
+at T47 and T63; either precision, see ``models.model.build_consts``). On
+the card the
 runs replay the batched runner's CUDA graphs of the step, on the CPU they
 take its eager loop (``parallel.ensemble.takes_graphs``); the printed line
 names the mode.
@@ -42,19 +44,6 @@ __all__ = ["DAYS_PER_MONTH", "run_t30", "run_synthetic", "climate_report",
 DAYS_PER_MONTH = 30
 
 
-def _with_bf16_tendencies(model):
-    """Give an initialized Speedy a runner with bfloat16 tendencies: the
-    initialization ran at full precision, as models.model.initialize runs
-    it, and the steps from here on keep the flag."""
-    from .models import model as M
-    from .parallel.ensemble import make_run_steps_batched
-
-    consts, _ = M.build_consts(model.params, device=model.device,
-                               bf16_tendencies=True)
-    model._consts = consts
-    model._run = make_run_steps_batched(consts, device=model.device)
-
-
 def run_t30(params, months, device="cuda", bf16_tendencies=False,
             timer=None):
     """Monthly means (tsfc K, precip mm/day, TOA net W/m2) of months 2..N
@@ -65,10 +54,8 @@ def run_t30(params, months, device="cuda", bf16_tendencies=False,
     with timer.phase("set_bc"):
         model = Speedy(start_date=datetime(1981, 12, 1),
                        end_date=datetime(1983, 6, 1), params=params,
-                       device=device)
+                       device=device, bf16_tendencies=bf16_tendencies)
         model.set_bc()
-        if bf16_tendencies:
-            _with_bf16_tendencies(model)
 
     tsfc, prec, toa = [], [], []
     for m in range(months):

@@ -1,4 +1,5 @@
-"""The bf16_tendencies configuration of the port against the JAX package's.
+"""The bf16_tendencies configuration of the port against the JAX package's,
+on the T30 dense route (the other routes: tests/test_torch_bf16_routes.py).
 
 With the flag, the two column kernels emit their tendency-class outputs in
 bfloat16 and the direct transforms read them as 2-byte operands. There is no
@@ -28,14 +29,16 @@ import torch
 
 from pyspeedy_tpu.models import model as JM
 from pyspeedy_tpu.models.tendencies import grid_dynamics_core as j_core
+from pyspeedy_tpu.ops import spectral as S_J
 from pyspeedy_tpu.parallel import ensemble as JE
-from pyspeedy_tpu.params import T30L8 as J_T30L8
+from pyspeedy_tpu.params import T30L8 as J_T30L8, T47L8 as J_T47L8
 from pyspeedy_tpu.physics import driver as JD
 from pyspeedy_tpu.testing import make_demo_model as j_make_demo_model
 from pyspeedy_tpu_torch import interop
 from pyspeedy_tpu_torch.models import model as TM
 from pyspeedy_tpu_torch.models.tendencies import grid_dynamics_core as t_core
 from pyspeedy_tpu_torch.ops import column_kernels as ck
+from pyspeedy_tpu_torch.ops import spectral as S_T
 from pyspeedy_tpu_torch.parallel import ensemble as TE
 from pyspeedy_tpu_torch.params import T30L8 as T_T30L8, T47L8 as T_T47L8
 from pyspeedy_tpu_torch.physics import driver as TD
@@ -231,25 +234,62 @@ def test_initialization_strips_the_flag():
             assert a.dtype == torch.float32 and torch.equal(a, b), name
 
 
-@pytest.mark.parametrize("what", ["f64", "fft_route", "einsum_route"])
-def test_build_consts_refuses_the_flag_by_name(what):
-    """Where the JAX package would silently widen the bfloat16 operands
-    again, the port refuses the flag."""
-    params = {
-        "f64": dataclasses.replace(T_T30L8, fft_mode="matmul"),
-        "fft_route": dataclasses.replace(T32, fft_mode="fft"),
-        "einsum_route": dataclasses.replace(T_T47L8, precision="f32",
-                                            fft_mode="matmul"),
-    }[what]
-    match = "precision" if what == "f64" else "dense transform route"
-    with pytest.raises(ValueError, match=f"bf16_tendencies.*{match}"):
-        TM.build_consts(params, device="cpu", bf16_tendencies=True)
+FORMER_REFUSALS = {
+    "f64": (J_T30L8, T_T30L8, "matmul", "f64"),
+    "fft_route": (J_T30L8, T_T30L8, "fft", "f32"),
+    "einsum_route": (J_T47L8, T_T47L8, "matmul", "f32"),
+}
 
 
-def test_cuda_wrappers_refuse_the_flag_in_float64(monkeypatch):
+@pytest.mark.parametrize("what", sorted(FORMER_REFUSALS))
+def test_build_consts_takes_the_flag_as_jax_does(what):
+    """Where the port refused the flag (float64; the fft route; the T47
+    einsum route) it takes it as the JAX package does: both consts keep the
+    flag and take the same transform route, and the port's grouped direct
+    transform of bfloat16 grids in the step's layouts (a level stack, a
+    level slice of a stack, a plane) is JAX's grid2spec_p of each: 2^-8 on
+    the dense route at float64 (the 2-byte chain there, a rounding of the
+    Fourier intermediate may fall the other way), 1e-5 where both widen
+    the grid in float32."""
+    jbase, tbase, mode, prec = FORMER_REFUSALS[what]
+    jc, _ = JM.build_consts(dataclasses.replace(
+        jbase, precision=prec, fft_mode=mode), bf16_tendencies=True)
+    tc, _ = TM.build_consts(dataclasses.replace(
+        tbase, precision=prec, fft_mode=mode), device="cpu",
+        bf16_tendencies=True)
+    assert jc.bf16_tendencies and tc.bf16_tendencies
+    assert tc.sp.use_matmul_fft == jc.sp.use_matmul_fft
+    assert tc.sp.use_dense_legendre == jc.sp.use_dense_legendre
+    p = tc.params
+    rng = np.random.default_rng(160)
+    mk = lambda *s: rng.standard_normal((2,) + s + (p.il, p.ix)).astype(
+        np.float32)
+    stack = mk(2 * p.kx)
+    grids = [mk(p.kx), stack[:, p.kx:], mk()]
+    got = S_T.grid2spec_many_p(
+        tc.sp, [torch.from_numpy(g).to(torch.bfloat16) for g in grids], 1)
+    limit = 2.0 ** -8 if tc.sp.use_dense_legendre else 1e-5
+    for g, out in zip(grids, got):
+        want = jax.vmap(lambda x: S_J.grid2spec_p(jc.sp, x))(
+            jnp.asarray(g).astype(jnp.bfloat16))
+        assert out.dtype == p.dtype
+        assert _worst(want, out.numpy()) <= limit, what
+
+
+def test_cuda_wrappers_take_the_flag_in_float64(monkeypatch):
+    """The column kernels' wrappers take bfloat16 outputs from float64
+    inputs (the kernels round through float32, as the plain versions'
+    cast and the JAX package do): float64 CPU tensors pass every type
+    check and stop only at the device, before anything is loaded."""
     monkeypatch.setattr(ck, "_load", lambda name: pytest.fail("loaded"))
-    c64, _ = TM.build_consts(T_T30L8, device="cpu", physics_on=False)
+    c64, _ = TM.build_consts(dataclasses.replace(T_T30L8, fft_mode="matmul"),
+                             device="cpu", bf16_tendencies=True)
     z = lambda k: torch.zeros(1, k, 48, 96, dtype=torch.float64)
-    with pytest.raises((TypeError, ValueError)):
+    with pytest.raises(ValueError, match="CUDA tensors"):
         ck.grid_dynamics_cuda(c64.col, z(8), z(8), z(8), z(8), z(8), z(8),
                               z(2), bf16_out=True)
+    targs, _, _ = _physics_args()
+    d = lambda x: tuple(d(y) for y in x) if isinstance(x, tuple) \
+        else x.double()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ck.grid_physics_cuda(c64, True, *d(tuple(targs)))

@@ -5,10 +5,12 @@ On the CPU: the device-table forms of the coupler's interpolations are
 bitwise the scalar formulas; the runner's buffer plan, run eagerly
 (StepGraphs on CPU consts: step_body where a graph would be replayed, the
 function the graphs record), is bitwise the eager loop over a T30 day with
-the physics, with SPPT and on the explicit branch, and within the JAX
-package's tolerance of its batched runner; a returned state is not
-overwritten by the next call, a field written between calls reaches it,
-and a sweep over member widths keeps the last few layouts' buffers only.
+the physics, with SPPT and on the explicit branch (the same day against the
+JAX package's batched runner is tests/test_torch_graphs_jax.py, a file of
+its own so that the test processes share the two files' time); a returned
+state is not overwritten by the next call, a field written between calls
+reaches it, and a sweep over member widths keeps the last few layouts'
+buffers only.
 On the card (marked gpu, skipped here): the graphs' day bitwise the eager
 day, a member alone bitwise that member in a batch, a width sweep
 dropping old graphs, a failed capture raising.
@@ -242,31 +244,6 @@ def test_buffer_plan_is_bitwise_the_eager_loop(cfg):
     assert not bool(got["error_flag"].any())
     t = got["t"][0]
     assert float((t[1] - t[0]).abs().max()) > 1e-4
-
-
-@pytest.mark.parametrize("cfg", tuple(CONFIGS))
-def test_buffer_plan_matches_the_jax_batched_runner(cfg):
-    """The same day against the JAX package's make_run_steps_batched from
-    the same state (its members' SPPT keys split as there): the
-    prognostics and what the physics and the coupler write within 1e-8."""
-    J = jx()
-    jconsts, jstate, jcal, tconsts, _ = models(cfg)
-    jb = perturbed(jstate, J.JE.broadcast_state, noise(tconsts.params),
-                   lambda x: x)
-    ctx, _ = J.JM.build_step_ctx(dataclasses.replace(jcal), 2, N_STEPS)
-    jout = J.jax.tree.map(
-        np.asarray, J.JE.make_run_steps_batched(jconsts, phase=2 % 3)(
-            jb, ctx))
-    tout = interop.state_to_numpy(plan_day(cfg))
-    for name in PROGNOSTICS:
-        for lev in range(2):
-            assert rel_err(tout[name][lev], jout[name][lev]) <= 1e-8, name
-    names = ["phi", "precnv", "precls", "hfluxn", "olr", "tsr", "land_temp",
-             "sst_om", "tice_om", "rad_tau2"]
-    if cfg == "sppt":
-        names.append("sppt_spec")
-    for name in names:
-        assert rel_err(tout[name], jout[name]) <= 1e-8, name
 
 
 def test_a_returned_state_outlives_the_next_call():

@@ -383,7 +383,8 @@ def test_cpu_dispatch_never_touches_the_build(monkeypatch):
         "grid_dynamics", "grid_dynamics_bf16", "grid_physics_sw",
         "grid_physics_nosw", "grid_physics_sw_bf16", "grid_physics_nosw_bf16",
         "fused_grid2spec", "fused_grid2spec_bf16", "fused_spec2grid",
-        "fused_probe", "fused_grid2spec_hires", "fused_spec2grid_hires",
+        "fused_probe", "fused_grid2spec_hires", "fused_grid2spec_hires_bf16",
+        "fused_spec2grid_hires",
         "spectral_update", "dft_chain"}
 
 

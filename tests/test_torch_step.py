@@ -359,16 +359,18 @@ def test_grid_mirrors_batched_equal_the_members_one_by_one(route):
 @pytest.mark.parametrize("what", ["bf16_tendencies", "sppt_on", "alph",
                                   "sppt_on_with_physics"])
 def test_unported_paths_raise(what):
-    """What is not ported yet, or does not exist (bfloat16 tendencies in
-    float64), is refused by name, never silently ignored. SPPT is ported:
+    """What is not ported yet is refused by name, never silently ignored.
+    bfloat16 tendencies are ported on every route and precision: float64
+    takes the flag, which the runner keeps. SPPT is ported:
     build_consts(sppt_on=True) builds its tables, with the physics on or
     off, and allocate_state carries its spectrum and key. The explicit
     gravity-wave branch (alph < 0.5) is ported: it steps, and its result is
     not the semi-implicit branch's."""
     if what == "bf16_tendencies":
         assert T_T30L8.precision == "f64"
-        with pytest.raises(ValueError, match="bf16_tendencies.*precision"):
-            TM.build_consts(T_T30L8, device="cpu", bf16_tendencies=True)
+        consts, _ = TM.build_consts(T_T30L8, device="cpu",
+                                    bf16_tendencies=True)
+        assert consts.bf16_tendencies and consts.sp.rdtype == torch.float64
     elif what in ("sppt_on_with_physics", "sppt_on"):
         params = dataclasses.replace(T_T30L8, sppt_on=True)
         consts, _ = TM.build_consts(params, device="cpu",

@@ -530,12 +530,11 @@ def test_kernels_match_their_plain_versions_on_the_card(prec):
             want = TK.spec2grid_plain(tsp, p, kcos, 1)
             assert float((got - want).abs().max() / want.abs().max()) \
                 <= limit
-    if prec == "f32":
-        g = grids[0].to(torch.bfloat16)
-        got, want = TK.fused_grid2spec_cuda(tsp, g, 1), TK.grid2spec_plain(
-            tsp, g, 1)
-        assert float((got - want).abs().max() / want.abs().max()) \
-            <= 2.0 ** -8
+    g = grids[0].to(torch.bfloat16)
+    got, want = TK.fused_grid2spec_cuda(tsp, g, 1), TK.grid2spec_plain(
+        tsp, g, 1)
+    assert got.dtype == tsp.rdtype
+    assert float((got - want).abs().max() / want.abs().max()) <= 2.0 ** -8
 
 
 @pytest.mark.gpu

@@ -559,8 +559,8 @@ def _refusals(preset):
     return {
         "direct_shape_of_tables": (d, (cut, [g]), ValueError, "T30, T47"),
         "inverse_shape_of_tables": (i, (cut, [p]), ValueError, "T30, T47"),
-        "direct_bf16": (d, (tsp, [g, z(2, il, ix, dtype=torch.bfloat16)]),
-                        TypeError, "bfloat16"),
+        "direct_bf16": (d, (tsp, [g, z(2 * il * ix + 1, dtype=torch.bfloat16)[
+            1:].view(2, il, ix)]), ValueError, "16-byte"),
         "direct_f32_grid": (d, (tsp, [g.float()]), TypeError, "grid is"),
         "inverse_f32_pair": (i, (tsp, [p.float()]), TypeError, "pair is"),
         "direct_cpu": (d, (tsp, [g, g]), ValueError, "CUDA"),
@@ -591,13 +591,62 @@ def test_hires_wrappers_refuse_without_building(preset, case, no_build):
 
 def test_the_probes_and_the_2_byte_mode_stay_at_t30(no_build):
     """The T47/T63 tables serve the transforms only: the probes refuse
-    them, and a bfloat16 grid is refused there too."""
+    them. A bfloat16 grid is taken there, not in the 2-byte operand mode
+    (bfloat16 tables) but widened by the kernel: its type passes the
+    wrapper's checks (the call stops at the device), an unaligned one is
+    refused."""
     tsp = transforms("T63", "f32")
     grid = torch.zeros(2, tsp.il, tsp.ix)
     with pytest.raises(ValueError, match="T30"):
         TK.fused_probe_cuda(tsp, 0, grid)
-    with pytest.raises(TypeError, match="bfloat16"):
+    with pytest.raises(ValueError, match="CUDA"):
         TK.fused_grid2spec_cuda(tsp, grid.to(torch.bfloat16))
+    bad = torch.zeros(2 * tsp.il * tsp.ix + 8, dtype=torch.bfloat16)[
+        1:1 + 2 * tsp.il * tsp.ix].view(2, tsp.il, tsp.ix)
+    with pytest.raises(ValueError, match="16-byte"):
+        TK.fused_grid2spec_cuda(tsp, bad)
+
+
+@pytest.mark.parametrize("preset", ["T30", "T47", "T63"])
+def test_a_bf16_grid_launches_its_own_instantiation(preset, monkeypatch):
+    """What a group with a bfloat16 grid hands the C entry, with the device
+    and the launch stubbed out: one launch per element type; at T47/T63 the
+    bfloat16 grid goes to the T47/T63 library in mode 2 (float tables) or 3
+    (double) with the tables' own folded values (the kernel widens the grid
+    and transforms it as the tables' type does), at T30 to the T30 library
+    in the same modes with the tables rounded to bfloat16, in the tables'
+    type (the 2-byte operand mode); each under its own counter."""
+    calls = []
+    monkeypatch.setattr(TK, "_check_device", lambda fields, what: "card")
+    monkeypatch.setattr(TK, "_check_tables", lambda device, *tables: None)
+    monkeypatch.setattr(
+        TK, "_call", lambda kernel, kind, mode, count, sp, tables, desc,
+        device, what: calls.append((kernel, mode, count, tuple(tables))))
+    base = {"T30": T_T30L8, "T47": T_T47L8, "T63": T_T63L8}[preset]
+    saved = dict(ck.launch_counts), dict(TK.field_counts)
+    try:
+        for prec, mode in (("f32", 0), ("f64", 1)):
+            sp = _tables(dataclasses.replace(base, precision=prec), True)
+            g = torch.zeros(2, 3, sp.il, sp.ix, dtype=sp.rdtype)
+            b = g.to(torch.bfloat16)
+            calls.clear()
+            ck.reset_launch_counts()
+            TK.reset_field_counts()
+            TK.fused_grid2spec_many_cuda(sp, [b, g, b[:, 1]], 1)
+            hires = preset != "T30"
+            lib = "fused_transform_hires" if hires else "fused_transform"
+            table = sp.fold_dir if hires else sp.fold_dir_bf16
+            assert table.dtype == sp.rdtype
+            assert calls == [(lib, mode + 2, 2, (table.data_ptr(),)),
+                             (lib, mode, 1, (sp.fold_dir.data_ptr(),))]
+            counter = ("fused_grid2spec_hires" if hires
+                       else "fused_grid2spec")
+            assert {k: v for k, v in ck.launch_counts.items() if v} == {
+                counter + "_bf16": 1, counter: 1}
+            assert TK.field_counts[counter + "_bf16"] == 2
+    finally:
+        ck.launch_counts.update(saved[0])
+        TK.field_counts.update(saved[1])
 
 
 # ---------------------------------------------------------------------------

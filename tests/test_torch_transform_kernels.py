@@ -264,11 +264,24 @@ def test_bf16_operand_chain_matches_jax(pdim):
                        TS.grid2spec_p(fft, tg.float(), pdim))
 
 
-def test_bf16_grid_needs_float32_tables():
-    _, tsp = transforms("f64")
-    g = torch.zeros(tsp.il, tsp.ix, dtype=torch.bfloat16)
-    with pytest.raises(TypeError, match="float32"):
-        TK.fused_grid2spec(tsp, g)
+def test_bf16_grid_against_float64_tables_matches_jax():
+    """A bfloat16 grid against float64 tables on the dense route: the JAX
+    package's chain at x64 (a bfloat16 DFT product rounded to bfloat16, the
+    Legendre table rounded to bfloat16 through float32, the Legendre product
+    accumulated and returned in float64), within the 2^-8 of the float32
+    chain (a rounding of the intermediate may fall the other way); not the
+    float64 transform of the widened grid."""
+    jsp, tsp = transforms("f64")
+    rng = np.random.default_rng(410)
+    g32 = rng.standard_normal((NMEM, 4, tsp.il, tsp.ix)).astype(np.float32)
+    jg = jnp.asarray(g32).astype(jnp.bfloat16)
+    tg = torch.from_numpy(g32).to(torch.bfloat16)
+    want = jax.vmap(lambda g: JS.grid2spec_p(jsp, g))(jg)
+    got = TK.fused_grid2spec(tsp, tg, 1)
+    assert got.dtype == torch.float64 and want.dtype == jnp.float64
+    assert rel_err(got, want) <= 2.0 ** -8
+    assert 1e-6 < rel_err(got, TK.fused_grid2spec(tsp, tg.double(), 1)) \
+        < 1e-2
 
 
 def test_kernel_tables_are_views_of_the_operators():
