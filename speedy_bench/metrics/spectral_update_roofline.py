@@ -1,0 +1,7 @@
+"""The spectral_update layer's share of its roofline: the larger of its operations
+at the float32 peak and its bytes at the memory rate (counts/spectral_update.py),
+over its device time in the traced window, in %."""
+
+
+def read(r):
+    return r.roofline_pct("spectral_update")
