@@ -43,15 +43,14 @@ limit and the main path's launches on every rank, and 2x2, latitude bands
 with one all_reduce per direct transform group, float32 and float64 against
 the unsharded runs; the climatology check of the port's
 validate_climatology at T30 through Speedy; a trace of a 3-step window of
-the main path through utils.profiling, which must name the step's kernels;
-the bench phase: pyspeedy_tpu_torch/bench.py's cells at a short depth, one
-member for 30 days and 256 members in chunks of 128 and of 256),
+the main path through utils.profiling, which must name the step's kernels
+and count its steps in the span table),
 checks the results and the exact launch counts of every path (for the
 transforms, launches and fields apart), and that no plain version ran on the
 card, and prints what it measured. Every model path runs through the
 batched runner's CUDA graphs (parallel/ensemble.py::StepGraphs), as a
 user's run call on the card takes them: their wrapper counts are those of
-the initialization and of each step kind's eager warm-up and capture; the
+the initialization and of each step kind's eager warm-up and captures; the
 main path's graph day runs under the profiler, and its kernels' launches
 (the ``kernels`` line's ``launches``) are the initialization's and that
 day's device records, held to every step's; each path's graph day is then held bitwise to the eager loop's day of the same
@@ -83,7 +82,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import math
 import statistics
 import subprocess
 import sys
@@ -114,7 +112,6 @@ from pyspeedy_tpu_torch.ops import transform_kernels as tk
 from pyspeedy_tpu_torch.parallel import distributed as PDIST
 from pyspeedy_tpu_torch.parallel import mesh as PMESH
 from pyspeedy_tpu_torch.parallel import shard_transforms as PST
-from pyspeedy_tpu_torch import bench as BENCH
 from pyspeedy_tpu_torch.coupling.coupler import STEP_COPIES
 from pyspeedy_tpu_torch.coupling.forcing import FORCING_FIELDS
 from pyspeedy_tpu_torch.parallel.ensemble import (broadcast_state,
@@ -2263,13 +2260,13 @@ def graph_evals(first: int, n_steps: int) -> list:
     """The steps whose body a fresh runner's graph run calls through the
     kernel wrappers: the first step of each graph key in the window (the
     shortwave kind by the parity of the leapfrog pair's buffers, which
-    restarts at every run call) twice, its eager warm-up and its capture (a
-    capture calls every wrapper once and launches nothing; the replays call
-    none)."""
+    restarts at every run call) three times, its eager warm-up, its capture
+    and its traced twin's capture (a capture calls every wrapper once and
+    launches nothing; the replays call none)."""
     firsts = {}
     for s in range(first, first + n_steps):
         firsts.setdefault((s % 3 == 0, (s - first) % 2), s)
-    return sorted(2 * list(firsts.values()))
+    return sorted(3 * list(firsts.values()))
 
 
 def expected_path_launches(consts, first: int, n_steps: int, evals=None,
@@ -2369,10 +2366,10 @@ def records_by_counter(by_kernel: dict, n_steps: int, sp) -> dict:
 def profiled_graph_day(consts, state0, cal, n_steps: int):
     """The main path's run call as a user makes it: a fresh runner's first
     call, n_steps from step 2 through its CUDA graphs (each step kind's
-    eager warm-up and capture included), under the profiler
+    eager warm-up and captures included), under the profiler
     (window_profile). The device's records of each kernel counter must be
     every step's (expected_path_launches without the initialization) and
-    the wrappers' calls those of the warm-ups and captures (graph_evals);
+    the wrappers' calls those of the warm-ups and captures (a graph and its traced twin a key) (graph_evals);
     a window the tracer did not record whole is run again through a fresh
     runner, three windows at most; then this raises. Returns (runner,
     state, calendar after, wall seconds under the profiler, device records
@@ -2634,7 +2631,7 @@ def explicit_path(card: str, phases) -> dict:
           f"{p32.delt:.0f} s), full physics, {N_MEMBERS} members x {n_steps} "
           f"steps + initialization through the CUDA graphs: finite, "
           f"error_flag false; launches {launches} (the initialization and "
-          f"each step kind's warm-up and capture; spectral_update 0: the "
+          f"each step kind's warm-up and captures; spectral_update 0: the "
           f"branch runs plain PyTorch after the transforms and the column "
           f"kernels), no plain version called; first graph day "
           f"{1e3 * secs / n_steps:.3f} ms/step [{card}]")
@@ -2773,7 +2770,7 @@ def preset_path(name: str, base, libs, card: str, phases) -> dict:
     print(f"{name} path: f32, full physics, {N_MEMBERS} members x {n_steps} "
           f"steps (a model day) + initialization through the CUDA graphs: "
           f"finite, error_flag false; launches {res['launches']} (the "
-          f"initialization and each step kind's warm-up and capture; the "
+          f"initialization and each step kind's warm-up and captures; the "
           f"T47/T63 transform kernels, one launch a group), no plain version "
           f"and no einsum chain called; first graph day "
           f"{1e3 * secs / n_steps:.3f} ms/step; member 0 of B={N_MEMBERS} "
@@ -2874,7 +2871,7 @@ def bf16_preset_path(name: str, base, libs, card: str, phases,
           f"members x {n_steps} steps (a model day) + initialization through "
           f"the CUDA graphs: finite, error_flag false; launches "
           f"{res['launches']} (the bfloat16 instantiations on each step "
-          f"kind's warm-up and capture, the float32 ones on the two "
+          f"kind's warm-up and captures, the float32 ones on the two "
           f"bootstrap steps and the forcing), transform fields {fields}, no "
           f"plain version and no einsum chain called; first graph day "
           f"{1e3 * secs / n_steps:.3f} ms/step; member 0 of B={N_MEMBERS} "
@@ -3279,55 +3276,26 @@ TRACE_KERNELS = ("grid_dynamics_kernel", "grid_physics_kernel",
                  "spec2grid_fold_kernel")
 
 
-BENCH_SINGLE = (1, 1, 30)      # (discarded, timed, days) windows
-BENCH_ENSEMBLE = (2, 2, 1)
-BENCH_MEMBERS = 256
-BENCH_CHUNKS = (128, 256)
-
-
-def bench_phase(card: str) -> dict:
-    """The bench's cells at a short depth (bench.measure, the bench's own
-    code): T30 f32, one member (the headline's cell), and BENCH_MEMBERS
-    members in chunks of each of BENCH_CHUNKS. Prints each cell's line and
-    the single member's SYPD; raises if a cell fails or a figure is not a
-    positive finite number."""
-    models = BENCH.Models("cuda")
-    cells = {"single": BENCH.measure(models.get("T30"), 1, 1, BENCH_SINGLE)}
-    print("bench phase, " + BENCH._describe("T30 single member",
-                                            cells["single"], card))
-    for w in BENCH_CHUNKS:
-        cells[w] = BENCH.measure(models.get("T30"), BENCH_MEMBERS, w,
-                                 BENCH_ENSEMBLE)
-        print("bench phase, " + BENCH._describe(
-            f"T30 ensemble {BENCH_MEMBERS}", cells[w], card))
-    for name, cell in cells.items():
-        for key in ("msps_median", "busy_pct", "launches_per_step",
-                    "device_us_per_mstep", "peak_mb_per_member"):
-            x = cell[key]
-            if not (math.isfinite(x) and x > 0):
-                raise RuntimeError(f"bench phase, {name}: {key} = {x}")
-    value = BENCH.sypd(cells["single"]["msps_median"], T30L8.nsteps)
-    print(f"bench phase: T30 one member {value:.1f} SYPD "
-          f"({value / BENCH.REFERENCE_SYPD_ESTIMATE:.1f} x the "
-          f"{BENCH.REFERENCE_SYPD_ESTIMATE:.0f} SYPD single-core estimate of "
-          f"BASELINE.md) [{card}]")
-    return cells
-
-
 def trace_phase(run, state, cal, first_step: int) -> dict:
     """utils.profiling.trace around a 3-step window of the main path: the
     trace file exists and names every kernel of the step. The tracer can
     lose every record for a while (see kernel_device_ms): a trace that
     misses a kernel is taken again a second later, three at most."""
-    from pyspeedy_tpu_torch.utils.profiling import TRACE_FILE, trace
+    from pyspeedy_tpu_torch.utils.profiling import (SPANS_FILE, TRACE_FILE,
+                                                    reset_spans, trace)
     for attempt in range(3):
         with tempfile.TemporaryDirectory() as log_dir:
             ctx, _ = M.build_step_ctx(dataclasses.replace(cal), first_step, 3)
+            reset_spans()
             with trace(log_dir):
                 run(state, ctx)
             path = Path(log_dir) / TRACE_FILE
             size = path.stat().st_size
             text = path.read_text()
+            spans = json.loads((Path(log_dir) / SPANS_FILE).read_text())
+        if spans["steps"] != 3 or spans["spans"]["step"]["count"] != 3:
+            raise RuntimeError(f"profiling: {SPANS_FILE} counts "
+                               f"{spans['steps']} steps, not 3")
         counts = {k: text.count(k) for k in TRACE_KERNELS}
         if all(counts.values()):
             print(f"profiling: trace() of a 3-step window of the main path "
@@ -3474,7 +3442,7 @@ def main() -> None:
     # 5. the dynamics-only path, at a reduced depth: initialization (two
     # bootstrap steps at B=1), then 12 steps of 128 members through the
     # runner's CUDA graphs (the wrappers are called by each step kind's
-    # warm-up and capture; the replays launch the same kernels).
+    # warm-up and captures; the replays launch the same kernels).
     reset_counts()
     consts_d, state_d, cal_d = make_demo_model(
         T30L8, device="cuda", physics_on=False, precision="f32",
@@ -3491,7 +3459,7 @@ def main() -> None:
     print(f"dynamics-only path: T30L8 f32, {N_MEMBERS} members x "
           f"{N_STEPS_DYN} steps + initialization through the CUDA graphs, "
           f"finite, error_flag false, launches {launches_dyn} (the "
-          f"initialization and each step kind's warm-up and capture), "
+          f"initialization and each step kind's warm-up and captures), "
           f"transform fields {fields_dyn}, none of the physics, of the plain "
           f"chain or of the plain spectral update; a {N_STEPS_DYN}-step "
           f"graph window launches on the card {prof_d['kernels']} (one "
@@ -3542,8 +3510,9 @@ def main() -> None:
           f"finite, error_flag false, launches {launches} (the "
           f"initialization's wrapper counts {init_launches} and the graph "
           f"day's device records, every step's: {day_records}); the graph "
-          f"day's wrapper calls {wrapper_calls} (steps 2, 3, 5 and 6 twice: "
-          f"the warm-up and the capture of each graph key, the shortwave "
+          f"day's wrapper calls {wrapper_calls} (steps 2, 3, 5 and 6 three "
+          f"times: the warm-up, the capture and the traced twin's capture of "
+          f"each graph key, the shortwave "
           f"kind by the pair buffers' parity), transform fields "
           f"{fields_main}, plain chain and plain spectral update calls "
           f"{main_plain}; unperturbed members differ from member 0 by "
@@ -3714,7 +3683,7 @@ def main() -> None:
     print(f"bf16_tendencies path: T30L8 f32, {N_MEMBERS} members x "
           f"{N_STEPS_BF16} steps + initialization through the CUDA graphs, "
           f"finite, error_flag false, launches {launches_b} (the bfloat16 "
-          f"instantiations on each step kind's warm-up and capture, the "
+          f"instantiations on each step kind's warm-up and captures, the "
           f"float32 ones on the two bootstrap steps; the spectral update, "
           f"float32 on every step, {launches_b['spectral_update']}; the "
           f"eager day's {bf16_graphs['eager_launches']}), transform fields "
@@ -3927,7 +3896,7 @@ def main() -> None:
           f"({api.get_current_step()} steps) {t_run:.2f} s = "
           f"{1e3 * t_run / api.get_current_step():.2f} ms/step wall; "
           f"launches {launches_api} (the initialization and each step "
-          f"kind's warm-up and capture), no plain call; against "
+          f"kind's warm-up and captures), no plain call; against "
           f"tests/fixtures/1982-01-02_0000.nc through rtol "
           + ", ".join(f"{r:g}" for r in FIXTURE_LADDER)
           + ": largest rel. difference "
@@ -4049,12 +4018,6 @@ def main() -> None:
     # 6k. a trace of a 3-step window of the main path (utils.profiling).
     phases.start("profiling trace")
     traced = trace_phase(run, state, cal_day2, first_main)
-
-    # 6l. the bench (pyspeedy_tpu_torch/bench.py) at a short depth: one
-    # member for a 30-day window after a discarded one, and 256 members in
-    # chunks of two widths; any failure raises.
-    phases.start("bench phase")
-    bench_phase(card)
 
     phases.start("float64 card vs CPU")
     # 7. float64 end to end with physics: the card (the column kernels and
@@ -4417,7 +4380,7 @@ def main() -> None:
                 "launches: the wrappers' counts of the initialization and "
                 "the profiler's records of the main path's graph day; "
                 "launches_*_path of the graph paths: wrapper calls (the "
-                "initialization and each step kind's warm-up and capture)")
+                "initialization and each step kind's warm-up and captures)")
     # The graph runner against the eager loop on every path, in turns.
     paths = {"T30 B=128": main_graphs, "T30 B=1": b1_graphs,
              "SPPT": sppt_graphs, "explicit": explicit["graphs"],

@@ -6,6 +6,7 @@ initialize_coupler/couple_sea_land."""
 
 from __future__ import annotations
 
+from ..utils.profiling import span
 from .land import couple_land_atm
 from .sea import couple_sea_atm
 
@@ -49,7 +50,8 @@ def couple_sea_land(consts, state, tables, out=None):
     tensors by field) the member-batched fields that the slab models
     advance are written into them, and the CLIMATOLOGY_PLANES into the
     planes of those that out gives as one plane expanded over the members
-    (interpolation.shared_plane; new planes otherwise)."""
-    state = couple_land_atm(consts, state, False, tables, out)
-    state = couple_sea_atm(consts, state, False, tables, out)
-    return state
+    (interpolation.shared_plane; new planes otherwise). Under the span
+    `coupler`."""
+    with span("coupler"):
+        state = couple_land_atm(consts, state, False, tables, out)
+        return couple_sea_atm(consts, state, False, tables, out)

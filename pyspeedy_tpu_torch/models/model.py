@@ -48,7 +48,7 @@ from .timestep import step
 
 __all__ = ["Consts", "build_consts", "allocate_state", "initialize",
            "build_step_ctx", "coupler_tables", "daily_forcing", "step_body",
-           "make_single_step", "SpeedyError",
+           "SpeedyError",
            "DYNAMIC_FIELDS", "EPHEMERAL_FIELDS", "CARRY_FIELDS",
            "split_state", "add_member_axis", "ensure_member_axis",
            "single_member_ndim", "band_consts", "shard_consts"]
@@ -566,20 +566,3 @@ def step_body(consts: Consts, state: dict, shortwave: bool,
     # Coupler exchange at the advanced date (speedy.f90:69-72)
     state = couple_sea_land(consts, state, coupler, out)
     return ensure_member_axis(state, nmem)
-
-
-def make_single_step(consts: Consts):
-    """The full per-step update (the body of do_single_step,
-    speedy.f90:20-74) as a state -> state function on the member-batched
-    state: daily_forcing, then step_body. ctx_i carries the step's calendar
-    scalars as Python values, its coupler tables on the device ("coupler")
-    and, with SPPT, its noise ("sppt_se"). The shortwave flag is one of the
-    scalars: every step is specialised on it on the host, and the physics
-    kernel is launched in the matching variant."""
-
-    def single_step(state, ctx_i):
-        state = daily_forcing(consts, state, ctx_i)
-        return step_body(consts, state, bool(ctx_i["compute_shortwave"]),
-                         ctx_i["coupler"], ctx_i.get("sppt_se"))
-
-    return single_step

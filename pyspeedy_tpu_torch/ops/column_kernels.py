@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import constants as pc
+from ..utils.profiling import span
 
 __all__ = ["ColumnTables", "build_column_tables", "grid_dynamics",
            "grid_dynamics_cuda", "PhysicsTables", "build_physics_tables",
@@ -346,12 +347,13 @@ def grid_dynamics(plain_fn, tab: ColumnTables, vorg, divg, tg, trg_flat, ug,
                   vg, pxy, bf16_out: bool = False):
     """The dispatch rule: CPU tensors take `plain_fn` (the plain PyTorch
     version, ``models.tendencies.grid_dynamics_core``); CUDA tensors launch
-    the kernel or raise."""
-    if vorg.device.type == "cpu":
-        return plain_fn(tab, vorg, divg, tg, trg_flat, ug, vg, pxy,
-                        bf16_out=bf16_out)
-    return grid_dynamics_cuda(tab, vorg, divg, tg, trg_flat, ug, vg, pxy,
-                              bf16_out=bf16_out)
+    the kernel or raise. Under the span `grid_dynamics`."""
+    with span("grid_dynamics"):
+        if vorg.device.type == "cpu":
+            return plain_fn(tab, vorg, divg, tg, trg_flat, ug, vg, pxy,
+                            bf16_out=bf16_out)
+        return grid_dynamics_cuda(tab, vorg, divg, tg, trg_flat, ug, vg,
+                                  pxy, bf16_out=bf16_out)
 
 
 # ---------------------------------------------------------------------------
@@ -636,15 +638,18 @@ def grid_physics(plain_fn, consts, sw_flag, ug, vg, tg, qg, phig, pslg, bc,
     version, ``physics.driver.grid_physics``); CUDA tensors launch the
     kernel or raise. With `out` ((diag, cache), see grid_physics_cuda) the
     diagnostics and the cache land there and come back: the kernel stores
-    into them, the plain version's results are copied in."""
-    if tg.device.type == "cpu":
-        res = plain_fn(consts, sw_flag, ug, vg, tg, qg, phig, pslg, bc,
-                       cache, ablco2, phisg=phisg, m0corr=m0corr,
-                       sppt_pattern=sppt_pattern)
-        if out is None:
-            return res
-        return (*res[:4], copy_into(out[0], res[4]),
-                copy_into(out[1], res[5]))
-    return grid_physics_cuda(consts, sw_flag, ug, vg, tg, qg, phig, pslg, bc,
-                             cache, ablco2, phisg=phisg, m0corr=m0corr,
-                             sppt_pattern=sppt_pattern, out=out)
+    into them, the plain version's results are copied in. Under the span
+    `physics`."""
+    with span("physics"):
+        if tg.device.type == "cpu":
+            res = plain_fn(consts, sw_flag, ug, vg, tg, qg, phig, pslg, bc,
+                           cache, ablco2, phisg=phisg, m0corr=m0corr,
+                           sppt_pattern=sppt_pattern)
+            if out is None:
+                return res
+            return (*res[:4], copy_into(out[0], res[4]),
+                    copy_into(out[1], res[5]))
+        return grid_physics_cuda(consts, sw_flag, ug, vg, tg, qg, phig,
+                                 pslg, bc, cache, ablco2, phisg=phisg,
+                                 m0corr=m0corr, sppt_pattern=sppt_pattern,
+                                 out=out)

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import constants as pc
+from ..utils.profiling import span
 from .column_kernels import (_SUPPORTED_KX, _destinations, _load, copy_into,
                              launch_counts)
 
@@ -287,10 +288,12 @@ def spectral_update(plain_fn, consts, j1: int, dt: float, eps: float, specs,
     version, ``models.spectral_glue.spectral_update_plain``); CUDA tensors
     launch the kernel or raise. With `out` (ten tensors, see
     spectral_update_cuda) the results land there and `out` comes back: the
-    kernel stores into it, the plain version's results are copied in."""
-    if psdt.device.type == "cpu":
-        res = plain_fn(consts, j1, dt, eps, specs, psdt, *state)
-        return res if out is None else copy_into(out, res)
-    return spectral_update_cuda(consts, j1, dt, eps, specs, psdt, *state,
-                                out=out)
+    kernel stores into it, the plain version's results are copied in.
+    Under the span `spectral_update`."""
+    with span("spectral_update"):
+        if psdt.device.type == "cpu":
+            res = plain_fn(consts, j1, dt, eps, specs, psdt, *state)
+            return res if out is None else copy_into(out, res)
+        return spectral_update_cuda(consts, j1, dt, eps, specs, psdt, *state,
+                                    out=out)
 

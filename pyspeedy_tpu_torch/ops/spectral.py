@@ -73,6 +73,7 @@ import torch
 
 from .. import constants as pc
 from ..params import ModelParams
+from ..utils.profiling import span
 from . import transform_kernels as TK
 from .geometry import Geometry
 
@@ -463,15 +464,16 @@ def grid2spec_many_p(sp: SpectralTransform, grids, pdim: int = 0) -> list:
     field. On the kernel route the fields go to the fused kernel in groups of
     up to TK.MAX_SEGMENTS, one launch per group and element type on the card
     (the plain chain, field by field, on the CPU); on the other routes one
-    field at a time."""
+    field at a time. Every route runs under the span `transforms`."""
     grids = list(grids)
-    if sp.band is not None:
-        return sp.band.grid2spec_many_p(sp, grids, pdim)
-    if not sp.use_fused_kernels:
-        return [_grid2spec_routes(sp, g, pdim) for g in grids]
-    n = TK.MAX_SEGMENTS
-    return [out for i in range(0, len(grids), n)
-            for out in TK.fused_grid2spec_many(sp, grids[i:i + n], pdim)]
+    with span("transforms"):
+        if sp.band is not None:
+            return sp.band.grid2spec_many_p(sp, grids, pdim)
+        if not sp.use_fused_kernels:
+            return [_grid2spec_routes(sp, g, pdim) for g in grids]
+        n = TK.MAX_SEGMENTS
+        return [out for i in range(0, len(grids), n)
+                for out in TK.fused_grid2spec_many(sp, grids[i:i + n], pdim)]
 
 
 def spec2grid_many_p(sp: SpectralTransform, pairs, kcos=1,
@@ -480,17 +482,19 @@ def spec2grid_many_p(sp: SpectralTransform, pairs, kcos=1,
     per field; the same values as one call per field. On the kernel route
     the fields go to the fused kernel in groups of up to TK.MAX_SEGMENTS
     (each field with its own 1/cos(lat) flag); on the other routes one field
-    at a time."""
+    at a time. Every route runs under the span `transforms`."""
     pairs = list(pairs)
     kcos = TK.kcos_list(kcos, len(pairs))
-    if sp.band is not None:
-        return sp.band.spec2grid_many_p(sp, pairs, kcos, pdim)
-    if not sp.use_fused_kernels:
-        return [_spec2grid_routes(sp, p, k, pdim) for p, k in zip(pairs, kcos)]
-    n = TK.MAX_SEGMENTS
-    return [out for i in range(0, len(pairs), n)
-            for out in TK.fused_spec2grid_many(sp, pairs[i:i + n],
-                                               kcos[i:i + n], pdim)]
+    with span("transforms"):
+        if sp.band is not None:
+            return sp.band.spec2grid_many_p(sp, pairs, kcos, pdim)
+        if not sp.use_fused_kernels:
+            return [_spec2grid_routes(sp, p, k, pdim)
+                    for p, k in zip(pairs, kcos)]
+        n = TK.MAX_SEGMENTS
+        return [out for i in range(0, len(pairs), n)
+                for out in TK.fused_spec2grid_many(sp, pairs[i:i + n],
+                                                   kcos[i:i + n], pdim)]
 
 
 def _grid2spec_routes(sp: SpectralTransform, grid: torch.Tensor,

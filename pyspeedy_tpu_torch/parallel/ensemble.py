@@ -27,6 +27,7 @@ bands with one all_reduce a group (parallel/shard_transforms.py).
 
 from __future__ import annotations
 
+import itertools
 import time
 import weakref
 
@@ -40,6 +41,7 @@ from ..coupling.interpolation import (N_COUPLER_ROWS, N_COUPLER_WEIGHTS,
 from ..models import model as M
 from ..models import spectral_glue as SG
 from ..physics import sppt as SP
+from ..utils import profiling as P
 from .mesh import local_shard
 
 __all__ = ["broadcast_state", "make_run_steps_batched", "pick_member_chunk",
@@ -47,11 +49,11 @@ __all__ = ["broadcast_state", "make_run_steps_batched", "pick_member_chunk",
            "MEMBER_CHUNK_HIRES"]
 
 # Member chunk widths, by grid size: the widths at which the batched
-# runner's graphs advance a large ensemble fastest on the card
-# (`python -m pyspeedy_tpu_torch.bench --sweep`, float32, NVIDIA H100 80GB
-# HBM3 at 700 W). Shared by SpeedyEns, the bench and the large-ensemble
-# example. T30, 1,024 members: 85.6k member-steps/s in chunks of 1,024,
-# against 82.3k (512), 78.9k (256), 68.6k (128) and 54.7k (64); the card is
+# runner's graphs advance a large ensemble fastest on the card (a sweep of
+# chunk widths, a fresh runner each, float32, NVIDIA H100 80GB HBM3 at
+# 700 W). Shared by SpeedyEns and the large-ensemble example. T30, 1,024
+# members: 85.6k member-steps/s in chunks of 1,024, against 82.3k (512),
+# 78.9k (256), 68.6k (128) and 54.7k (64); the card is
 # busy 96-98 % from 512 on, and the wider chunk makes fewer host calls.
 MEMBER_CHUNK = 1024
 # Grids larger than T30's, 512 members, rows 3-4 on their T47/T63 kernels
@@ -63,6 +65,8 @@ MEMBER_CHUNK = 1024
 # 33.6 MB a member against 15.4 / 27.4 at 256.
 MEMBER_CHUNK_HIRES = 512
 _T30_GRID_POINTS = 96 * 48
+# The number of each run call of the process (the runner.run span's `call`).
+_CALLS = itertools.count(1)
 
 
 def pick_member_chunk(n_members: int, params=None) -> int:
@@ -161,23 +165,39 @@ def make_run_steps_batched(consts, device="cuda", mesh=None,
         consts = M.shard_consts(consts, mesh)
     space_group = consts.sp.band.group if consts.sp.band else None
     graphs = StepGraphs(consts) if takes_graphs(device, mesh) else None
-    single_step = M.make_single_step(consts)
 
     def run(state, ctx, eager: bool = False):
         if graphs is not None and not eager:
             return graphs.run(state, ctx)
-        state, tables, noise = _run_inputs(consts, state, ctx)
-        for i in range(len(ctx["stepno"])):
-            # ctx_i is rebound before the next draw, so a used chunk of
-            # noise is freed before the next one is made.
-            ctx_i = {k: v[i] for k, v in ctx.items()}
-            ctx_i["coupler"] = CouplerTables(tables.rows[i], tables.w[i])
-            if noise is not None:
-                ctx_i["sppt_se"] = next(noise)
-            state = single_step(state, ctx_i)
-        if space_group is not None:
-            state = {**state, "error_flag": _any_over(state["error_flag"],
-                                                      space_group)}
+        traced = torch.autograd._profiler_enabled()
+        n_steps = len(ctx["stepno"])
+        nmem = state["vor"][0].shape[0]
+        with P.span("runner.run", call=next(_CALLS), members=nmem,
+                    steps=n_steps):
+            with P.span("runner.inputs"):
+                state, tables, noise = _run_inputs(consts, state, ctx)
+            for i in range(n_steps):
+                # ctx_i is rebound before the next draw, so a used chunk of
+                # noise is freed before the next one is made.
+                ctx_i = {k: v[i] for k, v in ctx.items()}
+                if ctx_i["do_forcing"]:
+                    with P.span("runner.forcing"):
+                        state = M.daily_forcing(consts, state, ctx_i)
+                with P.span("runner.step_inputs"):
+                    ctx_i["coupler"] = CouplerTables(tables.rows[i],
+                                                     tables.w[i])
+                    if noise is not None:
+                        ctx_i["sppt_se"] = next(noise)
+                with P.span("step"):
+                    state = M.step_body(consts, state,
+                                        bool(ctx_i["compute_shortwave"]),
+                                        ctx_i["coupler"],
+                                        ctx_i.get("sppt_se"))
+            if space_group is not None:
+                state = {**state, "error_flag": _any_over(
+                    state["error_flag"], space_group)}
+        if traced:
+            P.record_run(n_steps, nmem)
         return state
 
     run.graphs = graphs
@@ -250,15 +270,29 @@ class StepGraphs:
     its buffers and its graphs (a sweep over member widths holds at most
     MAX_PLANS plans' memory).
 
+    Spans (utils/profiling.py). Each key is captured twice: the graph, and
+    its traced twin, the same step with the spans of the step and of its
+    kernels' wrappers as event-record nodes (an event node costs the card
+    about 5 us, so the graphs replayed outside a profiler session hold
+    none). A run call under a profiler session replays each key's twin
+    once, at the key's first replay in the call, and counts the twin's
+    spans as many times as the key was replayed; the runner's own spans
+    (runner.run and its parts) wrap the host's work.
+
     On CPU consts the same buffer plan runs with step_body called eagerly
     where a graph would be replayed: the function the graphs record.
-    `stats` counts captures, their seconds, the memory the pool took while
-    capturing and the bytes of the static buffers made, and holds the
-    copies of the last run call: copies_per_step (the copies into buffers
-    that the replayed graphs hold, and the daily forcing's, over the
-    call's steps), `copied`, the fields copied by the step graphs ("step")
-    and by the daily forcing ("forcing"), and `copies`, every copy the
-    call made by kind: "in" (the copy-in), "step", "forcing", "inputs"
+    `stats` holds totals since the runner was made: `captures` (graph keys
+    captured), their seconds (`capture_s`, both graphs of a key), the
+    memory the pool took while capturing (`pool_bytes`) and the bytes of
+    the static buffers made (`buffer_bytes`); the run calls' `steps` and
+    `member_steps`, the graphs' `replays` by key, and the bytes copied:
+    `bytes_in` (the copy-in), `bytes_out` (the clones out) and
+    `bytes_inputs` (each step's coupler tables and SPPT noise). It holds
+    the copies of the last run call: copies_per_step (the copies into
+    buffers that the replayed graphs hold, and the daily forcing's, over
+    the call's steps), `copied`, the fields copied by the step graphs
+    ("step") and by the daily forcing ("forcing"), and `copies`, every copy
+    the call made by kind: "in" (the copy-in), "step", "forcing", "inputs"
     (the coupler tables and SPPT noise of each step) and "out" (the
     clones out), with "steps", the call's steps."""
 
@@ -270,55 +304,96 @@ class StepGraphs:
         self.pool = None
         self.plans = {}      # layout -> _BufferPlan, least recently used first
         self.stats = {"captures": 0, "capture_s": 0.0, "pool_bytes": 0,
-                      "buffer_bytes": 0, "copies_per_step": 0.0,
+                      "buffer_bytes": 0, "steps": 0, "member_steps": 0,
+                      "replays": {}, "bytes_in": 0, "bytes_out": 0,
+                      "bytes_inputs": 0, "copies_per_step": 0.0,
                       "copied": {}, "copies": {}}
 
     def run(self, state, ctx) -> dict:
         """A run call: the steps of ctx (models.model.build_step_ctx) from
         the member-batched `state`, as the batched runner takes them."""
+        traced = torch.autograd._profiler_enabled()
+        n_steps = len(ctx["stepno"])
+        with P.span("runner.run", call=next(_CALLS),
+                    members=state["vor"][0].shape[0], steps=n_steps):
+            return self._run(state, ctx, n_steps, traced)
+
+    def _run(self, state, ctx, n_steps: int, traced: bool) -> dict:
         consts = self.consts
-        state, tables, noise = _run_inputs(consts, state, ctx)
+        with P.span("runner.inputs"):
+            state, tables, noise = _run_inputs(consts, state, ctx)
         nmem = state["vor"][0].shape[0]
         plan = self._plan(state, nmem, noise is not None)
-        n_steps = len(ctx["stepno"])
-        count = {"steps": n_steps, "in": plan.load(state), "step": 0,
-                 "forcing": 0, "inputs": 0}
+        with P.span("runner.copy_in"):
+            n_in, bytes_in = plan.load(state)
+        count = {"steps": n_steps, "in": n_in, "step": 0, "forcing": 0,
+                 "inputs": 0}
         copied = {"step": set(), "forcing": set()}
+        replays = {}        # graph key -> its replays in this call
         for i in range(n_steps):
             if ctx["do_forcing"][i]:
-                names = plan.write(M.daily_forcing(consts, plan.state, {
-                    k: ctx[k][i] for k in ("do_forcing", "year_frac",
-                                           "tyear")}))
+                with P.span("runner.forcing"):
+                    names = plan.write(M.daily_forcing(consts, plan.state, {
+                        k: ctx[k][i] for k in ("do_forcing", "year_frac",
+                                               "tyear")}))
                 copied["forcing"].update(names)
                 count["forcing"] += len(names)
-            plan.coupler.rows.copy_(tables.rows[i])
-            plan.coupler.w.copy_(tables.w[i])
-            if noise is not None:
-                plan.sppt_se.copy_(next(noise))
+            with P.span("runner.step_inputs"):
+                plan.coupler.rows.copy_(tables.rows[i])
+                plan.coupler.w.copy_(tables.w[i])
+                if noise is not None:
+                    plan.sppt_se.copy_(next(noise))
             count["inputs"] += 2 + (noise is not None)
             key = (bool(ctx["compute_shortwave"][i]), plan.parity)
-            self.replay(plan, key, lambda key=key: plan.step(*key))
+            if self.replay(plan, key, lambda key=key: plan.step(*key),
+                           twin=traced and key not in replays):
+                replays[key] = replays.get(key, 0) + 1
             plan.parity = 1 - key[1]
             copied["step"].update(plan.copies[key])
             count["step"] += len(plan.copies[key])
-        out, count["out"] = plan.unload(state)
-        self.stats["copies_per_step"] = ((count["step"] + count["forcing"])
-                                         / max(n_steps, 1))
-        self.stats["copied"] = {k: sorted(v) for k, v in copied.items()}
-        self.stats["copies"] = count
+        with P.span("runner.clone_out"):
+            out, count["out"], bytes_out = plan.unload(state)
+        bytes_inputs = n_steps * plan.input_bytes
+        st = self.stats
+        st["copies_per_step"] = ((count["step"] + count["forcing"])
+                                 / max(n_steps, 1))
+        st["copied"] = {k: sorted(v) for k, v in copied.items()}
+        st["copies"] = count
+        st["steps"] += n_steps
+        st["member_steps"] += n_steps * nmem
+        st["bytes_in"] += bytes_in
+        st["bytes_out"] += bytes_out
+        st["bytes_inputs"] += bytes_inputs
+        for key, n in replays.items():
+            st["replays"][key] = st["replays"].get(key, 0) + n
+        if traced:
+            for key, n in replays.items():
+                P.add_graph_spans(plan.twins[key][1], n, "runner.replay")
+            P.record_run(n_steps, nmem, bytes_in=bytes_in,
+                         bytes_out=bytes_out, bytes_inputs=bytes_inputs)
         return out
 
-    def replay(self, plan, key, body):
-        """Replay plan's graph `key`; without one, run `body` once eagerly
-        as the warm-up and capture it. On CPU consts, run `body`."""
+    def replay(self, plan, key, body, twin: bool = False) -> bool:
+        """Replay plan's graph `key` (its traced twin where `twin`); without
+        one, run `body` once eagerly as the warm-up and capture the graph
+        and its twin. On CPU consts, run `body`. Returns whether a graph
+        was replayed."""
         if not self.capture:
-            body()
-            return
+            with P.span("runner.replay", key=key):
+                body()
+            return False
         graph = plan.graphs.get(key)
         if graph is None:
-            plan.graphs[key] = self._capture(body)
-        else:
-            graph.replay()
+            with P.span("runner.capture", key=key):
+                plan.graphs[key], plan.twins[key] = self._capture(body)
+            return False
+        with P.span("runner.replay", key=key):
+            if twin:
+                P.read_graph_spans(plan.twins[key][1])
+                plan.twins[key][0].replay()
+            else:
+                graph.replay()
+        return True
 
     def _plan(self, state, nmem: int, with_noise: bool):
         batched = (M.DYNAMIC_FIELDS if self.consts.physics_on
@@ -370,13 +445,18 @@ class StepGraphs:
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool):
+        with torch.cuda.graph(graph, pool=self.pool), P.capture_spans(None):
             reserved = torch.cuda.memory_reserved()
             body()
+        twin, table = torch.cuda.CUDAGraph(), []
+        with torch.cuda.graph(twin, pool=self.pool), P.capture_spans(table):
+            body()
+        seconds = time.perf_counter() - t0
         self.stats["pool_bytes"] += torch.cuda.memory_reserved() - reserved
         self.stats["captures"] += 1
-        self.stats["capture_s"] += time.perf_counter() - t0
-        return graph
+        self.stats["capture_s"] += seconds
+        P.record_capture(seconds)
+        return graph, (twin, table)
 
 
 class _BufferPlan:
@@ -451,6 +531,10 @@ class _BufferPlan:
             empty((N_COUPLER_WEIGHTS,), dtype))
         self.sppt_se = (empty((nmem,) + SP._pair_shape(consts.params), dtype)
                         if with_noise else None)
+        # The bytes of a step's copies into the coupler's and SPPT's buffers.
+        self.input_bytes = sum(b.nbytes for b in (
+            self.coupler.rows, self.coupler.w, self.sppt_se)
+            if b is not None)
         every = {id(b): _base(b) for st in sets for v in st.values()
                  for b in _levels(v)}
         self.nbytes = sum(b.numel() * b.element_size()
@@ -462,6 +546,7 @@ class _BufferPlan:
         self.held = {}
         self.running = False     # between a load and its unload
         self.graphs = {}     # (shortwave, parity) -> torch.cuda.CUDAGraph
+        self.twins = {}      # (shortwave, parity) -> (its twin, span table)
         self.copies = {}     # (shortwave, parity) -> fields its graph copies
 
     @property
@@ -469,9 +554,9 @@ class _BufferPlan:
         """The buffers that hold the state now: the pair set of the parity."""
         return self.states[self.parity]
 
-    def load(self, state) -> int:
+    def load(self, state) -> tuple:
         """Copy the caller's state into set 0 and restart the parity there;
-        returns the number of copies. Not copied: a field that shares its
+        returns the number of copies and their bytes. Not copied: a field that shares its
         source's buffers, and a level whose buffer holds its values already
         (`held`): the same tensor that the last call loaded there or handed
         back from there, not modified since (its version counter). So a
@@ -481,7 +566,7 @@ class _BufferPlan:
         if self.running:
             self.held.clear()           # the last call did not finish
         self.parity = 0
-        n = 0
+        n = nbytes = 0
         for name, bufs in self.state.items():
             if name in self.aliased:
                 continue
@@ -495,17 +580,20 @@ class _BufferPlan:
                            else src)
                 self.held[(name, i)] = (weakref.ref(src), src._version)
                 n += 1
+                nbytes += base.nbytes
         self.running = True
-        return n
+        return n, nbytes
 
     def step(self, shortwave: bool, parity: int):
         """The step of graph key (shortwave, parity): the pair read from set
         `parity`, the new pair stored into the other set."""
-        src, dst = self.states[parity], self.states[1 - parity]
-        out = M.step_body(self.consts, src, shortwave, self.coupler,
-                          self.sppt_se, out=dst)
-        self.parity = 1 - parity
-        self.copies[(shortwave, parity)] = self.write(out)
+        with P.span("step"):
+            src, dst = self.states[parity], self.states[1 - parity]
+            out = M.step_body(self.consts, src, shortwave, self.coupler,
+                              self.sppt_se, out=dst)
+            self.parity = 1 - parity
+            with P.span("step.copies"):
+                self.copies[(shortwave, parity)] = self.write(out)
 
     def write(self, out: dict) -> list:
         """Copy every field of `out` that is not its buffer (in the set of
@@ -542,7 +630,8 @@ class _BufferPlan:
         return [name for name, _, _ in pending]
 
     def unload(self, state) -> tuple:
-        """(the state after the call, the number of clones made): a clone of
+        """(the state after the call, the number of clones made, their
+        bytes): a clone of
         every field that the steps and the daily forcing write (an alias
         the clone of its source), the others as the caller gave them. A
         clone from set 0 is `held` for the next call's copy-in."""
@@ -550,7 +639,7 @@ class _BufferPlan:
         written = (M.DYNAMIC_FIELDS | self.written) & self.state.keys()
         written |= ({a for a, src in self.aliased.items() if src in written}
                     | {self.aliased[a] for a in written & self.aliased.keys()})
-        n = 0
+        n = nbytes = 0
         for name in sorted(written - self.aliased.keys()):
             clones = []
             for i, buf in enumerate(_levels(self.state[name])):
@@ -558,6 +647,7 @@ class _BufferPlan:
                 clone = (base.clone() if base is buf
                          else base.clone().expand(buf.shape))
                 clones.append(clone)
+                nbytes += base.nbytes
                 if buf is _levels(self.states[0][name])[i]:
                     self.held[(name, i)] = (weakref.ref(clone),
                                             clone._version)
@@ -569,7 +659,7 @@ class _BufferPlan:
         for name in written & self.aliased.keys():
             out[name] = out[self.aliased[name]]
         self.running = False
-        return out, n
+        return out, n, nbytes
 
 
 def _base(buf: torch.Tensor) -> torch.Tensor:

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .. import constants as pc
+from ..utils.profiling import span
 
 __all__ = ["gen_sppt", "gen_sppt_n", "init_sppt_state", "stationary_draw",
            "build_sppt_tables", "SpptTables", "threefry2x32", "fold_in",
@@ -312,10 +313,12 @@ def draw_run_noise(consts, keys: torch.Tensor, first_step: int,
 def _draw_steps(consts, gkeys, group_of, offset):
     """One chunk of draw_run_noise: sigma * eta of the steps whose groups'
     keys are gkeys[:, group_of] and whose first elements are at offset in
-    their groups' draws. Returns (B, steps, 2, kx, mx, nx)."""
-    dev = gkeys.device
-    sel = torch.tensor(group_of, dtype=torch.int64, device=dev)
-    offs = torch.tensor(offset, dtype=torch.int64, device=dev)
-    eta = draw_noise(gkeys[:, sel], _pair_shape(consts.params),
-                     consts.params.dtype, offs)
-    return consts.sppt.sigma * eta
+    their groups' draws. Returns (B, steps, 2, kx, mx, nx). Under the span
+    `sppt.draw`."""
+    with span("sppt.draw"):
+        dev = gkeys.device
+        sel = torch.tensor(group_of, dtype=torch.int64, device=dev)
+        offs = torch.tensor(offset, dtype=torch.int64, device=dev)
+        eta = draw_noise(gkeys[:, sel], _pair_shape(consts.params),
+                         consts.params.dtype, offs)
+        return consts.sppt.sigma * eta

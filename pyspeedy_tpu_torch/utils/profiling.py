@@ -9,11 +9,30 @@ calls of a run of steps (kernels replayed from a CUDA graph included, under
 their own names), `kernel_device_ms` for one kernel's time per launch, or
 `PhaseTimer` for coarse wall-clock accounting of init/step/export phases.
 `nvidia_smi_line` names the card and its power limit for every figure.
+
+Spans. `span(name, **args)` marks a part of the port's own code (the names
+are SPANS: the batched runner's parts, SPPT's draw, the step and the
+wrappers of its kernels and of the coupler). Without a profiler session and
+outside a step graph's traced capture it is one shared null context. Under
+a profiler session it opens `torch.profiler.record_function(name)` (the
+host's range in the Chrome trace, on the device records' clock) and times
+the span on the device: timing events on the current stream at its enter
+and exit (the host's clock on the CPU). While the batched runner captures
+the traced twin of a step graph (`capture_spans`), a span records external
+timing events, which become event-record nodes of that graph: the runner
+replays the twin, one replay of each graph in a profiled run call, and
+hands its table to the store (`add_graph_spans`). The store, read with
+`span_totals()` and cleared with `reset_spans()`, holds by name the spans'
+total and self milliseconds (self: the total less its child spans'), their
+count, the profiled run calls' steps, member-steps, member width and copy
+bytes, and the set-up's graph captures; `trace()` writes it as SPANS_FILE
+beside its trace.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import subprocess
 import tempfile
@@ -22,8 +41,11 @@ from collections import defaultdict
 
 import torch
 
-__all__ = ["trace", "PhaseTimer", "TRACE_FILE", "HOST_CALLS",
-           "window_profile", "kernel_device_ms", "nvidia_smi_line"]
+__all__ = ["trace", "PhaseTimer", "TRACE_FILE", "SPANS_FILE", "HOST_CALLS",
+           "window_profile", "kernel_device_ms", "nvidia_smi_line", "SPANS",
+           "span", "span_totals", "reset_spans", "capture_spans",
+           "add_graph_spans", "read_graph_spans", "resolve_spans",
+           "record_run", "record_capture"]
 
 # The CUDA runtime and driver calls by which the host enqueues work on the
 # card (a kernel, a copy or fill, a graph): "host calls" below count these.
@@ -34,6 +56,17 @@ HOST_CALLS = frozenset({
 
 # Name of the trace file that `trace` writes into its log directory.
 TRACE_FILE = "trace.json"
+# Name of the span table that `trace` writes beside it (span_totals()).
+SPANS_FILE = "spans.json"
+
+# Every span of the port, parents before their children. runner.run holds
+# the runner's parts; step holds the kernels' wrappers, the coupler and the
+# step's copies into the runner's buffers (its self time is the models'
+# glue); sppt.draw runs inside runner.step_inputs.
+SPANS = ("runner.run", "runner.inputs", "runner.copy_in", "runner.forcing",
+         "runner.step_inputs", "sppt.draw", "runner.replay", "runner.capture",
+         "runner.clone_out", "step", "transforms", "grid_dynamics", "physics",
+         "spectral_update", "coupler", "step.copies")
 
 
 @contextlib.contextmanager
@@ -42,7 +75,9 @@ def trace(log_dir: str | None = None):
     and the device's kernels, copies and fills when CUDA is available.
     Yields the log directory (a new temporary directory when none is given);
     on exit the trace is written there as TRACE_FILE, a Chrome trace that
-    Perfetto (ui.perfetto.dev) and chrome://tracing open. The block's
+    Perfetto (ui.perfetto.dev) and chrome://tracing open, and the span store
+    as SPANS_FILE (span_totals(): every profiled span since the last
+    reset_spans(), the replayed graphs' spans among them). The block's
     device work is waited for before the trace is stopped."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -59,6 +94,8 @@ def trace(log_dir: str | None = None):
             if cuda:
                 torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+    with open(os.path.join(log_dir, SPANS_FILE), "w") as f:
+        json.dump(span_totals(), f, indent=1)
 
 
 class PhaseTimer:
@@ -178,3 +215,186 @@ def kernel_device_ms(fn, kernel_name: str, reps: int = 20) -> float:
             f"profiler recorded {count} launches of {kernel_name}, "
             f"expected {reps}")
     return 1e-3 * sum(e.self_device_time_total for e in hits) / count
+
+
+# ---------------------------------------------------------------------------
+# Spans and the store
+# ---------------------------------------------------------------------------
+
+_NULL = contextlib.nullcontext()
+# None outside a step graph's capture; while one is captured, the traced
+# twin's table (a list its spans append to), or False for the graph without
+# spans.
+_capture = None
+_stack = []            # names of the open spans, innermost last
+_call = None           # the number of the run call that is open
+_totals = {}           # name -> [ms, ms of child spans, count]
+_pending = []          # (name, parent, start, end) not yet read
+_tables = []           # (a twin's span table, times, parent) not yet read
+# Past this many pending spans a span's exit reads them (their events).
+_MAX_PENDING = 1 << 14
+# The profiled run calls' counters, and the set-up's.
+_run = dict.fromkeys(("steps", "member_steps", "members", "bytes_in",
+                      "bytes_out", "bytes_inputs"), 0)
+_setup = {"captures": 0, "capture_s": 0.0}
+
+
+def span(name: str, **args):
+    """A context that marks the span `name` (one of SPANS): a null context
+    unless a profiler session is active or a traced twin is captured (see
+    the module's docstring). `args` go into the trace's record of the span;
+    a `call` among them numbers the run call for the spans inside it."""
+    cap = _capture
+    if cap is None:
+        if not torch.autograd._profiler_enabled():
+            return _NULL
+    elif cap is False:
+        return _NULL
+    return _Span(name, args)
+
+
+def _mark():
+    """A point on the span's clock: an external timing event on the current
+    stream while a twin is captured (an event-record node of the graph), a
+    timing event on the current stream where CUDA is in use, the host's
+    clock (seconds) elsewhere."""
+    if _capture is not None:
+        ev = torch.cuda.Event(enable_timing=True, external=True)
+    elif torch.cuda.is_initialized():
+        ev = torch.cuda.Event(enable_timing=True)
+    else:
+        return time.perf_counter()
+    ev.record()
+    return ev
+
+
+def _elapsed_ms(start, end) -> float:
+    if isinstance(start, float):
+        return 1e3 * (end - start)
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+class _Span:
+    __slots__ = ("name", "args", "parent", "rf", "start")
+
+    def __init__(self, name, args):
+        self.name, self.args = name, args
+
+    def __enter__(self):
+        global _call
+        if "call" in self.args:
+            _call = self.args["call"]
+        self.parent = _stack[-1] if _stack else None
+        _stack.append(self.name)
+        self.rf = None
+        if torch.autograd._profiler_enabled():
+            text = " ".join(f"{k}={v}" for k, v in
+                            {"call": _call, **self.args}.items())
+            self.rf = torch.profiler.record_function(self.name, text)
+            self.rf.__enter__()
+        self.start = _mark()
+        return self
+
+    def __exit__(self, *exc):
+        end = _mark()
+        _stack.pop()
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        rec = (self.name, self.parent, self.start, end)
+        if _capture is not None:
+            _capture.append(rec)
+        else:
+            _pending.append(rec)
+            if len(_pending) > _MAX_PENDING:
+                resolve_spans()
+        return False
+
+
+@contextlib.contextmanager
+def capture_spans(table):
+    """The spans of a step graph's capture: with a list, the traced twin's,
+    each span's (name, parent, start, end) appended to it (parents inside
+    the capture; None at its top); with None, the graph without spans, where
+    no span records anything."""
+    global _capture, _stack
+    saved = _stack
+    _capture, _stack = (False if table is None else table), []
+    try:
+        yield table
+    finally:
+        _capture, _stack = None, saved
+
+
+def add_graph_spans(table, times: int, parent: str) -> None:
+    """Count the spans of a twin's last replay `times` times, its top spans
+    as children of `parent`. The twin's next replay rewrites its events:
+    read_graph_spans(table) reads them before it, span_totals() at the
+    latest."""
+    _tables.append((table, times, parent))
+
+
+def read_graph_spans(table) -> None:
+    """Read the pending spans of a twin's table (before its replay)."""
+    for i, (tab, times, parent) in enumerate(_tables):
+        if tab is table:
+            del _tables[i]
+            _read(table, times, parent)
+            return
+
+
+def _read(recs, times: int = 1, top=None) -> None:
+    for name, parent, start, end in recs:
+        ms = times * _elapsed_ms(start, end)
+        tot = _totals.setdefault(name, [0.0, 0.0, 0])
+        tot[0] += ms
+        tot[2] += times
+        parent = top if parent is None else parent
+        if parent is not None:
+            _totals.setdefault(parent, [0.0, 0.0, 0])[1] += ms
+
+
+def resolve_spans() -> None:
+    """Read every pending span's time into the totals (waiting for their
+    end events on the card)."""
+    _read(_pending)
+    _pending.clear()
+    for table, times, parent in _tables:
+        _read(table, times, parent)
+    _tables.clear()
+
+
+def record_run(steps: int, members: int, **nbytes) -> None:
+    """Count a profiled run call: its steps, member-steps and member width,
+    and the bytes it copied (bytes_in, bytes_out, bytes_inputs)."""
+    _run["steps"] += steps
+    _run["member_steps"] += steps * members
+    _run["members"] = members
+    for k, v in nbytes.items():
+        _run[k] += v
+
+
+def record_capture(seconds: float) -> None:
+    """Count a step graph's capture (set-up, profiled or not)."""
+    _setup["captures"] += 1
+    _setup["capture_s"] += seconds
+
+
+def span_totals() -> dict:
+    """The store: {"spans": {name: {"ms", "self_ms", "count"}}, the
+    profiled run calls' "steps", "member_steps", "members" (the last one's
+    width), "bytes_in", "bytes_out", "bytes_inputs", and the set-up's
+    "captures" and "capture_s"}. Reads the pending spans first."""
+    resolve_spans()
+    spans = {name: {"ms": ms, "self_ms": ms - child, "count": n}
+             for name, (ms, child, n) in _totals.items()}
+    return {"spans": spans, **_run, **_setup}
+
+
+def reset_spans() -> None:
+    """Clear the store."""
+    _totals.clear()
+    _pending.clear()
+    _tables.clear()
+    _run.update(dict.fromkeys(_run, 0))
+    _setup.update(captures=0, capture_s=0.0)
