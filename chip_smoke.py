@@ -23,8 +23,10 @@ T47 and T63 a day of 128 members (row 3 with a bfloat16 grid bitwise the
 float32 / float64 kernel on the widened grid, rows 1-2 with bfloat16
 outputs from float32 and float64, float64 with the flag against the CPU);
 the SPPT path: the full-physics model with stochastic physics, one day of
-128 members; the API: ``Speedy`` in float64 for a day from the bundled
-boundary conditions, held against the golden fixture, and ``SpeedyEns``
+128 members, and SPPT's noise kernel (csrc/sppt_noise.cu) at the SPPT
+cell's chunk of 1,024 members and 8 steps against its bound and the plain
+passes, float32 and float64; the API: ``Speedy`` in float64 for a day from
+the bundled boundary conditions, held against the golden fixture, and ``SpeedyEns``
 with SPPT (and with bf16_tendencies), batched against member by member;
 the probe stages on the model's own
 fields; the DFT chain through its entry point; the explicit gravity-wave
@@ -82,6 +84,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -108,6 +111,7 @@ from pyspeedy_tpu_torch.ops import column_kernels as ck
 from pyspeedy_tpu_torch.ops import dft_chain as DC
 from pyspeedy_tpu_torch.ops import glue_kernels as GK
 from pyspeedy_tpu_torch.ops import spectral as S
+from pyspeedy_tpu_torch.ops import sppt_noise as SN
 from pyspeedy_tpu_torch.ops import transform_kernels as tk
 from pyspeedy_tpu_torch.parallel import distributed as PDIST
 from pyspeedy_tpu_torch.parallel import mesh as PMESH
@@ -124,7 +128,7 @@ from pyspeedy_tpu_torch.physics import driver as PD
 from pyspeedy_tpu_torch.physics import sppt as SP
 from pyspeedy_tpu_torch.testing import make_demo_model
 from pyspeedy_tpu_torch.utils.dataset import open_dataset
-from pyspeedy_tpu_torch.utils.profiling import (PhaseTimer,
+from pyspeedy_tpu_torch.utils.profiling import (SPANS, PhaseTimer,
                                                 kernel_device_ms,
                                                 nvidia_smi_line,
                                                 window_profile)
@@ -143,6 +147,16 @@ PEAK_FLOPS_F64_TENSOR = 67e12
 # each float one.
 PEAK_FLOPS_TENSOR = {torch.float32: 495e12 / 3,
                      torch.float64: PEAK_FLOPS_F64_TENSOR}
+# Integer instructions a clock an SM on the INT32 pipe (16 lanes in each of
+# an SM's four partitions; NVIDIA's Hopper architecture white paper).
+INT32_PER_SM_CLOCK = 64
+# SPPT's noise (csrc/sppt_noise.cu), an element: threefry2x32's 20 rounds of
+# an add, a rotate and a xor, the key's two adds before them and five
+# injections of two, the index's add; of them the rotates (funnel shifts)
+# and xors only the INT32 pipe issues (an add may go to the FMA pipe as an
+# IMAD).
+SPPT_NOISE_INT_OPS = 20 * 3 + 2 + 5 * 2 + 1
+SPPT_NOISE_INT_PIPE_OPS = 20 * 2
 
 N_MEMBERS = 128
 # Rows 3-4 at T47/T63 (csrc/fused_transform_hires.cu): every device kernel,
@@ -2057,6 +2071,118 @@ def occupancy_report(libs) -> dict:
     return rows
 
 
+def sass_opcodes(lib, base: str) -> dict:
+    """{mangled kernel name: {opcode: instructions}} of the kernels of
+    library `lib` whose names hold `base`, from the SASS that cuobjdump
+    prints (an opcode without its modifiers)."""
+    import re
+    tool = Path(ck.find_nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in text.splitlines():
+        head = re.search(r"Function : (\S+)", line)
+        if head:
+            name = head.group(1) if base in head.group(1) else None
+            if name:
+                counts[name] = {}
+            continue
+        op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
+                       line)
+        if name is not None and op:
+            counts[name][op.group(1)] = counts[name].get(op.group(1), 0) + 1
+    return counts
+
+
+def sm_clock_hz() -> float:
+    """The card's highest SM clock (nvidia-smi's clocks.max.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def ulps_apart(got, want) -> int:
+    """The largest distance in units of the last place between two float
+    tensors of one type and shape (their bit patterns' difference; values
+    of one sign)."""
+    itype = torch.int32 if got.dtype == torch.float32 else torch.int64
+    return int((got.view(itype) - want.view(itype)).abs().max())
+
+
+def check_sppt_noise(el2, card: str, lib, nmem: int = 1024,
+                     n_steps: int = 8) -> dict:
+    """SPPT's noise kernel (csrc/sppt_noise.cu) at the SPPT cell's chunk:
+    T30L8, nmem members, the first n_steps steps of a 9-step run call from
+    step 2, float32 and float64, the sigma of the Laplacian eigenvalues
+    `el2`. Its time (CUDA events, the table already on the card), its bound
+    (the larger of its INT32-pipe work, the rotates and xors at 64 a clock
+    an SM at the card's highest SM clock, and its bytes at 3.35 TB/s; beside
+    it all its integer operations at that rate), the plain passes' time on
+    the same card and the agreement of the two (bitwise, or the largest ulp
+    distance; raises past 1 ulp); the SASS opcodes of each instantiation.
+    Prints one line a type; returns the figures."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    int_rate = INT32_PER_SM_CLOCK * sms * sm_clock_hz()
+    sass = sass_opcodes(lib, "sppt_noise_kernel")
+    out = {}
+    for prec in ("f32", "f64"):
+        params = dataclasses.replace(T30L8, precision=prec)
+        dtype = params.dtype
+        sigma = SP.build_sppt_tables(params, el2, "cuda").sigma
+        shape = SP._pair_shape(params)
+        per = math.prod(shape)
+        rows = [(s, j * per) for s, n in SP.sppt_groups(2, 9)
+                for j in range(n)][:n_steps]
+        fold, offset = [r[0] for r in rows], [r[1] for r in rows]
+        keys = SP.split_keys(SP.key_data(2**31 + 11), nmem).cuda()
+        table = torch.from_numpy(SN.step_table(fold, offset)).cuda()
+        fold_t = torch.tensor(fold, device="cuda")
+        offs_t = torch.tensor(offset, device="cuda")
+        kernel = lambda: SN.sppt_noise_cuda(keys, table, shape, dtype, sigma)
+        plain = lambda: sigma * SP.draw_noise_plain(
+            SP.fold_in(keys[:, None, :], fold_t), shape, dtype, offs_t)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        bitwise = torch.equal(got, want)
+        ulps = 0 if bitwise else ulps_apart(got, want)
+        n_diff = int((got != want).sum())
+        del got, want
+        ms = time_ms(kernel, reps=10)
+        plain_ms = time_ms(plain, reps=1, warmup=1, windows=3)
+        elements = nmem * n_steps * per
+        nbytes = (elements + math.prod(sigma.shape)) * sigma.element_size() \
+            + 8 * (keys.numel() + table.numel())
+        pipe_ms = SPPT_NOISE_INT_PIPE_OPS * elements / int_rate * 1e3
+        int_ms = SPPT_NOISE_INT_OPS * elements / int_rate * 1e3
+        byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        bound = max(pipe_ms, byte_ms)
+        t = "float" if prec == "f32" else "double"
+        ops = next((v for k, v in sass.items() if f"kernelI{t[0]}" in k), {})
+        mix = {op: ops.get(op, 0) for op in ("SHF", "LOP3", "IADD3", "IMAD",
+                                             "FMNMX", "MUFU")}
+        print(f"sppt_noise_kernel<{t}> (T30L8, B={nmem}, {n_steps} steps, "
+              f"{elements:,} elements, {nbytes / 1e6:.1f} MB written): "
+              f"{ms:.4f} ms, bound {bound:.4f} ms by "
+              f"{'the INT32 pipe' if pipe_ms >= byte_ms else 'bytes'} "
+              f"({100 * bound / ms:.1f} %; INT32 pipe {pipe_ms:.4f}, all "
+              f"{SPPT_NOISE_INT_OPS} integer operations an element "
+              f"{int_ms:.4f}, bytes {byte_ms:.4f}); the plain passes "
+              f"{plain_ms:.3f} ms; kernel vs plain "
+              f"{'bitwise' if bitwise else f'{n_diff} elements differ, at most {ulps} ulp'}; "
+              f"SASS {sum(ops.values())} instructions, {mix} [{card}]")
+        if ulps > 1:
+            raise RuntimeError(f"sppt_noise_kernel<{t}>: {ulps} ulp from the "
+                               f"plain passes")
+        out[prec] = {"ms": ms, "bound_ms": bound, "int_pipe_ms": pipe_ms,
+                     "int_ops_ms": int_ms, "byte_ms": byte_ms,
+                     "plain_ms": plain_ms, "bitwise": bitwise,
+                     "ulps": ulps, "elements_differing": n_diff,
+                     "sass": ops}
+    return out
+
+
 def run_window(run, state, cal, first_step: int, n_steps: int,
                eager: bool = False):
     """n_steps through the batched runner (its CUDA graphs, or its eager
@@ -2072,7 +2198,10 @@ def run_window(run, state, cal, first_step: int, n_steps: int,
 
 # The device kernel of each launch counter (its instantiations share it);
 # rows 3-4 at T47/T63 run those of the library's plan for the path's shape
-# and type.
+# and type. SPPT's noise kernel is held by its wrapper count alone: it is
+# the first kernel of a run call's window, and the profiler has left its
+# record out of eager windows (0 of 8 after a few sessions on the H100,
+# while the graph windows between them held it).
 KERNEL_OF_COUNTER = {
     "grid_dynamics": "grid_dynamics_kernel",
     "grid_dynamics_bf16": "grid_dynamics_kernel",
@@ -2156,7 +2285,8 @@ def device_time_per_step(run, state, cal, first_step: int, n_steps: int,
               "row reductions": share("reduce_kernel")}
     top = [(k[:60], v[0], v[1]) for k, v in list(by.items())[:8]]
     copies = {k[:60]: (v[0], v[1]) for k, v in by.items()
-              if any(x in k.lower() for x in COPY_RECORDS)}
+              if k not in SPANS
+              and any(x in k.lower() for x in COPY_RECORDS)}
     return {"busy_ms": prof["busy_ms_per_step"],
             "launches": prof["launches_per_step"],
             "host_calls": prof["host_calls_per_step"],
@@ -2165,7 +2295,9 @@ def device_time_per_step(run, state, cal, first_step: int, n_steps: int,
 
 # The profiler's names of the device records that copy memory: the
 # runtime's copies ("Memcpy DtoD (Device -> Device)") and PyTorch's copy
-# kernels (a broadcast or strided copy_, elementwise_kernel<...copy...>).
+# kernels (a broadcast or strided copy_, elementwise_kernel<...copy...>);
+# not the spans (utils.profiling.SPANS), whose ranges the profiler mirrors
+# on the device's timeline in some windows ("runner.copy_in").
 COPY_RECORDS = ("memcpy", "copy")
 # The kinds of copies a graph run call makes (StepGraphs.stats["copies"]).
 COPY_KINDS = ("in", "step", "forcing", "inputs", "out")
@@ -2284,7 +2416,9 @@ def expected_path_launches(consts, first: int, n_steps: int, evals=None,
     direction's kernels). With bf16_tendencies the
     runner's evaluations take the bfloat16 instantiations (the spectral
     update, the inverse groups and the forcing's transforms stay float32),
-    the initialization the float32 ones."""
+    the initialization the float32 ones. With SPPT (and the physics) one
+    noise launch a chunk of the run call at N_MEMBERS members, and with_init
+    three: the stationary draw and each bootstrap step's own."""
     p = consts.params
     evals = list(range(first, first + n_steps)) if evals is None else evals
     n_sw = sum(1 for s in evals if s % 3 == 0)
@@ -2308,6 +2442,12 @@ def expected_path_launches(consts, first: int, n_steps: int, evals=None,
         add(launches, "spectral_update", 2 if semi else 0)
         if consts.physics_on:
             add(launches, "grid_physics_sw", 2)
+    if p.sppt_on:
+        if consts.physics_on and n_steps:
+            add(launches, "sppt_noise",
+                -(-n_steps // SP.chunk_steps(p, N_MEMBERS)))
+        if with_init:
+            add(launches, "sppt_noise", 3 if consts.physics_on else 1)
     if consts.sp.use_fused_kernels:
         hires = "" if consts.sp.use_dense_legendre else "_hires"
         g2s, s2g = "fused_grid2spec" + hires, "fused_spec2grid" + hires
@@ -3797,10 +3937,12 @@ def main() -> None:
           f"keys; first graph day {secs_s:.3f} s")
     sppt_graphs = graphs_phase("SPPT path", consts_s, run_s, state_s0, cal_s,
                                N_STEPS, state_s, cal_s1, captured, card)
-    if sppt_graphs["eager_launches"] != launches_eager_day:
+    if sppt_graphs["eager_launches"] != {
+            **launches_eager_day, "sppt_noise": 1}:
         raise RuntimeError(f"SPPT path, eager day: launches "
                            f"{sppt_graphs['eager_launches']} against the main "
-                           f"path's {launches_eager_day}")
+                           f"path's {launches_eager_day} and one noise "
+                           f"launch")
     del state_s0
     # Launches and device time per step of the eager loop, a whole 36-step
     # run call of each path from warm states, in turns; the noise draw of
@@ -3813,16 +3955,22 @@ def main() -> None:
                                   consts_s, eager=True)
     draw = lambda: list(SP.draw_run_noise(consts_s, state_s["sppt_key"],
                                           first_s, N_STEPS))
+    before = ck.launch_counts["sppt_noise"]
     draw()
-    draw_launches = device_launches(draw)
+    if ck.launch_counts["sppt_noise"] != before + 1:
+        raise RuntimeError("the noise of a 36-step run call at B=128 is not "
+                           "one kernel launch")
+    draw_records = device_launches(draw)
     draw_ms = time_ms(draw, reps=3, warmup=1, windows=3)
     sppt_extra = prof_s["launches"] - prof_main["launches"]
     print(f"SPPT path, warm, {N_STEPS}-step run calls at B={N_MEMBERS}, the "
           f"eager loop: device launches per step {prof_s['launches']:.1f} "
           f"with SPPT, {prof_main['launches']:.1f} without: SPPT adds "
-          f"{sppt_extra:.1f} a step (the noise draw {draw_launches} launches "
-          f"per run call = {draw_launches / N_STEPS:.1f} a step at {N_STEPS} "
-          f"steps, the rest the AR(1) update and the clip of each step); "
+          f"{sppt_extra:.1f} a step (the noise draw one kernel launch a run "
+          f"call by its wrapper's count, {draw_records} device records by "
+          f"the profiler's, its table's copy and the kernel, or 0 where the "
+          f"profiler lost them; the rest the AR(1) update and the clip of "
+          f"each step); "
           f"device busy {prof_s['busy_ms']:.3f} ms/step with SPPT, "
           f"{prof_main['busy_ms']:.3f} without; the noise draw of one run "
           f"call {draw_ms:.3f} ms; wall ms/step through the graphs "
@@ -3861,6 +4009,8 @@ def main() -> None:
                 "m0corr": kw_s["m0corr"], "sppt": pattern,
                 "source": "SPPT model state after a day, its own pattern"})
     del args_s, kw_s, pattern, pat_plain, spec_s, se
+    noise = check_sppt_noise(consts_s.sp.el2.cpu().numpy(), card,
+                             libs["sppt_noise"])
 
     phases.start("API phase")
     # 6f. the API phase: Speedy on the card in float64 (the fixtures'
@@ -4368,6 +4518,19 @@ def main() -> None:
                 "local_bytes", "warps_per_sm"):
         dft[key + "_f64"] = dft64[key]
     kernels.append(dft)
+    # SPPT's noise, on the SPPT path (the main path draws none).
+    kernels.append({
+        "name": "sppt_noise", "route": "cuda",
+        "source": "pyspeedy_tpu_torch/csrc/sppt_noise.cu",
+        "replaces": "none (the JAX package draws with jax.random)",
+        "launches": launches_s["sppt_noise"],
+        "launches_on": "the SPPT path: the initialization's three draws and "
+                       "one a run call",
+        "shape": "T30L8 f32 B=1024 x 8 steps",
+        **{k: noise["f32"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bitwise", "ulps")},
+        **{k + "_f64": noise["f64"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                 "bitwise", "ulps")}})
     # The main path's kernels: `launches` is the initialization's (eager,
     # counted by the wrappers) and the profiler's records of the graph day;
     # beside it the wrappers' calls in that day and the eager day's

@@ -19,9 +19,10 @@ and every kernel counts the launches of its bfloat16 instantiation apart
 (``*_bf16``: the ``bf16_tendencies`` configuration). The fused spectral
 transforms (``csrc/fused_transform.cu`` at T30,
 ``csrc/fused_transform_hires.cu`` at T47 and T63), the spectral update
-(``csrc/spectral_update.cu``) and the DFT chain (``csrc/dft_chain.cu``) are in
-the table too; their wrappers live in ``ops/transform_kernels.py``,
-``ops/glue_kernels.py`` and ``ops/dft_chain.py``.
+(``csrc/spectral_update.cu``), the DFT chain (``csrc/dft_chain.cu``) and SPPT's
+noise (``csrc/sppt_noise.cu``) are in the table too; their wrappers live in
+``ops/transform_kernels.py``, ``ops/glue_kernels.py``, ``ops/dft_chain.py`` and
+``ops/sppt_noise.py``.
 """
 
 from __future__ import annotations
@@ -119,6 +120,13 @@ KERNELS = {
         source=_CSRC / "dft_chain.cu", symbol="pyspeedy_dft_chain",
         argtypes=(_I, _L, _I, _I, _I, _I, _I, _P, _P),
         counters=("dft_chain",)),
+    # SPPT's noise. -fmad=false: the plain version's `f * span + lo` is two
+    # passes, two roundings. Wrapper: ops/sppt_noise.py.
+    "sppt_noise": KernelSpec(
+        source=_CSRC / "sppt_noise.cu", symbol="pyspeedy_sppt_noise",
+        argtypes=(_I, _L, _L, _L, _P, _P, _I, _P, _L, _D, _D, _D, _P, _P),
+        extra_flags=("-fmad=false",),
+        counters=("sppt_noise",)),
 }
 KERNEL_SOURCES = {name: spec.source for name, spec in KERNELS.items()}
 

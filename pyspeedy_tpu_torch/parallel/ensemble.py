@@ -143,10 +143,11 @@ def make_run_steps_batched(consts, device="cuda", mesh=None,
     With params.sppt_on (and the physics on) the noise is drawn grouped as
     the JAX package's batched runner groups it (physics/sppt.py::sppt_groups),
     so the same member keys give the JAX package's patterns, in chunks of
-    many steps (physics/sppt.py::draw_run_noise: one vectorised pass each, a
-    whole run call at the model's sizes), the next chunk when the last is
-    used up, so the noise held stays bounded however long the run; each
-    step takes its slice (sppt_se), through a static buffer on the graphs.
+    many steps (physics/sppt.py::draw_run_noise: on the card one kernel
+    launch each, csrc/sppt_noise.cu, on the CPU the plain passes; a whole
+    run call at the model's sizes), the next chunk when the last is used
+    up, so the noise held stays bounded however long the run; each step
+    takes its slice (sppt_se), through a static buffer on the graphs.
 
     `device` must be the one the consts were built on.
 

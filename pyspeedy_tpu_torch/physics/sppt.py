@@ -9,17 +9,21 @@ key pairs, and the noise of a group of n steps that starts at step s is
 ``jax.random.normal(fold_in(member_key, s), (n, 2, kx, mx, nx))`` clipped to
 +-10, drawn with partitionable threefry (each element's bits are threefry2x32
 of the key and the element's flat index). Here the same words come from
-integer tensor arithmetic: uint32 bit patterns held in int32 tensors, whose
-additions wrap modulo 2^32. The bits to normal map is JAX's too (a uniform
-on (-1, 1) from the mantissa bits, then sqrt(2) * erfinv), so the normals
-agree with JAX's to the rounding of erfinv.
+integer tensor arithmetic on the CPU (draw_noise_plain: uint32 bit patterns
+held in int32 tensors, whose additions wrap modulo 2^32), and on the card
+from one kernel launch a chunk (ops/sppt_noise.py, csrc/sppt_noise.cu: the
+same words, each element's computed in registers where it is stored). The
+bits to normal map is JAX's too (a uniform on (-1, 1) from the mantissa
+bits, then sqrt(2) * erfinv), so the normals agree with JAX's to the
+rounding of erfinv; the kernel's are the plain passes' on the same card.
 
 A key is carried as its two words in an int64 tensor: (2,) for one member,
 (B, 2) member-batched.
 
 The runner (parallel/ensemble.py) draws the noise of a run call in chunks of
-many steps, each one vectorised pass (draw_run_noise), and hands each step
-its slice;
+many steps (draw_run_noise: on the card one kernel launch a chunk, the group
+keys folded inside it; on the CPU the plain passes), and hands each step its
+slice;
 the step advances the AR(1) spectrum (advance) and the physics' inverse
 transform group takes the spectrum to the grid (physics/driver.py), where
 the clip to +-1 follows and the physics kernel multiplies it in.
@@ -34,12 +38,14 @@ import numpy as np
 import torch
 
 from .. import constants as pc
+from ..ops import sppt_noise as SN
 from ..utils.profiling import span
 
 __all__ = ["gen_sppt", "gen_sppt_n", "init_sppt_state", "stationary_draw",
            "build_sppt_tables", "SpptTables", "threefry2x32", "fold_in",
-           "split_keys", "key_data", "normals", "draw_noise", "advance",
-           "sppt_groups", "draw_run_noise"]
+           "split_keys", "key_data", "normals", "draw_noise",
+           "draw_noise_plain", "advance", "sppt_groups", "chunk_steps",
+           "draw_run_noise"]
 
 TIME_DECORR = 6.0       # decorrelation time [h]
 LEN_DECORR = 500000.0   # correlation length [m]
@@ -47,9 +53,9 @@ STDDEV = 0.33           # grid-space standard deviation
 
 # Salt of the stationary draw's key (JAX physics/sppt.py::stationary_draw).
 STATIONARY_SALT = 0x5bb7
-# Elements of one vectorised noise pass (int32 temporaries of this many
-# elements, a few alive at once): a T30L8 run call of 36 steps at 128
-# members (73 M elements) is one pass.
+# Elements of one chunk of a run call's noise (the output, and on the CPU
+# int32 temporaries of this many elements, a few alive at once): a T30L8
+# run call of 36 steps at 128 members (73 M elements) is one chunk.
 MAX_DRAW_ELEMENTS = 1 << 27
 
 _M32 = 0xFFFFFFFF
@@ -150,22 +156,17 @@ def normals(x0: torch.Tensor, x1: torch.Tensor, dtype) -> torch.Tensor:
     mantissa bits give a float in [0, 1), mapped to the uniform u on (-1, 1)
     as JAX maps it (u = f * (hi - lo) + lo with lo = nextafter(-1, 0), both
     in `dtype`), then sqrt(2) * erfinv(u)."""
+    lo, span, sqrt2 = SN.map_constants(dtype)
     if dtype == torch.float64:
         hi = x0.to(torch.int64) & _M32
         lo_bits = x1.to(torch.int64) & _M32
         mant = (hi << 20) | (lo_bits >> 12)         # top 52 of 64 bits
         f = mant.to(torch.float64) * 2.0**-52
-        npdt = np.float64
-    elif dtype == torch.float32:
+    else:
         mant = ((x0 ^ x1) >> 9) & 0x7FFFFF          # top 23 of 32 bits
         f = mant.to(torch.float32) * 2.0**-23
-        npdt = np.float32
-    else:
-        raise ValueError(f"SPPT noise in float32 or float64, not {dtype}")
-    lo = np.nextafter(npdt(-1.0), npdt(0.0), dtype=npdt)
-    span = float(npdt(1.0) - lo)
-    u = torch.clamp_min(f * span + float(lo), float(lo))
-    return torch.erfinv(u) * float(npdt(math.sqrt(2)))
+    u = torch.clamp_min(f * span + lo, lo)
+    return torch.erfinv(u) * sqrt2
 
 
 def draw_noise(keys: torch.Tensor, shape, dtype, offsets=0) -> torch.Tensor:
@@ -173,7 +174,30 @@ def draw_noise(keys: torch.Tensor, shape, dtype, offsets=0) -> torch.Tensor:
     each element index offset + e (e over `shape`, row-major), the normal of
     threefry2x32(key, (0, index)), clipped to +-10. `offsets` (an int or a
     tensor) broadcasts against the keys' leading axes. Returns
-    (*lead, *shape) in `dtype`."""
+    (*lead, *shape) in `dtype`. On the card one kernel launch
+    (ops/sppt_noise.py), which raises for a type other than float32 and
+    float64; on the CPU draw_noise_plain."""
+    if keys.device.type != "cuda":
+        return draw_noise_plain(keys, shape, dtype, offsets)
+    lead = torch.broadcast_shapes(keys.shape[:-1], torch.as_tensor(
+        offsets).shape)
+    rows = math.prod(lead)
+    keys = keys.expand(*lead, 2).reshape(rows, 2)
+    if torch.is_tensor(offsets) and offsets.dim():
+        offs = offsets.to(device=keys.device, dtype=torch.int64)
+        table = torch.stack([torch.full_like(offs, SN.NO_FOLD), offs],
+                            dim=-1).expand(*lead, 2).reshape(rows, 1, 2)
+    else:
+        table = SN.step_table([SN.NO_FOLD], [int(offsets)])
+    eta = SN.sppt_noise_cuda(keys, table, shape, dtype)
+    return eta.reshape(*lead, *shape)
+
+
+def draw_noise_plain(keys: torch.Tensor, shape, dtype,
+                     offsets=0) -> torch.Tensor:
+    """draw_noise as int32 tensor passes, on any device: threefry2x32
+    (_threefry_i32) over the element indices, then normals and the clip.
+    The CPU's path, and the card's kernel's plain version."""
     per = math.prod(shape)
     dev = keys.device
     offsets = torch.as_tensor(offsets, device=dev)
@@ -210,9 +234,21 @@ def stationary_draw(consts, key: torch.Tensor) -> torch.Tensor:
     (..., 2, kx, mx, nx)."""
     params = consts.params
     tables = consts.sppt
+    if key.device.type == "cuda":
+        return _folded_noise(key, STATIONARY_SALT, _pair_shape(params),
+                             params.dtype, tables.stat * tables.sigma)
     eta = draw_noise(fold_in(key, STATIONARY_SALT), _pair_shape(params),
                      params.dtype)
     return tables.stat * tables.sigma * eta
+
+
+def _folded_noise(key, data: int, shape, dtype, scale):
+    """scale * eta of the keys (..., 2) folded with `data`, from element 0:
+    one kernel launch, the fold-in inside it. Returns (..., *shape)."""
+    lead = key.shape[:-1]
+    eta = SN.sppt_noise_cuda(key.reshape(-1, 2),
+                             SN.step_table([data], [0]), shape, dtype, scale)
+    return eta.reshape(*lead, *shape)
 
 
 def advance(tables: SpptTables, spec: torch.Tensor,
@@ -235,9 +271,13 @@ def gen_sppt_n(consts, state, n: int, stepno):
 
     params = consts.params
     key = state["sppt_key"]
-    eta = draw_noise(fold_in(key, int(stepno)), (n,) + _pair_shape(params),
-                     params.dtype)
-    se = consts.sppt.sigma * eta                 # (..., n, 2, kx, mx, nx)
+    shape = (n,) + _pair_shape(params)
+    if key.device.type == "cuda":
+        se = _folded_noise(key, int(stepno), shape, params.dtype,
+                           consts.sppt.sigma)
+    else:
+        eta = draw_noise(fold_in(key, int(stepno)), shape, params.dtype)
+        se = consts.sppt.sigma * eta             # (..., n, 2, kx, mx, nx)
     spec = state["sppt_spec"]
     specs = []
     for j in range(n):
@@ -281,44 +321,53 @@ def sppt_groups(first_step: int, n_steps: int) -> list:
     return groups
 
 
+def chunk_steps(params, nmem: int) -> int:
+    """Steps of one chunk of draw_run_noise at nmem members: as many as
+    MAX_DRAW_ELEMENTS holds, at least one."""
+    per = math.prod(_pair_shape(params))
+    return max(1, MAX_DRAW_ELEMENTS // (nmem * per))
+
+
 def draw_run_noise(consts, keys: torch.Tensor, first_step: int,
                    n_steps: int):
     """sigma * eta for each step of an n_steps run call from first_step,
     member-batched: an iterator over n_steps tensors (B, 2, kx, mx, nx),
-    grouped as sppt_groups groups them. The steps are drawn in chunks, each
-    as many steps as MAX_DRAW_ELEMENTS holds and each one vectorised pass,
-    a chunk when the one before is used up: the integer arithmetic costs its
-    launches once per chunk (a T30L8 run call of 36 steps at 128 members is
-    one chunk), and however long the run, at most one chunk is alive while
-    the caller keeps no step it has used."""
-    shape = _pair_shape(consts.params)
-    per = math.prod(shape)
-    dev = keys.device
-    group_of, offset = [], []
-    groups = sppt_groups(first_step, n_steps)
-    for g, (s, n) in enumerate(groups):
-        group_of += [g] * n
+    grouped as sppt_groups groups them: step i takes its group's key (the
+    member's key folded with the group's first step) from element offset i
+    of the group's draw. The steps are drawn in chunks of chunk_steps
+    steps, a chunk when the one before is used up: on the card one kernel
+    launch a chunk (a T30L8 run call of 36 steps at 128 members is one
+    chunk), and however long the run, at most one chunk is alive while the
+    caller keeps no step it has used."""
+    per = math.prod(_pair_shape(consts.params))
+    fold, offset = [], []
+    for s, n in sppt_groups(first_step, n_steps):
+        fold += [s] * n
         offset += [j * per for j in range(n)]
-    gkeys = fold_in(keys[:, None, :], torch.tensor(
-        [s for s, _ in groups], dtype=torch.int64, device=dev))   # (B, G, 2)
-    step_chunk = max(1, MAX_DRAW_ELEMENTS // (keys.shape[0] * per))
+    step_chunk = chunk_steps(consts.params, keys.shape[0])
     for i0 in range(0, n_steps, step_chunk):
         i1 = min(n_steps, i0 + step_chunk)
-        chunk = _draw_steps(consts, gkeys, group_of[i0:i1], offset[i0:i1])
+        chunk = _draw_steps(consts, keys, fold[i0:i1], offset[i0:i1])
         for j in range(i1 - i0):
             yield chunk[:, j]
         del chunk
 
 
-def _draw_steps(consts, gkeys, group_of, offset):
-    """One chunk of draw_run_noise: sigma * eta of the steps whose groups'
-    keys are gkeys[:, group_of] and whose first elements are at offset in
-    their groups' draws. Returns (B, steps, 2, kx, mx, nx). Under the span
-    `sppt.draw`."""
+def _draw_steps(consts, keys, fold, offset):
+    """One chunk of draw_run_noise: sigma * eta of the steps whose keys are
+    the member keys `keys` (B, 2) folded with `fold` and whose first
+    elements are at `offset` in their groups' draws. Returns (B, steps, 2,
+    kx, mx, nx). On the card one kernel launch (the fold-in inside it), on
+    the CPU the plain passes. Under the span `sppt.draw`."""
     with span("sppt.draw"):
-        dev = gkeys.device
-        sel = torch.tensor(group_of, dtype=torch.int64, device=dev)
+        params = consts.params
+        shape = _pair_shape(params)
+        if keys.device.type == "cuda":
+            return SN.sppt_noise_cuda(keys, SN.step_table(fold, offset),
+                                      shape, params.dtype, consts.sppt.sigma)
+        dev = keys.device
+        gkeys = fold_in(keys[:, None, :], torch.tensor(
+            fold, dtype=torch.int64, device=dev))          # (B, steps, 2)
         offs = torch.tensor(offset, dtype=torch.int64, device=dev)
-        eta = draw_noise(gkeys[:, sel], _pair_shape(consts.params),
-                         consts.params.dtype, offs)
+        eta = draw_noise_plain(gkeys, shape, params.dtype, offs)
         return consts.sppt.sigma * eta

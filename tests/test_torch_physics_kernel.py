@@ -385,7 +385,7 @@ def test_cpu_dispatch_never_touches_the_build(monkeypatch):
         "fused_grid2spec", "fused_grid2spec_bf16", "fused_spec2grid",
         "fused_probe", "fused_grid2spec_hires", "fused_grid2spec_hires_bf16",
         "fused_spec2grid_hires",
-        "spectral_update", "dft_chain"}
+        "spectral_update", "dft_chain", "sppt_noise"}
 
 
 def _bad_inputs():
@@ -530,7 +530,8 @@ def test_kernel_source_and_build_command():
     assert "double fsg[" not in text
     assert set(ck.KERNEL_SOURCES) == set(ck.KERNELS) == {
         "grid_dynamics", "grid_physics", "fused_transform",
-        "fused_transform_hires", "spectral_update", "dft_chain"}
+        "fused_transform_hires", "spectral_update", "dft_chain",
+        "sppt_noise"}
     assert len(spec.argtypes) == 12
 
 
