@@ -184,7 +184,11 @@ class Speedy:
         """Set boundary conditions and initialize the model (reference
         contract: pyspeedy/speedy.py:217-301): the NetCDF fields orog, lsm,
         alb, vegl, vegh, stl, snowd, swl1-3, sst, icec, and the anomalies
-        ssta. Without arguments the bundled files are read."""
+        ssta. Without arguments the bundled files are read. Fields on
+        another Gaussian grid than the model's (the bundled files are T30's,
+        96 x 48) are filled and remapped onto it conservatively
+        (coupling/remap.py::remap_bc); on the model's own grid they are
+        taken as they are."""
         if self._initialized_bc:
             raise RuntimeError(
                 "The model was already initialized. Create a new instance if "
@@ -199,28 +203,12 @@ class Speedy:
                 "The boundary conditions file does not exist.\n"
                 f"File: {bc_file}")
 
-        ds = open_dataset(bc_file)
-
-        def lonlat(name):
-            # (lon, lat[, month]) -> internal ([month,] lat, lon)
-            data = np.asarray(ds[name].values, dtype=np.float64)
-            return np.moveaxis(data, (0, 1), (-1, -2))
-
-        host_bc = {
-            "orog": lonlat("orog"),
-            "fmask_orig": lonlat("lsm"),
-            "alb0": lonlat("alb"),
-            "veg_high": lonlat("vegh"),
-            "veg_low": lonlat("vegl"),
-            "stl12": lonlat("stl"),
-            "snowd12": lonlat("snowd"),
-            "soil_wc_l1": lonlat("swl1"),
-            "soil_wc_l2": lonlat("swl2"),
-            "soil_wc_l3": lonlat("swl3"),
-            "sst12": lonlat("sst"),
-            "sea_ice_frac12": lonlat("icec"),
-            "sst_anom": self._sst_anom_data,
-        }
+        # Imported here: `python -m` runs the module as its writer.
+        from .coupling import remap
+        host_bc, _ = remap.read_bc(bc_file)
+        host_bc["sst_anom"] = self._sst_anom_data
+        if remap.off_grid(host_bc, self.params.il, self.params.ix):
+            host_bc = remap.remap_bc(host_bc, self.params.il, self.params.ix)
 
         consts, geom_np, self._run = _consts_for(self.params, self.device,
                                                  self.bf16_tendencies)

@@ -25,8 +25,10 @@ hands its table to the store (`add_graph_spans`). The store, read with
 `span_totals()` and cleared with `reset_spans()`, holds by name the spans'
 total and self milliseconds (self: the total less its child spans'), their
 count, the profiled run calls' steps, member-steps, member width and copy
-bytes, and the set-up's graph captures; `trace()` writes it as SPANS_FILE
-beside its trace.
+bytes, and the set-up's counters: graph captures, and the boundary fields
+remapped onto the model's grid with the source points their fill supplied
+(SETUP_SPANS' `bc.remap`, coupling/remap.py); `trace()` writes it as
+SPANS_FILE beside its trace.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ __all__ = ["trace", "PhaseTimer", "TRACE_FILE", "SPANS_FILE", "HOST_CALLS",
            "window_profile", "kernel_device_ms", "nvidia_smi_line", "SPANS",
            "span", "span_totals", "reset_spans", "capture_spans",
            "add_graph_spans", "read_graph_spans", "resolve_spans",
-           "record_run", "record_capture"]
+           "record_run", "record_capture", "record_remap", "SETUP_SPANS"]
 
 # The CUDA runtime and driver calls by which the host enqueues work on the
 # card (a kernel, a copy or fill, a graph): "host calls" below count these.
@@ -67,6 +69,9 @@ SPANS = ("runner.run", "runner.inputs", "runner.copy_in", "runner.forcing",
          "runner.step_inputs", "sppt.draw", "runner.replay", "runner.capture",
          "runner.clone_out", "step", "transforms", "grid_dynamics", "physics",
          "spectral_update", "coupler", "step.copies")
+# The set-up's spans, outside any run call: the boundary fields' remap
+# (coupling/remap.py::remap_bc, inside Speedy.set_bc).
+SETUP_SPANS = ("bc.remap",)
 
 
 @contextlib.contextmanager
@@ -236,14 +241,17 @@ _MAX_PENDING = 1 << 14
 # The profiled run calls' counters, and the set-up's.
 _run = dict.fromkeys(("steps", "member_steps", "members", "bytes_in",
                       "bytes_out", "bytes_inputs"), 0)
-_setup = {"captures": 0, "capture_s": 0.0}
+_SETUP = {"captures": 0, "capture_s": 0.0, "remap_fields": 0,
+          "remap_filled_points": 0}
+_setup = dict(_SETUP)
 
 
 def span(name: str, **args):
-    """A context that marks the span `name` (one of SPANS): a null context
-    unless a profiler session is active or a traced twin is captured (see
-    the module's docstring). `args` go into the trace's record of the span;
-    a `call` among them numbers the run call for the spans inside it."""
+    """A context that marks the span `name` (one of SPANS or SETUP_SPANS):
+    a null context unless a profiler session is active or a traced twin is
+    captured (see the module's docstring). `args` go into the trace's
+    record of the span; a `call` among them numbers the run call for the
+    spans inside it."""
     cap = _capture
     if cap is None:
         if not torch.autograd._profiler_enabled():
@@ -380,11 +388,19 @@ def record_capture(seconds: float) -> None:
     _setup["capture_s"] += seconds
 
 
+def record_remap(fields: int, filled: int) -> None:
+    """Count the boundary fields remapped onto the model's grid and the
+    source points their fill supplied (set-up)."""
+    _setup["remap_fields"] += fields
+    _setup["remap_filled_points"] += filled
+
+
 def span_totals() -> dict:
     """The store: {"spans": {name: {"ms", "self_ms", "count"}}, the
     profiled run calls' "steps", "member_steps", "members" (the last one's
     width), "bytes_in", "bytes_out", "bytes_inputs", and the set-up's
-    "captures" and "capture_s"}. Reads the pending spans first."""
+    "captures", "capture_s", "remap_fields" and "remap_filled_points"}.
+    Reads the pending spans first."""
     resolve_spans()
     spans = {name: {"ms": ms, "self_ms": ms - child, "count": n}
              for name, (ms, child, n) in _totals.items()}
@@ -397,4 +413,4 @@ def reset_spans() -> None:
     _pending.clear()
     _tables.clear()
     _run.update(dict.fromkeys(_run, 0))
-    _setup.update(captures=0, capture_s=0.0)
+    _setup.update(_SETUP)

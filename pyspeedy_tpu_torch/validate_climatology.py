@@ -7,21 +7,23 @@ card's name and power limit (or the CPU), the wall time of each phase, then
 a JSON report; exits 0 when every check passes, 1 otherwise.
 
     python -m pyspeedy_tpu_torch.validate_climatology [--months N] [--f32]
-        [--preset T30|T47|T63] [--device cuda|cpu] [--bf16-tendencies]
+        [--preset T30|T47|T63] [--bc bundled|synthetic] [--device cuda|cpu]
+        [--bf16-tendencies]
 
-T30 runs from the bundled boundary conditions through the public ``Speedy``
-API. T47L8 and T63L8 run from the synthetic boundary conditions
-(``testing.synthetic_host_bc``) through the model-level API, the batched
-runner at B=1: the bundled boundary file is on the 96x48 grid only. Without
-``--f32`` the run is float64 on either device. ``--device`` defaults to
-"cuda" and raises without a card. ``--bf16-tendencies`` runs the steps
-after the initialization with bfloat16 tendencies (``Speedy(...,
-bf16_tendencies=True)`` at T30, ``make_demo_model(..., bf16_tendencies=True)``
-at T47 and T63; either precision, see ``models.model.build_consts``). On
-the card the
-runs replay the batched runner's CUDA graphs of the step, on the CPU they
-take its eager loop (``parallel.ensemble.takes_graphs``); the printed line
-names the mode.
+Every preset runs from the bundled boundary conditions through the public
+``Speedy`` API (``--bc bundled``, the default): at T47 and T63 ``set_bc``
+remaps the bundled T30 fields onto the model's grid
+(``coupling/remap.py``). ``--bc synthetic`` runs T47L8 or T63L8 from the
+synthetic boundary conditions (``testing.synthetic_host_bc``: an idealised
+continent and a zonal SST) through the model-level API, the batched runner
+at B=1. Without ``--f32`` the run is float64 on either device.
+``--device`` defaults to "cuda" and raises without a card.
+``--bf16-tendencies`` runs the steps after the initialization with bfloat16
+tendencies (``Speedy(..., bf16_tendencies=True)``, ``make_demo_model(...,
+bf16_tendencies=True)`` on the synthetic route; either precision, see
+``models.model.build_consts``). On the card the runs replay the batched
+runner's CUDA graphs of the step, on the CPU they take its eager loop
+(``parallel.ensemble.takes_graphs``); the printed line names the mode.
 """
 
 from __future__ import annotations
@@ -37,17 +39,18 @@ import numpy as np
 
 from .utils.profiling import PhaseTimer
 
-__all__ = ["DAYS_PER_MONTH", "run_t30", "run_synthetic", "climate_report",
-           "main"]
+__all__ = ["DAYS_PER_MONTH", "run_bundled", "run_synthetic",
+           "climate_report", "main"]
 
 # Model days of a "month" of the check.
 DAYS_PER_MONTH = 30
 
 
-def run_t30(params, months, device="cuda", bf16_tendencies=False,
-            timer=None):
+def run_bundled(params, months, device="cuda", bf16_tendencies=False,
+                timer=None):
     """Monthly means (tsfc K, precip mm/day, TOA net W/m2) of months 2..N
-    through the Speedy API from the bundled boundary conditions."""
+    through the Speedy API from the bundled boundary conditions (remapped
+    by set_bc onto a grid other than T30's)."""
     from .speedy import Speedy
 
     timer = timer or PhaseTimer()
@@ -165,6 +168,8 @@ def main(argv=None) -> int:
     ap.add_argument("--f32", action="store_true")
     ap.add_argument("--preset", default="T30",
                     choices=("T30", "T47", "T63"))
+    ap.add_argument("--bc", default="bundled",
+                    choices=("bundled", "synthetic"))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--bf16-tendencies", action="store_true")
     args = ap.parse_args(argv)
@@ -179,8 +184,10 @@ def main(argv=None) -> int:
         params = dataclasses.replace(params, precision="f32",
                                      fft_mode="matmul")
 
+    if args.bc == "synthetic" and args.preset == "T30":
+        ap.error("--bc synthetic is the T47 / T63 route")
     timer = PhaseTimer()
-    run = run_t30 if args.preset == "T30" else run_synthetic
+    run = run_bundled if args.bc == "bundled" else run_synthetic
     with timer.phase("total"):
         tsfc, prec, toa = run(params, args.months, device=device,
                               bf16_tendencies=args.bf16_tendencies,
@@ -188,6 +195,7 @@ def main(argv=None) -> int:
 
     report = climate_report(args.preset, tsfc, prec, toa)
     print(f"device: {_device_line(device)}; {params.precision}, "
+          f"{args.bc} boundary conditions, "
           f"bf16_tendencies={args.bf16_tendencies}, {args.months} months of "
           f"{DAYS_PER_MONTH} days at {params.nsteps} steps a day; the "
           f"batched runner's "

@@ -72,14 +72,14 @@ def test_t30_through_the_api_matches_the_jax_scripts_logic(monkeypatch,
     script's on the same means."""
     monkeypatch.setattr(VC, "DAYS_PER_MONTH", 1)
     means = {}
-    real = VC.run_t30
+    real = VC.run_bundled
 
     def recording(params, months, **kw):
         assert params.precision == "f64" and months == 2
         means["t30"] = real(params, months, **kw)
         return means["t30"]
 
-    monkeypatch.setattr(VC, "run_t30", recording)
+    monkeypatch.setattr(VC, "run_bundled", recording)
     rc = VC.main(["--months", "2", "--device", "cpu"])
     out = capsys.readouterr().out
     report = printed_report(out)
@@ -122,7 +122,7 @@ def test_checks_and_exit_code_follow_the_jax_script(monkeypatch, capsys,
                                                     means):
     """climate_report and main()'s exit code against the JAX script for
     monthly means that pass and that fail each check."""
-    monkeypatch.setattr(VC, "run_t30", lambda *a, **k: means)
+    monkeypatch.setattr(VC, "run_bundled", lambda *a, **k: means)
     rc = VC.main(["--months", "3", "--device", "cpu"])
     report = printed_report(capsys.readouterr().out)
     want, want_rc, _ = jax_report(monkeypatch, capsys, ["--months", "3"],
