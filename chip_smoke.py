@@ -931,7 +931,8 @@ def hires_occupancy(libs, sp, trunc: int, prec: str) -> dict:
     got = {k: plan[k] for k in ("cluster", "pairs_per_band", "rows_per_step",
                                 "band_columns", "mma_k", "inverse_threads",
                                 "inverse_pairs_per_item",
-                                "inverse_rows_per_step")}
+                                "inverse_rows_per_step", "direct_dft_warps",
+                                "direct_legendre_warps", "direct_threads")}
     want = {k: model[k] for k in got}
     if got != want or plan["m_pairs"] != len(model["m_slices"][0]) // 2:
         raise RuntimeError(f"the library's plan at T{trunc} {prec} {plan} is "

@@ -1,9 +1,9 @@
 // The fused spectral transforms at T47 (il 72, ix 144, mx 48, nx 49) and T63
 // (il 96, ix 192, mx 64, nx 65) for NVIDIA Hopper (sm_90a): the zonal DFT and
 // the Legendre transform of a group of fields. Each direction is one kernel
-// launched on thread-block clusters; the inverse is the direct one's mirror
-// image, its Legendre sums and its DFT on different warps of a block and on
-// successive steps.
+// launched on thread-block clusters, its DFT and its Legendre sums on
+// different warps of a block and on successive steps; the inverse is the
+// direct one's mirror image.
 //
 // Replaces, at these shapes, the two Pallas experiments of the JAX package
 // that csrc/fused_transform.cu replaces at T30:
@@ -53,17 +53,22 @@
 //     mx - 1 - m, whose triangle rows hold 2 nx - mx + 1 entries whatever m,
 //     so every block sums the same work. Its slice of the Legendre table
 //     stays in its shared memory for the kernel's life.
-// hires_direct_cluster_kernel: the block's band of both rows comes in by
-//   cp.async (16-byte chunks where aligned; two buffers where they fit, so
-//   the next rows load during these); the folded DFT runs on the tensor
-//   cores, one warp a (parity, 16 wavenumber columns) tile over all the
-//   band's (row, pair, hemisphere) columns; each thread forms the hemispheric
-//   sums and differences of its accumulators and stores them straight into
-//   the shared memory of the block that owns their m (distributed shared
-//   memory, two buffers by the step's parity); one cluster barrier; then
-//   each block sums its entries over all il/2 pairs for both rows, one entry
-//   a thread (16-byte vectors of the table and of the Fourier values), and
-//   writes the pairs and the zeros past the triangle.
+// hires_direct_cluster_kernel: warp-specialised. The DFT warps of block r
+//   copy the band's rows of a step in by cp.async (16-byte chunks where
+//   aligned; two buffers where they fit, the next step's in flight), run
+//   the folded DFT on the tensor cores, one warp a (parity, 16 wavenumber
+//   columns) tile over all the band's (row, pair, hemisphere) columns, and
+//   each thread stores the hemispheric sums and differences of its
+//   accumulators straight into the shared memory of the block that owns
+//   their m (distributed shared memory, two buffers by the step's parity).
+//   One step behind them, the Legendre warps (four; two at T47 in float,
+//   where two blocks share an SM) sum the block's entries over all il/2
+//   pairs for every row of the step (a thread a few entries, the table and
+//   the Fourier values read as 16-byte vectors), stage the pairs
+//   in the buffer they have just read, each of the block's two runs of m
+//   (nx values a row, the zeros past the triangle among them) shifted to
+//   the alignment of its destination, and store the runs as 16-byte
+//   vectors.
 // hires_inverse_ws_kernel: the mirror image, warp-specialised. Four Legendre
 //   warps of block r: a thread sums E (even n) or O (odd n) of an m pair for
 //   a few latitude pairs and all rows of a step (the spectral values held by
@@ -77,8 +82,8 @@
 //   1/cos(lat) where the field's flag says so) as 16-byte vectors.
 // The Fourier intermediate never reaches device memory: it lives in the
 // receiving block's shared memory for one step, double-buffered by the
-// step's parity, so one cluster barrier a step orders both the exchange and
-// the buffers' reuse (in the inverse, its two halves: see the kernel).
+// step's parity, and the two halves of one cluster barrier a step order both
+// the exchange and the buffers' reuse (see each kernel).
 //
 // The products on the tensor cores, A the DFT table (kept in registers for
 // the kernel's life, loaded once), B the band's data (M 16 wavenumber columns
@@ -106,20 +111,25 @@
 // work is il mx ix + il triangle multiply-adds, 1.39 M a row (41 ns at the
 // float peak outside the tensor cores; 85 % of it is DFT, which the tensor
 // cores take at 14 ns in 3xTF32). So on the tensor cores the bytes bind, in
-// both types, at both shapes. What holds the kernels at 20-35 % of that on
-// the card (PERF.md): a block is alone on its SM but at T47 in float (6-16
-// warps), the tensor-core products (three mma.sync a 3xTF32 product) issue
-// well below their peak, and the direct kernel's steps wait on its copies,
-// one cluster barrier and the slowest block; the inverse's (clock64 spans
-// of scratch builds, PERF.md) on its DFT warps' products and stores, its
+// both types, at both shapes. What holds the kernels at 25-35 % of that on
+// the card (PERF.md): a block is alone on its SM but at T47 in float, and
+// the tensor-core products (three mma.sync a 3xTF32 product, two or three
+// DFT warps an SMSP) issue well below their peak. In the direct kernel's
+// serial schedule (clock64 spans of a scratch build, T63 float, the step's
+// direct group at 128 members on an H100) a step was 52 % DFT and remote
+// stores, 37 % Legendre sums and 4-byte stores and 10 % cluster barrier, one
+// after the other; warp specialisation overlaps the two stages (9-25 %
+// less time in every instantiation, 23 % at T63 float), and the step is now
+// the DFT warps' (in a scratch build, their products' loop took 11.8k cycles
+// of a 13.6k step while the Legendre warps waited 1.6k for them). More
+// registers for the DFT warps (setmaxnreg), more Legendre warps and a grid
+// folded once before the products each moved nothing. The inverse's steps
+// (clock64 spans, PERF.md) wait on its DFT warps' products and stores, its
 // Legendre warps' sums and their remote stores, and the barrier between the
 // two. A bfloat16 grid halves the grid's bytes, which moves the bound little
 // where the folded work binds (outside the tensor cores: T63, and T47 in
-// double) and leaves the kernel where it was: on an H100 the step's direct
-// group at 128 members took about the float kernel's time on the widened
-// grid in float (T47 0.74 against 0.72 ms, T63 1.56 against 1.52) and 10 %
-// less in double at T47, where the smaller grid rows let two grid buffers
-// fit (PERF.md).
+// double) and leaves the kernel about where the kernel of the tables' type
+// is on the widened grid (PERF.md).
 //
 // Interface: plain C, loaded with ctypes. The launches go to the stream they
 // are given, allocate nothing and do not synchronise; the function returns
@@ -221,23 +231,34 @@ struct Plan {
                                     : S::IX + pad_to(S::IX, 4, F64 ? 16 : 32);
   static constexpr int MT_DIR = S::COLS / 16;              // column tiles of a parity
   static constexpr int MT_INV = (S::IH + 15) / 16;         // longitude tiles
-  static constexpr int DIR_THREADS = 2 * 32 * MT_DIR;      // a warp a (parity, tile)
   static constexpr int KS_DIR = S::IH / KS, KS_INV = S::COLS / KS;
-  // Direct: the block's Legendre table (il/2 / VW, ENT, VW), the Fourier
-  // values it receives (2 buffers, R rows, MS, c, sum / difference, il/2),
-  // the band's grid rows (GBUF buffers, NPAD, GP, in G): two where they fit
-  // and the block is alone on its SM anyway, so the next rows are copied in
-  // while these are transformed.
+  // Direct (hires_direct_cluster_kernel): DIR_DFT_WARPS warps of the DFT, a
+  // (parity, 16 wavenumber columns) tile each, a step ahead of DIR_LEG_WARPS
+  // warps of the Legendre sums. Its shared memory: the block's Legendre table
+  // (il/2 / VW, ENT, VW), the Fourier values it receives (2 buffers, R rows,
+  // MS, c, sum / difference, il/2), in which the Legendre warps also stage
+  // their pairs for the stores once they have read them, and the band's grid
+  // rows (GBUF buffers, NPAD, GP, in G). Two blocks an SM where two fit with
+  // one grid buffer each (1 KB of each block is the system's; T47 in float),
+  // each with two Legendre warps, so that the 8 warps of a block keep 128
+  // registers a thread; else one block of four Legendre warps, with two grid
+  // buffers where they fit, the next step's rows copied in while these are
+  // transformed.
   static constexpr int XROW = MS * 4 * S::IY;
-  static constexpr int D_SL = S::IY * ENT, D_XIN = 2 * R * XROW, D_ROWS = NPAD * GP;
-  static constexpr int D_TAB = static_cast<int>(sizeof(T)) * (D_SL + D_XIN);   // bytes
-  static constexpr int D_ONE = D_TAB + GS * D_ROWS;
-  static constexpr int GBUF =
-      2 * (D_ONE + 1024) > 233472 && D_ONE + GS * D_ROWS <= kSmemLimit ? 2 : 1;
-  static constexpr size_t DIR_SMEM = static_cast<size_t>(D_TAB) + GS * GBUF * D_ROWS;
-  // Blocks an SM holds by their shared memory (1 KB of each is the system's),
-  // the registers' budget of __launch_bounds__.
-  static constexpr int DIR_MINB = 2 * (DIR_SMEM + 1024) <= 233472 ? 2 : 1;
+  static constexpr int D_SL = S::IY * ENT, D_ROWS = NPAD * GP;
+  static constexpr int D_TAB = static_cast<int>(sizeof(T)) * (D_SL + 2 * R * XROW);   // bytes
+  static constexpr size_t dir_smem(int gbuf) {
+    return static_cast<size_t>(D_TAB) + static_cast<size_t>(GS) * gbuf * D_ROWS;
+  }
+  static constexpr int DIR_MINB = 2 * (dir_smem(1) + 1024) <= 233472 ? 2 : 1;   // blocks an SM
+  static constexpr int GBUF = DIR_MINB == 1 && dir_smem(2) <= kSmemLimit ? 2 : 1;
+  static constexpr size_t DIR_SMEM = dir_smem(GBUF);
+  static constexpr int DIR_DFT_WARPS = 2 * MT_DIR, DIR_LEG_WARPS = DIR_MINB == 2 ? 2 : 4;
+  static constexpr int DIR_THREADS = 32 * (DIR_DFT_WARPS + DIR_LEG_WARPS);
+  // The staged pairs of a step: (row, c, run of the K low m / of the K
+  // mirrors), each run's K nx values (zeros past the triangle included)
+  // shifted by up to VW - 1 so that they align with their destination.
+  static constexpr int RUN = K * S::NX, RUNP = (RUN + 2 * (VW - 1)) / VW * VW;
   // Inverse (hires_inverse_ws_kernel): INV_DFT_WARPS warps of the DFT, a
   // (parity, 16 longitudes) tile each, and INV_LEG_WARPS warps of the
   // Legendre stage, one item (m pair, INV_SVW latitude pairs, n parity) a
@@ -273,6 +294,8 @@ struct Plan {
   static_assert(DIR_SMEM <= kSmemLimit && INV_SMEM <= kSmemLimit, "shared memory of a block");
   static_assert(S::IH % VW == 0, "vectors of a row");
   static_assert(D_TAB % 16 == 0 && (GP * GS) % 16 == 0, "16-byte chunks of the grid rows");
+  static_assert(4 * RUNP <= XROW && RUNP % VW == 0,
+                "the staged pairs of a row in its Fourier values");
   static_assert(INV_ITEMS <= 32 * INV_LEG_WARPS && S::IY % INV_SVW == 0, "Legendre items");
   static_assert((I_SL + I_P) % VW == 0 && INV_FP % VW == 0 && (2 * INV_R) % VW == 0,
                 "16-byte vectors of a pair's Fourier values");
@@ -375,11 +398,11 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// x rounded to TF32 (to nearest, ties away), as the bits of a float.
+// x rounded to TF32 (to nearest, ties away), as the bits of a float: the
+// bits of cvt.rna.tf32.f32 for every finite x, by integer arithmetic on x's
+// bits, without the conversion unit's narrow issue rate.
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 // D += A . B, m16n8k8, TF32 operands, float accumulation: a0 = A[g][t],
 // a1 = A[g+8][t], a2 = A[g][t+4], a3 = A[g+8][t+4], b0 = B[t][g],
@@ -393,11 +416,10 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
-// x split for 3xTF32 by integer arithmetic on its bits (no cvt): hi = x
-// rounded to TF32 (to nearest, ties away, as cvt.rna), lo = x - hi (exact in
-// float) with its low 13 bits dropped.
+// x split for 3xTF32: hi = x rounded to TF32 (tf32_rna), lo = x - hi (exact
+// in float) with its low 13 bits dropped.
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  hi = tf32_rna(x);
   lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
 }
 // The two halves of a cluster barrier, each thread alternating them: arrive
@@ -458,8 +480,8 @@ struct AFrags<double, K> {
 // acc[nt] += A(k step ks) . B[nt] for the NT n tiles, B[nt] given by this
 // lane's values b0[nt], b1[nt] (b1 unused in double). A tile's three 3xTF32
 // products add in the order lo.hi, hi.lo, hi.hi; the tiles interleave, so
-// consecutive products are independent. B is split by cvt.rna, or with
-// SPLIT by split_tf32.
+// consecutive products are independent. Both parts of B are rounded to
+// nearest (tf32_rna), or with SPLIT split by split_tf32 (lo truncated).
 template <int NT, int K, bool SPLIT = false>
 __device__ __forceinline__ void mma_step(float (&acc)[NT][4], const AFrags<float, K>& a, int ks,
                                          const float (&b0)[NT], const float (&b1)[NT]) {
@@ -513,14 +535,31 @@ __device__ __forceinline__ G zero_of() {
 
 // T: the tables' type, in which everything is computed and stored; G: the
 // grid's (T, or bfloat16).
+//
+// The DFT warps of every block transform step u + 1's rows while its
+// Legendre warps sum step u's: F goes into the owners' buffer u % 2, and the
+// two halves of the cluster barrier order the buffers. Phase u completes
+// once every DFT thread has stored F of step u (it arrives, with release,
+// after its stores) and every Legendre thread is done with step u - 1's
+// buffer (it arrives, relaxed, after the stores of step u - 1, which read
+// back the pairs staged there: its last use of the buffer); a DFT thread
+// waits for phase u - 1 before it stores F of step u into buffer u % 2, which
+// step u - 2 was the last to use, and a Legendre thread waits for phase u
+// before it sums step u. Each role keeps a named barrier of its own: the DFT
+// warps copy the band's grid rows in by cp.async (two buffers where they
+// fit, the next step's in flight), the Legendre warps stage a step's pairs in
+// the buffer they have just read, each row's runs of n and the zeros past the
+// triangle, and store them as 16-byte vectors.
 template <class S, typename T, typename G>
 __global__ void __launch_bounds__(Plan<S, T, G>::DIR_THREADS, Plan<S, T, G>::DIR_MINB)
 hires_direct_cluster_kernel(const __grid_constant__ Group g, long long rows) {
   using P = Plan<S, T, G>;
   constexpr int C = P::C, K = P::K, MS = P::MS, NP = P::NP, NB = P::NB, R = P::R;
   constexpr int NPAD = P::NPAD, NT = P::NT, KS = P::KS, VW = P::VW, GP = P::GP;
-  constexpr int ENT = P::ENT, XROW = P::XROW, THREADS = P::DIR_THREADS, KSTEPS = P::KS_DIR;
-  constexpr int EPT = (ENT + THREADS - 1) / THREADS;   // entries a thread
+  constexpr int ENT = P::ENT, XROW = P::XROW, KSTEPS = P::KS_DIR;
+  constexpr int RUN = P::RUN, RUNP = P::RUNP, NVR = RUNP / VW;
+  constexpr int ND = 32 * P::DIR_DFT_WARPS, NL = 32 * P::DIR_LEG_WARPS;
+  constexpr int kDftBar = 1, kLegBar = 2;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const long long cid = blockIdx.x / C, ncl = gridDim.x / C;
@@ -532,204 +571,251 @@ hires_direct_cluster_kernel(const __grid_constant__ Group g, long long rows) {
   // (GBUF, NPAD, GP): slot NB rr + 2 pp + hemisphere
   G* sG = reinterpret_cast<G*>(smem_raw + P::D_TAB);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, tq = lane & 3;
   const int p0 = rank * NP;
   // The block's triangle entries: the rows of its K low m, then of their mirrors.
   const int t_lo = tri_offset(rank * K, S::NX), t_hi = tri_offset(S::MX - (rank + 1) * K, S::NX);
   const int e_lo = tri_offset((rank + 1) * K, S::NX) - t_lo;
 
-  // This warp's tile: parity par, wavenumber columns col_a = 16 mt + g and
-  // col_b = col_a + 8 (col = c h + q for m = 2q + par); the table's A
-  // fragments, A[col][i] = dft_fwd[par][i][col].
-  const int par = warp / P::MT_DIR, mt = warp - par * P::MT_DIR;
-  const int col_a = 16 * mt + gq;
-  const T* dfwd = static_cast<const T*>(g.tables) + par * S::IH * S::COLS;
-  AFrags<T, KSTEPS> a;
-#pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-    const int k = ks * KS + tq;
-    if constexpr (sizeof(T) == 4)
-      a.set(ks, dfwd[k * S::COLS + col_a], dfwd[k * S::COLS + col_a + 8],
-            dfwd[(k + 4) * S::COLS + col_a], dfwd[(k + 4) * S::COLS + col_a + 8]);
-    else
-      a.set(ks, dfwd[k * S::COLS + col_a], dfwd[k * S::COLS + col_a + 8], T(0), T(0));
-  }
-  // Where this thread's Fourier values go: the block owning their m, at
-  // (local m, c) in its receive buffers.
-  T* xdst[2];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int col = col_a + 8 * half;
-    const int c = col / S::H, m = 2 * (col - c * S::H) + par;
-    xdst[half] = cluster.map_shared_rank(xin, owner_of(m, K, S::MX)) +
-                 (local_of(m, K, S::MX) * 2 + c) * 2 * S::IY;
-  }
-  // This thread's triangle entries: (m, n, local m).
-  int em[EPT], en[EPT], el_m[EPT];
-#pragma unroll
-  for (int u = 0; u < EPT; ++u) {
-    const int el = tid + u * THREADS;
-    const int e = el < e_lo ? t_lo + el : t_hi + el - e_lo;
-    em[u] = el < ENT ? m_of_entry(e, S::NX) : 0;
-    en[u] = el < ENT ? e - tri_offset(em[u], S::NX) : 0;
-    el_m[u] = local_of(em[u], K, S::MX);
-  }
-
-  // The block's Legendre table, resident; the pad slots of the band zero.
+  // The block's Legendre table, resident; the pad slots of the band zero;
+  // every block of the cluster runs before any remote store.
   const T* leg = static_cast<const T*>(g.tables) + S::DFT;   // (il/2, triangle)
-  for (int idx = tid; idx < S::IY * ENT; idx += THREADS) {
+  for (int idx = tid; idx < S::IY * ENT; idx += P::DIR_THREADS) {
     const int p = idx / ENT, el = idx - p * ENT;
     const int e = el < e_lo ? t_lo + el : t_hi + el - e_lo;
     sL[((p / VW) * ENT + el) * VW + p % VW] = leg[p * S::TRI + e];
   }
   for (int bf = 0; bf < P::GBUF; ++bf)
-    for (int idx = tid; idx < (NPAD - R * NB) * GP; idx += THREADS)
+    for (int idx = tid; idx < (NPAD - R * NB) * GP; idx += P::DIR_THREADS)
       sG[bf * P::D_ROWS + R * NB * GP + idx] = zero_of<G>();
+  cluster.sync();
 
-  // The band's grid rows of a unit's rows into buffer `buf`: slot NB rr + 2 pp
-  // (south, latitude p0 + pp) and NB rr + 2 pp + 1 (north, il - 1 - p0 - pp).
-  auto issue = [&](long long unit, int buf) {
-#pragma unroll
-    for (int rr = 0; rr < R; ++rr) {
-      const long long row = unit * R + rr;
-      if (row >= rows) break;
-      const Segment& s = g.seg[find_segment(g, row)];
-      const G* src = row_in<G>(s, row - s.first);
-      G* dst = sG + buf * P::D_ROWS + rr * NB * GP;
-      if (sizeof(G) == 2 || s.aligned) {   // bfloat16: always (run checks)
-        constexpr int CH = S::IX * static_cast<int>(sizeof(G)) / 16;
-        for (int q = tid; q < NB * CH; q += THREADS) {
-          const int n = q / CH, ch = q - n * CH;
-          const int lat = (n & 1) ? S::IL - 1 - (p0 + (n >> 1)) : p0 + (n >> 1);
-          cp_async16(reinterpret_cast<unsigned char*>(dst + n * GP) + 16 * ch,
-                     reinterpret_cast<const unsigned char*>(src + lat * S::IX) + 16 * ch);
-        }
-      } else if constexpr (sizeof(G) != 2) {
-        for (int q = tid; q < NB * S::IX; q += THREADS) {
-          const int n = q / S::IX, i = q - n * S::IX;
-          const int lat = (n & 1) ? S::IL - 1 - (p0 + (n >> 1)) : p0 + (n >> 1);
-          cp_async_elem(dst + n * GP + i, src + lat * S::IX + i);
-        }
-      }
-    }
-  };
-
-  cluster.sync();   // every block of the cluster runs before any remote store
-  long long unit = cid;
-  if (unit < units) issue(unit, 0);
-  cp_async_commit();
-  for (int s = 0; unit < units; unit += ncl, s ^= 1) {
-    cp_async_wait_all();
-    __syncthreads();
-    const G* gb = sG + (P::GBUF == 2 ? s : 0) * P::D_ROWS;
-    if (P::GBUF == 2 && unit + ncl < units) issue(unit + ncl, s ^ 1);
-    cp_async_commit();
-
-    // The folded DFT of the band: F[col][slot] = sum_i fold_par[slot][i] A[col][i],
-    // fold_0 = g[i] + g[i + ix/2], fold_1 = g[i] - g[i + ix/2].
-    T acc[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[nt][q] = T(0);
+  if (warp < P::DIR_DFT_WARPS) {
+    // --- The DFT warps: this warp's tile, parity par, wavenumber columns
+    // col_a = 16 mt + g and col_b = col_a + 8 (col = c h + q for
+    // m = 2q + par); the table's A fragments, A[col][i] = dft_fwd[par][i][col].
+    const int gq = lane >> 2, tq = lane & 3;
+    const int par = warp / P::MT_DIR, mt = warp - par * P::MT_DIR;
+    const int col_a = 16 * mt + gq;
+    const T* dfwd = static_cast<const T*>(g.tables) + par * S::IH * S::COLS;
+    AFrags<T, KSTEPS> a;
 #pragma unroll
     for (int ks = 0; ks < KSTEPS; ++ks) {
-      T b0[NT], b1[NT];
+      const int k = ks * KS + tq;
+      if constexpr (sizeof(T) == 4)
+        a.set(ks, dfwd[k * S::COLS + col_a], dfwd[k * S::COLS + col_a + 8],
+              dfwd[(k + 4) * S::COLS + col_a], dfwd[(k + 4) * S::COLS + col_a + 8]);
+      else
+        a.set(ks, dfwd[k * S::COLS + col_a], dfwd[k * S::COLS + col_a + 8], T(0), T(0));
+    }
+    // Where this thread's Fourier values go: the block owning their m, at
+    // (local m, c) in its receive buffers.
+    T* xdst[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int col = col_a + 8 * half;
+      const int c = col / S::H, m = 2 * (col - c * S::H) + par;
+      xdst[half] = cluster.map_shared_rank(xin, owner_of(m, K, S::MX)) +
+                   (local_of(m, K, S::MX) * 2 + c) * 2 * S::IY;
+    }
+    // The band's grid rows of a unit's rows into buffer `buf`: slot NB rr + 2 pp
+    // (south, latitude p0 + pp) and NB rr + 2 pp + 1 (north, il - 1 - p0 - pp).
+    auto issue = [&](long long unit, int buf) {
+#pragma unroll
+      for (int rr = 0; rr < R; ++rr) {
+        const long long row = unit * R + rr;
+        if (row >= rows) break;
+        const Segment& s = g.seg[find_segment(g, row)];
+        const G* src = row_in<G>(s, row - s.first);
+        G* dst = sG + buf * P::D_ROWS + rr * NB * GP;
+        if (sizeof(G) == 2 || s.aligned) {   // bfloat16: always (run checks)
+          constexpr int CH = S::IX * static_cast<int>(sizeof(G)) / 16;
+          for (int q = tid; q < NB * CH; q += ND) {
+            const int n = q / CH, ch = q - n * CH;
+            const int lat = (n & 1) ? S::IL - 1 - (p0 + (n >> 1)) : p0 + (n >> 1);
+            cp_async16(reinterpret_cast<unsigned char*>(dst + n * GP) + 16 * ch,
+                       reinterpret_cast<const unsigned char*>(src + lat * S::IX) + 16 * ch);
+          }
+        } else if constexpr (sizeof(G) != 2) {
+          for (int q = tid; q < NB * S::IX; q += ND) {
+            const int n = q / S::IX, i = q - n * S::IX;
+            const int lat = (n & 1) ? S::IL - 1 - (p0 + (n >> 1)) : p0 + (n >> 1);
+            cp_async_elem(dst + n * GP + i, src + lat * S::IX + i);
+          }
+        }
+      }
+    };
+    long long unit = cid;
+    if (unit < units) issue(unit, 0);
+    cp_async_commit();
+    int steps = 0;
+    for (int s = 0; unit < units; unit += ncl, s ^= 1, ++steps) {
+      cp_async_wait_all();
+      named_sync(kDftBar, ND);   // this step's rows are in; the other buffer is read
+      const G* gb = sG + (P::GBUF == 2 ? s : 0) * P::D_ROWS;
+      if (P::GBUF == 2 && unit + ncl < units) issue(unit + ncl, s ^ 1);
+      cp_async_commit();
+
+      // The folded DFT of the band: F[col][slot] = sum_i fold_par[slot][i] A[col][i],
+      // fold_0 = g[i] + g[i + ix/2], fold_1 = g[i] - g[i + ix/2].
+      T acc[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[nt][q] = T(0);
+#pragma unroll
+      for (int ks = 0; ks < KSTEPS; ++ks) {
+        T b0[NT], b1[NT];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const G* r = gb + (nt * 8 + gq) * GP + ks * KS + tq;
+          const T u0 = widen<T>(r[0]), v0 = widen<T>(r[S::IH]);
+          b0[nt] = par ? u0 - v0 : u0 + v0;
+          b1[nt] = T(0);
+          if constexpr (sizeof(T) == 4) {
+            const T u1 = widen<T>(r[4]), v1 = widen<T>(r[S::IH + 4]);
+            b1[nt] = par ? u1 - v1 : u1 + v1;
+          }
+        }
+        mma_step(acc, a, ks, b0, b1);
+      }
+      if (P::GBUF == 1) {
+        named_sync(kDftBar, ND);   // the band's grid rows are read
+        if (unit + ncl < units) issue(unit + ncl, 0);
+        cp_async_commit();
+      }
+      // acc[nt] = F[col_a][south, north], F[col_b][south, north] of slot pair
+      // 8 nt + 2 t: the hemispheric sums (n even) and differences (n odd) into
+      // the owner's buffer s (rows past the group's end are never read), once
+      // the Legendre warps are done with it.
+      if (steps > 0) cluster_wait();
+      const int xoff = s * R * XROW;
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
-        const G* r = gb + (nt * 8 + gq) * GP + ks * KS + tq;
-        const T u0 = widen<T>(r[0]), v0 = widen<T>(r[S::IH]);
-        b0[nt] = par ? u0 - v0 : u0 + v0;
-        b1[nt] = T(0);
-        if constexpr (sizeof(T) == 4) {
-          const T u1 = widen<T>(r[4]), v1 = widen<T>(r[S::IH + 4]);
-          b1[nt] = par ? u1 - v1 : u1 + v1;
+        const int n0 = nt * 8 + 2 * tq;
+        if (n0 < R * NB) {
+          const int rr = n0 / NB, pp = (n0 - rr * NB) >> 1;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const T south = acc[nt][2 * half], north = acc[nt][2 * half + 1];
+            T* d = xdst[half] + xoff + rr * XROW + p0 + pp;
+            d[0] = south + north;
+            d[S::IY] = south - north;
+          }
         }
       }
-      mma_step(acc, a, ks, b0, b1);
+      cluster_arrive();   // this step's Fourier values are stored
     }
-    // acc[nt] = F[col_a][south, north], F[col_b][south, north] of slot pair
-    // 8 nt + 2 t: the hemispheric sums (n even) and differences (n odd) into
-    // the owner's buffer s (rows past the group's end are never read).
-    const int xoff = s * R * XROW;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int n0 = nt * 8 + 2 * tq;
-      if (n0 < R * NB) {
-        const int rr = n0 / NB, pp = (n0 - rr * NB) >> 1;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const T south = acc[nt][2 * half], north = acc[nt][2 * half + 1];
-          T* d = xdst[half] + xoff + rr * XROW + p0 + pp;
-          d[0] = south + north;
-          d[S::IY] = south - north;
-        }
-      }
-    }
-    if (P::GBUF == 1) {
-      __syncthreads();   // the band's grid rows are read
-      if (unit + ncl < units) issue(unit + ncl, 0);
-      cp_async_commit();
-    }
-    cluster.sync();    // every block's Fourier values of these rows have arrived
-
-    // The Legendre sums of the block's entries, both rows:
-    // S[c][m][n] = sum_p L[p][e] X[m][c][n & 1][p].
-    const T* xs = xin + xoff;
-    T* out[R];
-    long long opair[R];
-#pragma unroll
-    for (int rr = 0; rr < R; ++rr) {
-      const long long row = unit * R + rr;
-      out[rr] = nullptr;
-      opair[rr] = 0;
-      if (row < rows) {
-        const Segment& sg = g.seg[find_segment(g, row)];
-        out[rr] = row_out<T>(sg, row - sg.first);
-        opair[rr] = sg.out_pair;
-      }
-    }
+    if (steps > 0) cluster_wait();
+  } else {
+    // --- The Legendre warps: thread lt sums entries lt, lt + NL, ... of the
+    // block's slice, for every row of a step, and stages them. Per entry:
+    // its Fourier values' offset in a row's buffer ((local m, c = 0, parity
+    // of n), il/2), its place in its run ((K low m, or their mirrors) x nx)
+    // and that run's first element m_first nx, modulo VW.
+    const int lt = tid - ND;
+    constexpr int EPT = (ENT + NL - 1) / NL, FULL = ENT / NL;
+    int xo[EPT], so[EPT], mo[EPT];
 #pragma unroll
     for (int u = 0; u < EPT; ++u) {
-      const int el = tid + u * THREADS;
-      if (el < ENT) {
-        const int m = em[u], n = en[u];
-        const T* l = sL + el * VW;
-        const T* x = xs + (el_m[u] * 4 + (n & 1)) * S::IY;   // row 0, c = 0
-        T sum[R][2];
+      const int el = u < FULL || lt + u * NL < ENT ? lt + u * NL : 0;
+      const int e = el < e_lo ? t_lo + el : t_hi + el - e_lo;
+      const int m = m_of_entry(e, S::NX), n = e - tri_offset(m, S::NX);
+      const int ml = local_of(m, K, S::MX), run = ml >= K ? 1 : 0;
+      xo[u] = (ml * 4 + (n & 1)) * S::IY;
+      so[u] = run * RUNP + (ml - run * K) * S::NX + n;
+      mo[u] = (slice_m(rank, run * K, K, S::MX) * S::NX) % VW;
+    }
+    long long unit = cid;
+    if (unit < units) cluster_arrive_relaxed();   // phase 0: no buffer used yet
+    for (int s = 0; unit < units; unit += ncl, s ^= 1) {
+      // The step's rows: their pairs, and where each part starts modulo VW.
+      T* out[R];
+      long long opair[R];
+      int bmod[R][2];
 #pragma unroll
-        for (int rr = 0; rr < R; ++rr) sum[rr][0] = sum[rr][1] = T(0);
+      for (int rr = 0; rr < R; ++rr) {
+        const long long row = unit * R + rr;
+        out[rr] = nullptr;
+        opair[rr] = 0;
+        if (row < rows) {
+          const Segment& sg = g.seg[find_segment(g, row)];
+          out[rr] = row_out<T>(sg, row - sg.first);
+          opair[rr] = sg.out_pair;
+        }
 #pragma unroll
-        for (int pv = 0; pv < S::IY / VW; ++pv) {
-          const Vec<T, VW> lv = load_vec<T, VW>(l + pv * ENT * VW);
+        for (int c = 0; c < 2; ++c)
+          bmod[rr][c] = static_cast<int>(
+              (reinterpret_cast<uintptr_t>(out[rr] + c * opair[rr]) / sizeof(T)) % VW);
+      }
+      cluster_wait();   // every block's Fourier values of this step are in
+
+      // The Legendre sums of the thread's entries, every row of the step:
+      // S[c][m][n] = sum_p L[p][e] X[m][c][n & 1][p], p ascending.
+      T* xs = xin + s * R * XROW;
+      T sum[EPT][R][2];
+#pragma unroll
+      for (int u = 0; u < EPT; ++u)
+#pragma unroll
+        for (int rr = 0; rr < R; ++rr) sum[u][rr][0] = sum[u][rr][1] = T(0);
+#pragma unroll
+      for (int pv = 0; pv < S::IY / VW; ++pv) {
+#pragma unroll
+        for (int u = 0; u < EPT; ++u) {
+          if (u < FULL || lt + u * NL < ENT) {
+            const Vec<T, VW> lv = load_vec<T, VW>(sL + (pv * ENT + lt + u * NL) * VW);
+#pragma unroll
+            for (int rr = 0; rr < R; ++rr)
+#pragma unroll
+              for (int c = 0; c < 2; ++c) {
+                const Vec<T, VW> xv =
+                    load_vec<T, VW>(xs + xo[u] + rr * XROW + c * 2 * S::IY + pv * VW);
+#pragma unroll
+                for (int v = 0; v < VW; ++v) sum[u][rr][c] += lv.v[v] * xv.v[v];
+              }
+          }
+        }
+      }
+      named_sync(kLegBar, NL);   // buffer s is read: the pairs go there
+      // Run element j of (row, c, run) at (row 2 + c) 2 RUNP + run RUNP +
+      // shift + j, shift the run's first element modulo VW.
+#pragma unroll
+      for (int u = 0; u < EPT; ++u)
+        if (u < FULL || lt + u * NL < ENT)
 #pragma unroll
           for (int rr = 0; rr < R; ++rr)
+            if (out[rr])
 #pragma unroll
-            for (int c = 0; c < 2; ++c) {
-              const Vec<T, VW> xv = load_vec<T, VW>(x + rr * XROW + c * 2 * S::IY + pv * VW);
+              for (int c = 0; c < 2; ++c)
+                xs[(rr * 2 + c) * 2 * RUNP + so[u] + (bmod[rr][c] + mo[u]) % VW] = sum[u][rr][c];
+      named_sync(kLegBar, NL);
+      // Each run of each row and part, the zeros past the triangle
+      // (m + n >= nx) included, as 16-byte vectors where whole.
 #pragma unroll
-              for (int v = 0; v < VW; ++v) sum[rr][c] += lv.v[v] * xv.v[v];
-            }
-        }
+      for (int rr = 0; rr < R; ++rr) {
+        if (!out[rr]) continue;
+        for (int q = lt; q < 4 * NVR; q += NL) {
+          const int cr = q / NVR, vq = q - cr * NVR, c = cr >> 1, run = cr & 1;
+          const int mf = slice_m(rank, run * K, K, S::MX);
+          T* dst = out[rr] + c * opair[rr] + mf * S::NX;
+          const int j0 =
+              vq * VW - static_cast<int>((reinterpret_cast<uintptr_t>(dst) / sizeof(T)) % VW);
+          Vec<T, VW> x = load_vec<T, VW>(xs + (rr * 4 + cr) * RUNP + vq * VW);
 #pragma unroll
-        for (int rr = 0; rr < R; ++rr)
-          if (out[rr]) {
-            out[rr][m * S::NX + n] = sum[rr][0];
-            out[rr][opair[rr] + m * S::NX + n] = sum[rr][1];
+          for (int v = 0; v < VW; ++v) {
+            const int j = j0 + v, mr = j / S::NX;
+            if (j >= 0 && j < RUN && j - mr * S::NX + mf + mr >= S::NX) x.v[v] = T(0);
           }
+          if (j0 >= 0 && j0 + VW <= RUN) {
+            *reinterpret_cast<Vec<T, VW>*>(dst + j0) = x;
+          } else {
+#pragma unroll
+            for (int v = 0; v < VW; ++v)
+              if (j0 + v >= 0 && j0 + v < RUN) dst[j0 + v] = x.v[v];
+          }
+        }
       }
+      if (unit + ncl < units) cluster_arrive_relaxed();   // buffer s is free
     }
-    // Zeros past the triangle: n = nx - m .. nx - 1 of the block's rows m.
-#pragma unroll
-    for (int rr = 0; rr < R; ++rr)
-      if (out[rr])
-        for (int ml = 0; ml < MS; ++ml) {
-          const int m = slice_m(rank, ml, K, S::MX);
-          if (tid < m) {
-            out[rr][m * S::NX + S::NX - m + tid] = T(0);
-            out[rr][opair[rr] + m * S::NX + S::NX - m + tid] = T(0);
-          }
-        }
   }
 }
 
@@ -1212,8 +1298,9 @@ void plan_of(int* out) {
   using P = Plan<S, T, G>;
   const int v[] = {P::C, P::K, P::NP, P::R, P::NPAD, P::KS, P::DIR_THREADS,
                    static_cast<int>(P::DIR_SMEM), P::GBUF, P::INV_THREADS, P::INV_SVW,
-                   P::INV_R, static_cast<int>(P::INV_SMEM)};
-  for (int q = 0; q < 13; ++q) out[q] = v[q];
+                   P::INV_R, static_cast<int>(P::INV_SMEM), P::DIR_DFT_WARPS,
+                   P::DIR_LEG_WARPS, P::DIR_MINB};
+  for (int q = 0; q < 16; ++q) out[q] = v[q];
 }
 
 // 47 or 63 for the shapes the kernels are built for, else 0.
@@ -1226,11 +1313,12 @@ int shape_of(int il, int ix, int mx, int nx) {
 }  // namespace
 
 // out, the Plan at truncation 47 or 63 in a mode (see
-// pyspeedy_fused_transform_hires), 13 ints: blocks a cluster, m pairs of a
+// pyspeedy_fused_transform_hires), 16 ints: blocks a cluster, m pairs of a
 // block, latitude pairs of a band, rows a direct cluster step, MMA columns of
 // a direct step, MMA depth; the direct kernel's threads and shared memory
 // (bytes), its grid buffers; the inverse kernel's threads, latitude pairs a
-// Legendre item, rows a step and shared memory (bytes). Needs no device.
+// Legendre item, rows a step and shared memory (bytes); the direct kernel's
+// DFT warps, Legendre warps and blocks an SM. Needs no device.
 extern "C" int pyspeedy_fused_transform_hires_plan(int trunc, int mode, int* out) {
   using B = __nv_bfloat16;
   if (trunc == 47 && mode == 0) plan_of<T47, float>(out);

@@ -8,9 +8,9 @@ With no argument it times all four: the transform probes at 256 and 9,344
 rows (float32 and float64), the DFT chain at 256 members, rows 3-4 at
 T47 and T63 (``fused_grid2spec_many_cuda`` / ``fused_spec2grid_many_cuda``
 on the step's three transform groups at B=128: the direct group of 10
-fields, the dynamics' 7 inverse fields and the physics' 5, float32 and
-float64; in a tree whose library keeps several inverse designs, each of
-them, the plan's marked), and row 6 at T30, T47 and T63 (``spectral_update_cuda`` at B=128
+fields, also from a bfloat16 grid, the dynamics' 7 inverse fields and the
+physics' 5, float32 and float64; in a tree whose library keeps several
+inverse designs, each of them, the plan's marked), and row 6 at T30, T47 and T63 (``spectral_update_cuda`` at B=128
 on seeded inputs of the step's magnitudes, float32 and float64, into new
 tensors, and in float32 also in place, into the state it reads, as the
 graphs would run it without their two pair sets). The times come from the
@@ -102,10 +102,10 @@ def device_ms_all(fn, kernels, reps: int = 10) -> float:
 def hires_groups(sp, params, rng) -> dict:
     """The step's three transform groups at B=HIRES_MEMBERS, seeded, with
     the step's row counts (the direct group: one surface field and nine
-    level stacks; the dynamics' inverse group: six level stacks and the
-    stacked log-ps gradient; the physics' group: four stacks, log ps, kcos 2
-    for the winds), the pair axis at 1. Returns {name: (kind, fields,
-    kcos)}."""
+    level stacks, also rounded to bfloat16 as bf16_tendencies hands it
+    over; the dynamics' inverse group: six level stacks and the stacked
+    log-ps gradient; the physics' group: four stacks, log ps, kcos 2 for
+    the winds), the pair axis at 1. Returns {name: (kind, fields, kcos)}."""
     b, kx = HIRES_MEMBERS, params.kx
     tri = torch.from_numpy((np.arange(sp.mx)[:, None]
                             + np.arange(sp.nx)[None] <= sp.nx - 1)
@@ -114,8 +114,11 @@ def hires_groups(sp, params, rng) -> dict:
         (b, 2) + s + (sp.mx, sp.nx))).to("cuda", sp.rdtype) * tri
     grid = lambda *s: torch.from_numpy(rng.standard_normal(
         (b,) + s + (sp.il, sp.ix))).to("cuda", sp.rdtype)
+    direct = [grid()] + [grid(kx) for _ in range(9)]
     return {
-        "direct": ("direct", [grid()] + [grid(kx) for _ in range(9)], None),
+        "direct": ("direct", direct, None),
+        "direct, bf16 grid": ("direct", [g.to(torch.bfloat16) for g in direct],
+                              None),
         "inverse, dynamics": ("inverse", [spec(kx) for _ in range(6)]
                               + [spec(2)], [1] * 7),
         "inverse, physics": ("inverse", [spec(kx) for _ in range(4)]

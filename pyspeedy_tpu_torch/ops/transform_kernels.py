@@ -152,6 +152,11 @@ def hires_cluster_plan(shape, dtype) -> dict:
     * ``rows_per_step``: field rows a cluster transforms between two
       exchanges; ``band_columns``: the MMA columns of a step, (row, pair,
       hemisphere) in that order, padded to a multiple of 8 with zeros;
+    * the direct kernel's warps: ``direct_dft_warps``, a warp of the DFT a
+      (parity, 16 wavenumber columns) tile, a step ahead of
+      ``direct_legendre_warps`` warps of the Legendre sums (2 at T47 in
+      float32, where two blocks share an SM, else 4); ``direct_threads``,
+      both;
     * ``mma_k``: the depth of one tensor-core product (8 for 3xTF32, 4 for
       DMMA), the order in which the DFT's k loop adds its terms;
     * the inverse's: ``inverse_threads``, a warp of the DFT a (parity, 16
@@ -168,6 +173,8 @@ def hires_cluster_plan(shape, dtype) -> dict:
     f64 = dtype == torch.float64
     c = 8 if f64 and il == 96 else 4
     k, rows, pairs, iy = mx // (2 * c), 2, il // 2 // c, il // 2
+    dft_warps = 2 * ((mx + 1) // 2 * 2 // 16)
+    leg_warps = 2 if (il == 72 and not f64) else 4
     svw = next(d for d in range(1, iy + 1) if iy % d == 0
                and k * (iy // d) * 2 <= 32 * INVERSE_LEGENDRE_WARPS)
     return {
@@ -175,6 +182,9 @@ def hires_cluster_plan(shape, dtype) -> dict:
         "inverse_threads": 32 * (2 * -(-ix // 2 // 16)
                                  + INVERSE_LEGENDRE_WARPS),
         "inverse_rows_per_step": 4 if (il == 72 and not f64) else 2,
+        "direct_dft_warps": dft_warps,
+        "direct_legendre_warps": leg_warps,
+        "direct_threads": 32 * (dft_warps + leg_warps),
         "cluster": c, "pairs_per_band": pairs, "rows_per_step": rows,
         "band_columns": -(-rows * 2 * pairs // 8) * 8,
         "bands": tuple((r * pairs, (r + 1) * pairs) for r in range(c)),
@@ -188,7 +198,8 @@ def hires_cluster_plan(shape, dtype) -> dict:
 _PLAN_FIELDS = ("cluster", "m_pairs", "pairs_per_band", "rows_per_step",
                 "band_columns", "mma_k", "direct_threads", "direct_smem",
                 "grid_buffers", "inverse_threads", "inverse_pairs_per_item",
-                "inverse_rows_per_step", "inverse_smem")
+                "inverse_rows_per_step", "inverse_smem", "direct_dft_warps",
+                "direct_legendre_warps", "direct_blocks_per_sm")
 _kernel_plans: dict = {}
 
 
@@ -201,7 +212,8 @@ def hires_kernel_plan(sp, grid_dtype=None) -> dict:
     latitude pairs of a band, rows a direct step, MMA columns and depth),
     threads and shared memory (bytes) of the direct block, its grid
     buffers, the inverse block's threads, latitude pairs a Legendre item,
-    rows a step and shared memory, with ``direct_kernels`` /
+    rows a step and shared memory, the direct block's DFT and Legendre
+    warps and its blocks an SM, with ``direct_kernels`` /
     ``inverse_kernels``, the device kernels a call launches."""
     grid_dtype = sp.rdtype if grid_dtype is None else grid_dtype
     key = (sp.il, sp.ix, sp.mx, sp.nx, sp.rdtype, grid_dtype)

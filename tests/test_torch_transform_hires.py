@@ -36,6 +36,7 @@ that compare with them), so ``-m gpu`` runs it on a card without JAX.
 """
 
 import dataclasses
+import hashlib
 
 import numpy as np
 import pytest
@@ -190,6 +191,63 @@ def test_the_plan_covers_every_latitude_and_entry_once(preset, plan_prec):
     cols = plan["rows_per_step"] * 2 * plan["pairs_per_band"]
     assert plan["band_columns"] % 8 == 0
     assert cols <= plan["band_columns"] < cols + 8
+
+
+def legendre_work(ms, nx, threads):
+    """The direct kernel's Legendre sums of a block whose m are `ms` (in
+    slice order) on `threads` threads: thread t sums entries t, t +
+    threads, ... of the slice (the K low m's rows, then their mirrors',
+    each row's n ascending). [[(local m, n), ...] a thread]."""
+    slice_entries = [(ml, n) for ml, m in enumerate(ms) for n in range(nx - m)]
+    return [slice_entries[t::threads] for t in range(threads)]
+
+
+@pytest.mark.parametrize("plan_prec", sorted(DTYPES))
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_the_direct_legendre_work_and_stores_cover_each_row_once(
+        preset, plan_prec):
+    """The direct kernel's Legendre threads take every entry of a block's
+    slice once, none more than its share rounded up; its staged stores (for
+    a row and part, a run of the K low m and one of their mirrors, nx values
+    each, shifted by the destination's alignment modulo a 16-byte vector,
+    read back a vector at a time) write each element of those rows once, the
+    entry (m, n) where m + n < nx and a zero elsewhere, whatever the
+    alignment; the staged runs of a step fit in the Fourier values it has
+    read."""
+    tsp = transforms(preset)
+    iy, mx, nx = tsp.il // 2, tsp.mx, tsp.nx
+    plan = plan_of(preset, plan_prec)
+    threads = 32 * plan["direct_legendre_warps"]
+    vw = 16 // DTYPES[plan_prec].itemsize
+    k = len(plan["m_slices"][0]) // 2
+    run = k * nx
+    runp = (run + 2 * (vw - 1)) // vw * vw
+    assert 4 * runp <= 2 * k * 4 * iy and runp % vw == 0
+    for ms in plan["m_slices"]:
+        work = legendre_work(ms, nx, threads)
+        flat = [e for w in work for e in w]
+        assert sorted((ms[ml], n) for ml, n in flat) == \
+            sorted((m, n) for m in ms for n in range(nx - m))
+        assert max(len(w) for w in work) == -(-len(flat) // threads)
+        for shift in range(vw):
+            stage = {}
+            for ml, n in flat:
+                pos = (ml // k) * runp + shift + (ml % k) * nx + n
+                assert pos not in stage
+                stage[pos] = (ms[ml], n)
+            written = {}
+            for q in range(2 * runp // vw):
+                r, vq = divmod(q, runp // vw)
+                for v in range(vw):
+                    j = vq * vw - shift + v
+                    if 0 <= j < run:
+                        m, n = ms[r * k] + j // nx, j % nx
+                        assert (r, j) not in written
+                        written[r, j] = (0 if m + n >= nx else
+                                         stage[r * runp + vq * vw + v])
+                        assert written[r, j] in (0, (m, n))
+                        assert (written[r, j] == 0) == (m + n >= nx)
+            assert len(written) == 2 * run
 
 
 @pytest.mark.parametrize("plan_prec", sorted(DTYPES))
@@ -678,25 +736,95 @@ def _card_fields(sp, seed):
     return grids, pairs
 
 
+def direct_digest(preset, prec, grid):
+    """sha256 (hex) of the direct kernel's outputs, in order, for one
+    seeded group of three fields: a (40, 8) stack (320 rows), 61 rows, and
+    the middle level of a (50, 3) stack (a strided member axis); 431 rows,
+    so the last cluster step holds one row. The grids are in the tables'
+    type, or rounded to bfloat16 with `grid` "bf16"."""
+    sp = _card_tables(preset, prec)
+    rng = np.random.default_rng(1334)
+
+    def field(*lead):
+        g = torch.from_numpy(rng.standard_normal(lead + (sp.il, sp.ix))).to(
+            "cuda", sp.rdtype)
+        return g.to(torch.bfloat16) if grid == "bf16" else g
+
+    fields = [field(40, 8), field(61), field(50, 3)[:, 1]]
+    h = hashlib.sha256()
+    for out in TK.fused_grid2spec_many_cuda(sp, fields, 1):
+        h.update(out.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("prec", ["f64", "f32"])
 @pytest.mark.parametrize("preset", sorted(PRESETS))
 def test_the_library_plan_is_the_modelled_decomposition(preset, prec):
     """Needs nvcc (and a card for the tables): the plan the library reports
     has the CPU model's blocks a cluster, bands, m pairs a block, rows a
-    step, MMA columns and depth, the inverse's threads, latitude pairs a
-    Legendre item and rows a step; each cluster block's shared memory fits
-    in 227 KiB; a call launches one kernel a direction."""
+    step, MMA columns and depth, the direct kernel's DFT and Legendre warps
+    (for a grid of the tables' type and of bfloat16), the inverse's threads,
+    latitude pairs a Legendre item and rows a step; each cluster block's
+    shared memory fits in 227 KiB, the direct kernel's blocks an SM (two at
+    T47 in float32, else one);
+    a call launches one kernel a direction."""
     sp = _card_tables(preset, prec)
     plan = TK.hires_kernel_plan(sp)
     model = plan_of(preset, prec)
     for key in ("cluster", "pairs_per_band", "rows_per_step", "band_columns",
                 "mma_k", "inverse_threads", "inverse_pairs_per_item",
-                "inverse_rows_per_step"):
+                "inverse_rows_per_step", "direct_dft_warps",
+                "direct_legendre_warps", "direct_threads"):
         assert plan[key] == model[key], key
     assert plan["m_pairs"] == len(model["m_slices"][0]) // 2
     assert max(plan["direct_smem"], plan["inverse_smem"]) <= 227 * 1024
+    assert plan["direct_blocks_per_sm"] == (
+        2 if (preset, prec) == ("T47", "f32") else 1)
+    assert plan["direct_kernels"] == ("hires_direct_cluster_kernel",)
     assert plan["inverse_kernels"] == ("hires_inverse_ws_kernel",)
+    bf16 = TK.hires_kernel_plan(sp, torch.bfloat16)
+    for key in ("cluster", "rows_per_step", "direct_dft_warps",
+                "direct_legendre_warps", "direct_threads"):
+        assert bf16[key] == model[key], key
+    assert bf16["direct_smem"] <= 227 * 1024
+
+
+# The direct kernel's outputs on direct_digest's groups, recorded from the
+# kernel's serial schedule (one role of warps, a whole cluster barrier a
+# step) on an NVIDIA H100: the warp-specialised schedule computes every sum
+# in the same order, so it must give the same bits.
+DIRECT_DIGESTS = {
+    ("T47", "f32", "same"):
+        "31219276e33c1e812bb07b1233dd22903f40505ab45b64ef28f74b6033ee617e",
+    ("T47", "f32", "bf16"):
+        "dd87b214e93a799390a9f28143b246ac228cedd8a496e2be5ce34c1ed1aed7ec",
+    ("T47", "f64", "same"):
+        "80725175b0db3067072c6aff8ee140358f3ecb41aeb223b02aee21d391e30baf",
+    ("T47", "f64", "bf16"):
+        "70d3dd5d7b806615b0e77eb52405c9ea661b2736ac2cc1ed32988d7a9ce099d0",
+    ("T63", "f32", "same"):
+        "20e45a5e8dcad3ab2d8351edfe72d07fb192c22cfd0857f60074e49cbc49b05b",
+    ("T63", "f32", "bf16"):
+        "821a55d1cef33e93e8704d41fe8324ed1c514b7d9bc47bb93e550188331a8191",
+    ("T63", "f64", "same"):
+        "3bdee3a468e71cce61df7d4b20d4147b1b678951acf41826890d7a5966a46b31",
+    ("T63", "f64", "bf16"):
+        "195e6879872b8bbaf6274992b894b138fe4b710a87a2f3b3409f14df63454232",
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", ["same", "bf16"])
+@pytest.mark.parametrize("prec", ["f64", "f32"])
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_the_direct_kernel_gives_its_recorded_bits(preset, prec, grid):
+    """Needs an NVIDIA GPU and nvcc: the direct kernel's outputs on seeded
+    groups (T47 / T63, float / double tables, a grid of the tables' type or
+    of bfloat16) hash to the recorded digests, twice."""
+    want = DIRECT_DIGESTS[preset, prec, grid]
+    assert direct_digest(preset, prec, grid) == want
+    assert direct_digest(preset, prec, grid) == want
 
 
 @pytest.mark.gpu
@@ -743,16 +871,65 @@ def test_a_group_equals_its_fields_one_by_one_on_the_card(preset, prec):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["f64", "f32"])
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_a_bf16_grid_matches_the_einsum_chain_on_the_card(preset, prec):
+    """Needs an NVIDIA GPU and nvcc: a bfloat16 grid, in strided layouts,
+    transforms within 1e-12 (f64) / 1e-5 (f32) of the largest value of the
+    einsum chain on the widened grid, and bitwise as the kernel of the
+    tables' type on that widened grid."""
+    sp = _card_tables(preset, prec)
+    grids, _ = _card_fields(sp, 1335)
+    limit = 1e-12 if prec == "f64" else 1e-5
+    for g in grids:
+        b = g.to(torch.bfloat16)
+        got = TK.fused_grid2spec_cuda(sp, b, 1)
+        wide = b.to(sp.rdtype)
+        want = TK.grid2spec_hires_plain(sp, wide, 1)
+        assert float((got - want).abs().max() / want.abs().max()) <= limit
+        assert torch.equal(got, TK.fused_grid2spec_cuda(sp, wide, 1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prec", ["f64", "f32"])
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_a_bf16_group_equals_its_fields_one_by_one_on_the_card(preset, prec):
+    """Needs an NVIDIA GPU and nvcc: a group of bfloat16 grids is one
+    launch of the bfloat16 instantiation, its outputs bitwise those of the
+    fields launched alone."""
+    sp = _card_tables(preset, prec)
+    grids = [g.to(torch.bfloat16) for g in _card_fields(sp, 1336)[0]]
+    before = ck.launch_counts["fused_grid2spec_hires_bf16"]
+    many = TK.fused_grid2spec_many(sp, grids, 1)
+    assert ck.launch_counts["fused_grid2spec_hires_bf16"] == before + 1
+    for g, got in zip(grids, many):
+        assert torch.equal(got, TK.fused_grid2spec_cuda(sp, g, 1))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("preset", sorted(PRESETS))
 def test_a_member_alone_is_bitwise_that_member_of_a_batch(preset):
     """Needs an NVIDIA GPU and nvcc: member 5 of 8 distinct members, run
     alone, equals that member of the batch bitwise after 6 steps of the
     full-physics T47 / T63 model through the kernels."""
+    _member_alone_check(preset, bf16_tendencies=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("preset", sorted(PRESETS))
+def test_a_member_alone_is_bitwise_that_member_with_bf16_tendencies(preset):
+    """Needs an NVIDIA GPU and nvcc: as above with bf16_tendencies, the
+    direct transforms of the steps taking a bfloat16 grid."""
+    _member_alone_check(preset, bf16_tendencies=True)
+
+
+def _member_alone_check(preset, bf16_tendencies):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
     p = dataclasses.replace(PRESETS[preset], precision="f32",
                             fft_mode="matmul")
-    consts, state1, cal = make_demo_model(p, device="cuda")
+    consts, state1, cal = make_demo_model(p, device="cuda",
+                                          bf16_tendencies=bf16_tendencies)
     assert consts.sp.use_fused_kernels
     run = TE.make_run_steps_batched(consts, device="cuda")
     batch = broadcast_state(state1, 8)
@@ -766,8 +943,11 @@ def test_a_member_alone_is_bitwise_that_member_of_a_batch(preset):
                 else v[5:6]) if k in TM.CARRY_FIELDS else v)
            for k, v in batch.items()}
     ctx = lambda: TM.build_step_ctx(dataclasses.replace(cal), 2, 6)[0]
+    before = ck.launch_counts["fused_grid2spec_hires_bf16"]
     out8 = run(batch, ctx())
     out1 = run(one, ctx())
+    assert (ck.launch_counts["fused_grid2spec_hires_bf16"] > before) \
+        == bf16_tendencies
     for name in ("vor", "div", "t", "ps", "tr"):
         for a, b in zip(out8[name], out1[name]):
             assert torch.equal(a[5:6], b), name
